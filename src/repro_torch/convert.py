@@ -1,0 +1,69 @@
+"""Carry state between the JAX package's pytrees and the port's tensors.
+
+The two packages share one layout (dicts and lists of arrays), so the
+conversion is a tree map plus dtype and device handling:
+
+* ``to_torch(tree, device)``: numpy-convertible leaves (numpy or JAX
+  arrays, numpy scalars) -> tensors on ``device``.  uint32 leaves (the
+  CCE ``hs`` hash coefficients) become int64, since torch has no usable
+  uint32 arithmetic; bfloat16 crosses bit for bit.
+* ``to_numpy(tree)``: tensors -> numpy arrays; the int64 ``hs`` leaves
+  go back to uint32, bfloat16 to ``ml_dtypes.bfloat16``.
+
+Tuples and lists keep their type; other leaves (python ints, strings,
+None) pass through unchanged.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+#: Dict keys whose leaves are uint32 in the JAX package.
+UINT32_KEYS = frozenset({"hs"})
+
+
+def _leaf_to_torch(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    elif a.dtype == np.uint32:
+        t = torch.from_numpy(a.astype(np.int64))
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device)
+
+
+def _leaf_to_numpy(t: torch.Tensor, uint32: bool) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    a = t.numpy()
+    return a.astype(np.uint32) if uint32 else a
+
+
+def _is_leaf(x) -> bool:
+    return isinstance(x, (np.ndarray, np.generic)) or hasattr(x, "__array__")
+
+
+def to_torch(tree, device="cuda"):
+    """JAX-package pytree (numpy or JAX arrays) -> the port's tensors."""
+    if isinstance(tree, dict):
+        return {k: to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_torch(v, device) for v in tree)
+    if _is_leaf(tree):
+        return _leaf_to_torch(tree, device)
+    return tree
+
+
+def to_numpy(tree, *, _uint32: bool = False):
+    """The port's tensors -> numpy arrays in the JAX package's dtypes."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v, _uint32=k in UINT32_KEYS) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy(v, _uint32=_uint32) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return _leaf_to_numpy(tree, _uint32)
+    return tree

@@ -1,0 +1,389 @@
+"""EmbeddingCollection -- grouped supertables for multi-feature models,
+single-device.
+
+Every table whose lookup is a per-column gather-sum (``fuse_spec``: CCE
+and small full tables) stacks into ONE universal supertable
+(total cols, T, max k_f, dsub) per dtype, looked up by ONE fused
+``kops.cce_lookup`` launch.  Tables with different natural column widths
+split into sub-columns of the group gcd; tables with fewer than T
+sub-tables pad their row tensor with the ``-1`` sentinel, which
+contributes exactly zero.  Big full tables, which the waste bound keeps
+out of the supertable, batch into one padded (F, max d1, d2) gather.
+
+State layout (the JAX package's "grouped layout"):
+
+    params["emb"]  : [group_params, ...]         one entry per group
+    buffers["emb"] : [[feat_buffers, ...], ...]  per group, per feature
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import embeddings as emb_lib
+from repro_torch.kernels import ops as kops
+
+#: Sub-partition a "full" group when padding every table to the group max
+#: would blow past this multiple of the smallest table in the bucket.
+FULL_PAD_RATIO = 8
+
+#: A universal supertable may cost at most this multiple of its members'
+#: natural parameter count; buckets split greedily (largest k first).
+UNIV_PAD_WASTE = 3.5
+
+#: Each member's padded slab must also stay within UNIV_PAD_WASTE of its
+#: own natural size, unless it is below this many elements.
+UNIV_PAD_SLACK_ELEMS = 1 << 20
+
+
+@dataclasses.dataclass(frozen=True)
+class TableGroup:
+    kind: str  # "univ" | "full"
+    features: tuple[int, ...]  # global feature indices, ascending
+    tables: tuple[Any, ...]  # the features' method objects, same order
+    # universal groups only: the shared sub-column width (gcd of member
+    # natural dsubs) and stacked-table count (max member n_tables)
+    dsub: int | None = None
+    n_tables: int | None = None
+    #: round the codebook axis up to a multiple of this (the model-shard
+    #: count of a sharded layout); extra rows are zero and unreachable
+    k_multiple: int = 1
+
+    @functools.cached_property
+    def col_counts(self) -> tuple[int, ...]:
+        """Supertable columns per feature (natural cols x dsub split)."""
+        return tuple(
+            t.fuse_spec.cols * (t.fuse_spec.dsub // self.dsub) for t in self.tables
+        )
+
+    @property
+    def n_cols(self) -> int:
+        return sum(self.col_counts)
+
+    @property
+    def k_pad(self) -> int:
+        k = max(t.fuse_spec.k for t in self.tables)
+        return -(-k // self.k_multiple) * self.k_multiple
+
+
+# --- universal-slab plumbing --------------------------------------------------
+
+
+def _split_slab(nat: torch.Tensor, dsub: int, n_tables: int) -> torch.Tensor:
+    """Natural (c, T, k, d) slab -> group layout (c*s, T_g, k, dsub): each
+    column splits into s = d/dsub sub-columns, missing sub-tables are
+    zero-padded."""
+    c, T, k, d = nat.shape
+    s = d // dsub
+    x = nat.reshape(c, T, k, s, dsub).movedim(3, 1).reshape(c * s, T, k, dsub)
+    if T < n_tables:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, n_tables - T))
+    return x
+
+
+def _merge_slab(slab: torch.Tensor, spec: emb_lib.FuseSpec, dsub: int) -> torch.Tensor:
+    """Inverse of ``_split_slab`` (slab already sliced to the feature's k)."""
+    s = spec.dsub // dsub
+    x = slab[:, : spec.n_tables]
+    x = x.reshape(spec.cols, s, spec.n_tables, x.shape[2], dsub)
+    return x.movedim(1, 3).reshape(spec.cols, spec.n_tables, x.shape[3], spec.dsub)
+
+
+def _expand_rows(rows, s: int, n_tables: int):
+    """Natural (c, B, T) rows -> group (c*s, B, T_g): sub-columns share
+    their parent column's rows; padded T slots get the -1 sentinel.
+    ``rows`` is a numpy array (host translation) or a tensor (device),
+    with bit-identical results."""
+    T = rows.shape[-1]
+    if isinstance(rows, torch.Tensor):
+        if s > 1:
+            rows = rows.repeat_interleave(s, dim=0)
+        if T < n_tables:
+            pad = rows.new_full(rows.shape[:-1] + (n_tables - T,), -1)
+            rows = torch.cat([rows, pad], dim=-1)
+        return rows
+    if s > 1:
+        rows = np.repeat(rows, s, axis=0)
+    if T < n_tables:
+        pad = np.full(rows.shape[:-1] + (n_tables - T,), -1, rows.dtype)
+        rows = np.concatenate([rows, pad], axis=-1)
+    return rows
+
+
+def bucket_rows(rows: np.ndarray, k_loc: int, n_shards: int) -> np.ndarray:
+    """Route global rows (with the -1 sentinel) to their owning model
+    shard: (n_shards, *rows.shape) int32, bucket ``s`` holding shard-local
+    indices for the rows in ``[s*k_loc, (s+1)*k_loc)`` and -1 elsewhere."""
+    owner = rows // k_loc
+    return np.stack(
+        [np.where((rows >= 0) & (owner == s), rows - s * k_loc, -1)
+         for s in range(n_shards)]
+    ).astype(np.int32)
+
+
+def _gcd_all(vals) -> int:
+    return functools.reduce(math.gcd, vals)
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbeddingCollection:
+    tables: tuple[Any, ...]
+    groups: tuple[TableGroup, ...]
+
+    # --- construction ----------------------------------------------------
+
+    @classmethod
+    def build(cls, tables: Sequence[Any], k_multiple: int = 1) -> "EmbeddingCollection":
+        """Universal fusion (the JAX package's ``mode="univ"``): every
+        gather-sum table joins one waste-bounded supertable per dtype;
+        full-only buckets keep the padded gather."""
+        tables = tuple(tables)
+        legacy: list[int] = []
+        groups: list[TableGroup] = []
+        fusable: dict[str, list[int]] = {}
+        for i, t in enumerate(tables):
+            if not hasattr(t, "fuse_spec"):
+                raise ValueError(f"table {i} ({type(t).__name__}) has no fuse_spec")
+            fusable.setdefault(str(t.dtype), []).append(i)
+        for feats in fusable.values():
+            for bucket in cls._partition_univ(feats, tables):
+                if all(isinstance(tables[i], emb_lib.FullTable) for i in bucket):
+                    legacy.extend(bucket)
+                    continue
+                members = sorted(bucket)
+                specs = [tables[i].fuse_spec for i in members]
+                groups.append(
+                    TableGroup(
+                        "univ",
+                        tuple(members),
+                        tuple(tables[i] for i in members),
+                        dsub=_gcd_all(s.dsub for s in specs),
+                        n_tables=max(s.n_tables for s in specs),
+                        k_multiple=k_multiple,
+                    )
+                )
+        by_sig: dict[Any, list[int]] = {}
+        for i in legacy:
+            by_sig.setdefault(tables[i].group_signature(), []).append(i)
+        for feats in by_sig.values():
+            for bucket in cls._partition_full(feats, tables):
+                groups.append(
+                    TableGroup("full", tuple(bucket), tuple(tables[i] for i in bucket))
+                )
+        groups.sort(key=lambda g: g.features[0])
+        return cls(tables, tuple(groups))
+
+    @staticmethod
+    def _partition_univ(feats, tables):
+        """Split a universal bucket so the padded supertable never costs
+        more than ``UNIV_PAD_WASTE`` times the members' natural parameters,
+        in aggregate and per member (unless that member's padded slab is
+        below ``UNIV_PAD_SLACK_ELEMS``).  Greedy, largest k first."""
+
+        def admits(members):
+            specs = [tables[i].fuse_spec for i in members]
+            k_pad = max(s.k for s in specs)
+            T = max(s.n_tables for s in specs)
+            padded = natural = 0
+            for s in specs:
+                w = s.cols * s.dsub
+                p, n = w * T * k_pad, w * s.n_tables * s.k
+                if p > UNIV_PAD_WASTE * n and p > UNIV_PAD_SLACK_ELEMS:
+                    return False
+                padded += p
+                natural += n
+            return padded <= UNIV_PAD_WASTE * natural
+
+        order = sorted(feats, key=lambda i: (-tables[i].fuse_spec.k, i))
+        buckets, cur = [], [order[0]]
+        for i in order[1:]:
+            if admits(cur + [i]):
+                cur.append(i)
+            else:
+                buckets.append(cur)
+                cur = [i]
+        buckets.append(cur)
+        return buckets
+
+    @staticmethod
+    def _partition_full(feats, tables):
+        """Split a full-table bucket by d1 ratio (``FULL_PAD_RATIO``)."""
+        feats = sorted(feats, key=lambda i: tables[i].d1)
+        buckets, cur = [], [feats[0]]
+        for i in feats[1:]:
+            if tables[i].d1 > FULL_PAD_RATIO * tables[cur[0]].d1:
+                buckets.append(cur)
+                cur = [i]
+            else:
+                cur.append(i)
+        buckets.append(cur)
+        return buckets
+
+    # --- shape facts ------------------------------------------------------
+
+    @property
+    def n_features(self) -> int:
+        return len(self.tables)
+
+    @functools.cached_property
+    def _locate(self) -> dict[int, tuple[int, int]]:
+        """feature index -> (group index, index within group)."""
+        return {
+            i: (g, f_local)
+            for g, grp in enumerate(self.groups)
+            for f_local, i in enumerate(grp.features)
+        }
+
+    @functools.cached_property
+    def univ_groups(self) -> tuple[int, ...]:
+        return tuple(g for g, grp in enumerate(self.groups) if grp.kind == "univ")
+
+    @property
+    def rows_n_tables(self) -> int:
+        """T of the host-translated rows tensor."""
+        return max((self.groups[g].n_tables for g in self.univ_groups), default=0)
+
+    @property
+    def rows_n_cols(self) -> int:
+        """Supertable columns across universal groups: the rows tensor is
+        (B, rows_n_cols, rows_n_tables) int32."""
+        return sum(self.groups[g].n_cols for g in self.univ_groups)
+
+    @functools.cached_property
+    def rows_col_feature(self) -> np.ndarray:
+        """(rows_n_cols,) int32: the global feature owning each column of
+        the rows tensor, in the order ``rows`` concatenates groups."""
+        out = []
+        for g in self.univ_groups:
+            grp = self.groups[g]
+            for f_local, n in enumerate(grp.col_counts):
+                out.extend([grp.features[f_local]] * n)
+        return np.asarray(out, np.int32)
+
+    # --- init / stacking --------------------------------------------------
+
+    def init(self, generator: torch.Generator, device="cuda"):
+        """Per-feature init in feature order from one generator, then
+        stack into the grouped layout."""
+        per_p, per_b = [], []
+        for t in self.tables:
+            p, b = t.init(generator, device)
+            per_p.append(p)
+            per_b.append(b)
+        return self.stack_params(per_p), self.stack_buffers(per_b)
+
+    def stack_group_params(self, grp: TableGroup, params_seq):
+        if grp.kind == "univ":
+            slabs = [
+                _split_slab(t.fuse_slab(p), grp.dsub, grp.n_tables)
+                for t, p in zip(grp.tables, params_seq)
+            ]
+            return {"tables": kops.pad_stack_tables(slabs, k_pad=grp.k_pad)}
+        return emb_lib.FullTable.stack_many(grp.tables, params_seq)
+
+    def unstack_group_params(self, grp: TableGroup, group_params):
+        if grp.kind == "univ":
+            out, off = [], 0
+            for t, n in zip(grp.tables, grp.col_counts):
+                spec = t.fuse_spec
+                slab = group_params["tables"][off : off + n, :, : spec.k, :]
+                out.append(t.unfuse_slab(_merge_slab(slab, spec, grp.dsub)))
+                off += n
+            return out
+        return emb_lib.FullTable.unstack_many(grp.tables, group_params)
+
+    def stack_params(self, per_feature):
+        """Per-feature params list -> grouped layout."""
+        return [
+            self.stack_group_params(grp, [per_feature[i] for i in grp.features])
+            for grp in self.groups
+        ]
+
+    def unstack_params(self, grouped):
+        """Grouped layout -> per-feature params list."""
+        out = [None] * self.n_features
+        for g, grp in enumerate(self.groups):
+            for f_local, p in enumerate(self.unstack_group_params(grp, grouped[g])):
+                out[grp.features[f_local]] = p
+        return out
+
+    def stack_buffers(self, per_feature):
+        """Buffers regroup only; they are never stacked."""
+        return [[per_feature[i] for i in grp.features] for grp in self.groups]
+
+    def unstack_buffers(self, grouped):
+        out = [None] * self.n_features
+        for g, grp in enumerate(self.groups):
+            for f_local, i in enumerate(grp.features):
+                out[i] = grouped[g][f_local]
+        return out
+
+    def feature_params(self, emb_params, i: int):
+        g, f_local = self._locate[i]
+        return self.unstack_group_params(self.groups[g], emb_params[g])[f_local]
+
+    def feature_buffers(self, emb_buffers, i: int):
+        g, f_local = self._locate[i]
+        return emb_buffers[g][f_local]
+
+    # --- the hot path -----------------------------------------------------
+
+    def group_rows(self, grp: TableGroup, buffers_seq, ids):
+        """Device-side row translation for one universal group:
+        ids (B, Fg) -> (n_cols, B, T) int32 (ptr gather + helper hash);
+        the host twin is ``data.translate.HostTranslator``."""
+        return torch.cat(
+            [
+                _expand_rows(
+                    t.fuse_rows(buffers_seq[f], ids[:, f]),
+                    grp.col_counts[f] // t.fuse_spec.cols,
+                    grp.n_tables,
+                )
+                for f, t in enumerate(grp.tables)
+            ],
+            dim=0,
+        )
+
+    def _univ_lookup(self, grp: TableGroup, group_params, rows):
+        """(n_cols, B, T) rows + supertable -> (B, n_cols*dsub): ONE fused
+        lookup (the kernel on CUDA tensors)."""
+        return kops.cce_lookup(rows, group_params["tables"])
+
+    def lookup_all(self, emb_params, emb_buffers, sparse, *, rows=None):
+        """All features' embeddings, one heavy lookup per group (ONE on
+        the compressed Criteo configuration).
+
+        sparse (B, n_features) integer ids -> (B, n_features, d2).
+        ``rows`` (B, rows_n_cols, rows_n_tables) int32 are HOST-translated
+        supertable rows (``data.translate``): universal groups then read
+        their column slice of it, through a strided view the kernel takes
+        without a copy, and never touch the pointer tables.  ``sparse``
+        may be None when every group is universal."""
+        outs = [None] * self.n_features
+        col_off = 0
+        for g, grp in enumerate(self.groups):
+            if grp.kind == "univ":
+                if rows is not None:
+                    grows = rows[:, col_off : col_off + grp.n_cols, : grp.n_tables]
+                    grows = grows.movedim(0, 1)  # (n_cols, B, T)
+                    col_off += grp.n_cols
+                else:
+                    ids = sparse[:, list(grp.features)]
+                    grows = self.group_rows(grp, emb_buffers[g], ids)
+                flat = self._univ_lookup(grp, emb_params[g], grows)
+                off = 0
+                for f_local, i in enumerate(grp.features):
+                    n = grp.col_counts[f_local]
+                    outs[i] = flat[:, off * grp.dsub : (off + n) * grp.dsub]
+                    off += n
+                continue
+            ids = sparse[:, list(grp.features)]
+            vecs = emb_lib.FullTable.lookup_many(grp.tables, emb_params[g], emb_buffers[g], ids)
+            for f_local, i in enumerate(grp.features):
+                outs[i] = vecs[:, f_local]
+        return torch.stack(outs, dim=1)
