@@ -11,7 +11,9 @@ conversion is a tree map plus dtype and device handling:
   go back to uint32, bfloat16 to ``ml_dtypes.bfloat16``.
 
 Tuples and lists keep their type; other leaves (python ints, strings,
-None) pass through unchanged.
+None) pass through unchanged.  ``train_state_to_torch`` carries a JAX
+``TrainState`` across whole: params, the optimizer state (its moments
+mirror params), the embedding buffers and the error feedback.
 """
 from __future__ import annotations
 
@@ -67,3 +69,17 @@ def to_numpy(tree, *, _uint32: bool = False):
     if isinstance(tree, torch.Tensor):
         return _leaf_to_numpy(tree, _uint32)
     return tree
+
+
+def train_state_to_torch(state, device="cuda"):
+    """The JAX package's ``train.loop.TrainState`` -> the port's, with
+    every array a tensor on ``device`` and the step a python int."""
+    from repro_torch.train.loop import TrainState
+
+    return TrainState(
+        params=to_torch(state.params, device),
+        opt=to_torch(state.opt, device),
+        ebuf=to_torch(state.ebuf, device),
+        step=int(np.asarray(state.step)),
+        err=to_torch(state.err, device),
+    )

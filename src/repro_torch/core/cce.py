@@ -1,6 +1,6 @@
-"""Clustered Compositional Embeddings (Algorithm 3 of the paper), the
-lookup half: state, buffer init, row translation and the fused lookup.
-The clustering transition is ported in a later slice.
+"""Clustered Compositional Embeddings (Algorithm 3 of the paper): state,
+buffer init, row translation, the fused lookup and the clustering
+transition (``cluster``, single-device).
 
 A CCE table with vocabulary ``d1``, output dim ``d2``, ``c`` columns and
 ``2k`` rows per column (main table M indexed by a learned pointer array,
@@ -15,6 +15,12 @@ State layout (the JAX package's):
     buffers["hs"]     : (c, 2)          -- multiply-shift coeffs of h'_i
                                            (uint32 in numpy, int64 tensors)
     buffers["epoch"]  : () int32        -- transition counter
+
+``cluster()`` is the paper's training-time transition (Alg. 3, lines
+10-17): per column, materialize (a sample of) the current vocabulary
+embeddings, k-means them into k centroids, set ptr_i <- assignments,
+M_i <- centroids, draw a fresh random h'_i and zero M'_i.  It returns new
+tensors and leaves its inputs untouched.
 """
 from __future__ import annotations
 
@@ -25,9 +31,21 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import random as jr
 from repro_torch.core import embeddings as emb_lib
 from repro_torch.core import hashing
+from repro_torch.core import kmeans as km
 from repro_torch.kernels import ops as kops
+
+
+def _segment_sum(vals: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """(n, m) float32 values summed by segment id (n,) -> (n_seg, m), with
+    deterministic algorithms on: the same inputs give the same bits on
+    every run (on CUDA a sorted reduction instead of atomics)."""
+    out = torch.zeros((n_seg, vals.shape[1]), dtype=torch.float32, device=vals.device)
+    with km.deterministic():
+        out.index_add_(0, seg, vals)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,3 +153,133 @@ class CCE:
         # contiguous tables
         out = kops.cce_lookup(rows, params["tables"].contiguous())  # (n, c*dsub)
         return out.reshape(*ids.shape, self.d2)
+
+    # --- the clustering transition (Alg. 3 lines 10-17) ------------------
+
+    def materialize(self, params, buffers, ids):
+        """Current embeddings of 1-d ``ids``, per column: (c, n, dsub)
+        (main row + helper row, in the table dtype)."""
+        rows = self._rows(buffers, ids).to(torch.int64)  # (c, n, 2)
+        tabs = params["tables"]
+        col = torch.arange(self.c, device=tabs.device)[:, None]
+        return tabs[col, 0, rows[..., 0]] + tabs[col, 1, rows[..., 1]]
+
+    def _id_chunks(self, chunk_size: int | None, device):
+        """Full-vocab id ranges as (first id, ids): one range when
+        unchunked, else a stream of ``chunk_size`` slices so (c, d1, dsub)
+        is never materialized."""
+        step = chunk_size if chunk_size and chunk_size < self.d1 else self.d1
+        for s in range(0, self.d1, step):
+            yield s, torch.arange(s, min(s + step, self.d1), device=device)
+
+    def assign_all(self, params, buffers, centroids, *, chunk_size: int | None = None,
+                   use_kernel: bool | None = None) -> torch.Tensor:
+        """Single-pass full-vocab nearest-centroid assignment.
+
+        ``centroids`` (c, k, dsub) -> (c, d1) int32.  The vocabulary is
+        materialized once, in ``chunk_size`` id slices; per chunk and
+        column the assignment routes through ``kops.kmeans_assign`` when
+        ``use_kernel`` (default: on a CUDA device, as the JAX package takes
+        its kernel on the TPU).  Chunking cannot change an argmin: each
+        point's distances are its own."""
+        device = centroids.device
+        if use_kernel is None:
+            use_kernel = device.type == "cuda"
+        out = torch.empty((self.c, self.d1), dtype=torch.int32, device=device)
+        for s, ids in self._id_chunks(chunk_size, device):
+            emb = self.materialize(params, buffers, ids)  # (c, n, dsub)
+            for i in range(self.c):
+                out[i, s: s + ids.shape[0]] = km.assign(
+                    emb[i], centroids[i], use_kernel=use_kernel)
+        return out
+
+    def _finish_transition(self, key, centroids, assignments, buffers):
+        """Install centroids as the main tables, zero the helper tables
+        (Alg. 3 line 17), draw fresh helper hashes, advance the epoch."""
+        tables = torch.stack(
+            [centroids.to(self.dtype), torch.zeros_like(centroids, dtype=self.dtype)], dim=1
+        )  # (c, 2, k, dsub)
+        hs = hashing.pack_hashes(
+            hashing.make_hashes(hashing._seed_of(jr.fold_in(key, 777)), self.c, self.k)
+        )
+        new_buffers = {
+            "ptr": assignments,
+            "hs": torch.from_numpy(hs.astype(np.int64)).to(centroids.device),
+            "epoch": torch.as_tensor(buffers["epoch"], dtype=torch.int32,
+                                     device=centroids.device) + 1,
+        }
+        return {"tables": tables}, new_buffers
+
+    def cluster(self, key, params, buffers, *, sample_ids=None, sample_weights=None,
+                niter: int = 50, max_points_per_centroid: int = 256,
+                chunk_size: int | None = None, use_kernel: bool | None = None):
+        """One CCE iteration: returns new (params, buffers).
+
+        K-means runs on a sample (FAISS-style, 256 points per centroid by
+        default); the assignments of the FULL vocabulary are then one
+        materialization pass shared by all columns (``assign_all``).
+        ``sample_weights`` (aligned with ``sample_ids``) runs count-weighted
+        k-means: each observed id once, weighted by its frequency.  The key
+        schedule is the JAX package's, so ``hs`` and ``epoch`` match it bit
+        for bit."""
+        device = params["tables"].device
+        k1, k2 = jr.split(jr.fold_in(key, int(buffers["epoch"])))
+        if sample_ids is None:
+            sample_ids = km.subsample(k1, self.d1, self.k, max_points_per_centroid,
+                                      device=device)
+        sample = self.materialize(params, buffers, sample_ids)  # (c, n, dsub)
+        centroids = torch.stack([
+            km.kmeans(jr.fold_in(k2, i), sample[i], self.k, niter=niter,
+                      weights=sample_weights).centroids
+            for i in range(self.c)
+        ])  # (c, k, dsub)
+        new_ptr = self.assign_all(params, buffers, centroids, chunk_size=chunk_size,
+                                  use_kernel=use_kernel)
+        return self._finish_transition(k2, centroids, new_ptr, buffers)
+
+    def assignment_counts(self, buffers) -> torch.Tensor:
+        """Per-cluster id counts (c, k) float32 from the pointer table."""
+        return torch.stack(
+            [torch.bincount(a, minlength=self.k) for a in buffers["ptr"]]
+        ).to(torch.float32)
+
+    def remap_moments(self, moments, old_buffers, new_buffers, *, chunk_size=None,
+                      counts=None, id_weights=None):
+        """Carry per-row optimizer moments (momentum / Adam m, v) through a
+        ``cluster()`` transition.
+
+        ``moments`` mirrors params ({"tables": (c, 2, k, dsub)}) and
+        describes the OLD rows.  An id's virtual moment is its materialized
+        row-sum under the OLD pointers; each new main row takes the mean
+        over the ids assigned to it (count-weighted by ``id_weights`` (d1,)
+        when given, falling back to the uniform mean for clusters of zero
+        weight); the fresh helper table starts at zero.  Streams the vocab
+        in ``chunk_size`` slices; the segment sums are deterministic."""
+        mt = moments["tables"]
+        new_ptr = new_buffers["ptr"]
+        if counts is None:
+            counts = self.assignment_counts(new_buffers)  # (c, k)
+        c, k, dsub = self.c, self.k, self.dsub
+        dev = mt.device
+        sums = torch.zeros((c, k, dsub), dtype=torch.float32, device=dev)
+        wsums = torch.zeros_like(sums)
+        wcounts = torch.zeros((c, k), dtype=torch.float32, device=dev)
+        col = torch.arange(c, device=dev)[:, None] * k
+        for _, ids in self._id_chunks(chunk_size, dev):
+            n = ids.shape[0]
+            per_id = self.materialize({"tables": mt}, old_buffers, ids).to(torch.float32)
+            seg = (col + new_ptr[:, ids].to(torch.int64)).reshape(-1)  # (c*n,)
+            sums = sums + _segment_sum(per_id.reshape(-1, dsub), seg, c * k).reshape(c, k, dsub)
+            if id_weights is not None:
+                w = id_weights[ids].to(torch.float32)  # (n,)
+                wsums = wsums + _segment_sum(
+                    (per_id * w[None, :, None]).reshape(-1, dsub), seg, c * k
+                ).reshape(c, k, dsub)
+                wcounts = wcounts + _segment_sum(
+                    w.expand(c, n).reshape(-1, 1), seg, c * k).reshape(c, k)
+        mean = sums / torch.clamp(counts[..., None], min=1.0)
+        if id_weights is not None:
+            wmean = wsums / torch.clamp(wcounts[..., None], min=1e-12)
+            mean = torch.where(wcounts[..., None] > 0, wmean, mean)
+        mean = mean.to(mt.dtype)
+        return {"tables": torch.stack([mean, torch.zeros_like(mean)], dim=1)}

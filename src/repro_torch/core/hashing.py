@@ -85,3 +85,9 @@ def make_hash(seed: int, m: int) -> MultiplyShiftHash:
 
 def make_hashes(seed: int, n: int, m: int) -> list[MultiplyShiftHash]:
     return [make_hash(seed * 1_000_003 + i, m) for i in range(n)]
+
+
+def _seed_of(key) -> int:
+    """The int seed the JAX package derives from a PRNG key
+    (``repro_torch.random``): the sum of its uint32 words."""
+    return int(np.asarray(key, np.uint32).astype(np.uint64).sum())

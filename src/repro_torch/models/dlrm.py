@@ -3,7 +3,9 @@
 13 dense features -> bottom MLP; 26 categorical features -> one embedding
 table each, behind an ``EmbeddingCollection`` (one fused supertable
 lookup for the compressed Criteo configuration); pairwise dot-product
-interaction; top MLP -> 1 logit.
+interaction; top MLP -> 1 logit; binary cross-entropy loss.  The CCE
+clustering transition runs group-wise through the collection
+(``cluster_tables``).
 
 Parameters are the JAX package's pytree layout as plain dicts and lists
 of tensors: ``{"bottom": [{"w", "b"}, ...], "emb": [group, ...],
@@ -22,6 +24,8 @@ import torch
 
 from repro_torch.core import embeddings as emb_lib
 from repro_torch.core.collection import EmbeddingCollection
+from repro_torch.optim.remap import remap_opt_state
+from repro_torch.train.transition import transition_collection
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +39,12 @@ class DLRMConfig:
     emb_method: str = "full"
     emb_param_cap: int = 0  # 0 = uncapped
     emb_c: int = 4
+    # CCE transition: what happens to per-row optimizer moments when
+    # cluster() rewrites a table ("remap" | "reset" | "keep", see
+    # repro_torch.optim.remap), and the id-chunk size of the full-vocab
+    # assignment pass (0 = unchunked)
+    emb_opt_policy: str = "remap"
+    emb_cluster_chunk: int = 1 << 18
     # codebook rows round up to a multiple of this (model-shard count)
     emb_k_multiple: int = 1
     dtype: Any = torch.float32
@@ -124,3 +134,44 @@ def forward(params, buffers, cfg: DLRMConfig, batch):
         params["emb"], buffers["emb"], batch.get("sparse"), rows=batch.get("rows"),
     )  # (B, n_sparse, emb_dim): ONE fused lookup on Criteo
     return interact(params, cfg, batch["dense"], emb)
+
+
+def bce_loss(params, buffers, cfg: DLRMConfig, batch):
+    """Mean binary cross-entropy of the logits, in the stable form
+    ``max(lg, 0) - lg*y + log1p(exp(-|lg|))`` (float32)."""
+    lg = forward(params, buffers, cfg, batch).to(torch.float32)
+    y = batch["label"].to(torch.float32)
+    return torch.mean(torch.clamp(lg, min=0) - lg * y + torch.log1p(torch.exp(-lg.abs())))
+
+
+def cluster_tables(key, params, buffers, cfg: DLRMConfig, opt=None, *, id_counts=None,
+                   policy: str | None = None, chunk_size: int | None = None,
+                   use_kernel: bool | None = None, max_points_per_centroid: int = 256):
+    """The CCE clustering transition of every CCE table (Alg. 3
+    ``Cluster``), group-wise through the collection; ``key`` is a
+    ``repro_torch.random`` key.
+
+    With ``opt`` (the optimizer state, ``TrainState.opt``) the per-row
+    moments of every transitioned table follow the new assignments per
+    ``policy`` (default ``cfg.emb_opt_policy``) and the new state is the
+    third return; without it, returns (params, buffers).  ``id_counts``
+    (per-feature dense histograms) runs each table's k-means
+    count-weighted on the observed ids and weights the moment remap the
+    same way.  Returns new trees; the inputs are left as they were."""
+    policy = policy or cfg.emb_opt_policy
+    if chunk_size is None:
+        chunk_size = cfg.emb_cluster_chunk or None
+    new_emb_p, new_emb_b, update_emb = transition_collection(
+        cfg.collection, key, params["emb"], buffers["emb"], id_counts=id_counts,
+        policy=policy, chunk_size=chunk_size, use_kernel=use_kernel,
+        max_points_per_centroid=max_points_per_centroid,
+    )
+    new_params = dict(params, emb=new_emb_p)
+    new_buffers = dict(buffers, emb=new_emb_b)
+    if opt is None:
+        return new_params, new_buffers
+
+    def update_moments(moments, _slot):
+        return dict(moments, emb=update_emb(moments["emb"]))
+
+    return new_params, new_buffers, remap_opt_state(opt, update_moments, policy=policy)
