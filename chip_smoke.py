@@ -17,9 +17,21 @@
    then serves the trained state through ``DLRMServeEngine.update_state``.
 4. Serves freshly initialised weights through ``DLRMServeEngine``
    (submit/step/drain), the serving path of the first slice.
+5. Holds the flash-attention kernel against its plain version (float32
+   and bfloat16, GQA and plain heads, D 64 and 128, ragged lengths,
+   causal and not) and times it beside ``scaled_dot_product_attention``.
+6. Serves full-width qwen2-1.5b (28 layers, CCE token table and factored
+   CCE head, random weights from a seed) through the LM ``ServeEngine``:
+   16 requests of 16-1900 prompt tokens over 8 slots, 16 greedy tokens
+   each; holds a 2-layer cut's prefill logits against CPU copies.
 Each path runs with the launch counts reset just before it and read just
 after.  Prints the kernels' JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --phases flash,lm_serve
+
+runs only the named phases (of lookup, bwd, kmeans, train, serve, flash,
+lm_serve) and prints neither result line.
 
 Exits non-zero, with no result line, when there is no CUDA device, when the
 port is missing, or when any phase fails.  Imports nothing of JAX.
@@ -40,6 +52,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12  # dense bf16 tensor cores, H100 SXM data sheet
 SERVE_BATCH = 256
 SERVE_BATCHES = 4  # host-side id sampling over 10M-row vocabularies costs ~1 s a batch
 TRAIN_BATCH = 2048
@@ -51,6 +64,27 @@ BWD_BATCHES = (256, TRAIN_BATCH, 4096)
 ASSIGN_SHAPES = ((1 << 18, 250, 4), (64000, 250, 4))  # an assign_all chunk; a Lloyd sample
 ASSIGN_RTOL = 1e-5  # the plain distance of the kernel's pick vs the plain minimum
 STEP_RTOL = 1e-4  # card vs CPU, per leaf, relative to the leaf's largest magnitude
+FLASH_HEADS = ((12, 2), (32, 8), (4, 4))  # (H, KVH): qwen2-1.5b, qwen3-4b/14b style, no GQA
+FLASH_DIMS = (64, 128)
+FLASH_LENGTHS = (1, 7, 127, 128, 129, 1000, 2048)  # Sq = S, causal
+FLASH_NONCAUSAL = ((129, 129), (1000, 1000), (129, 300))  # (Sq, S) without the causal mask
+FLASH_STRIDED = 129  # the causal case at this length reads q from a (B, H, S, D) layout
+FLASH_TIMED = (128, 512, 2048)  # bf16, qwen2-1.5b's heads
+# kernel vs plain on unit-normal inputs: float32 sums in another order;
+# bfloat16 rounds P to bf16 for the tensor cores and the output once
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+LM_ARCH = "qwen2-1.5b"
+LM_SEED = 0
+LM_REQUESTS = 16
+LM_MAX_BATCH = 8
+LM_MAX_SEQ = 2048
+LM_PROMPTS = (16, 1900)  # prompt lengths, uniform: buckets 16..2048
+LM_MAX_TOKENS = 16
+LM_CHECK_LAYERS = 2  # the depth of the card-vs-CPU prefill check
+LM_CHECK_PROMPT = 256
+# card vs CPU prefill logits, relative to the largest logit: float32 sums
+# in other orders; bfloat16 also rounds every activation (8 mantissa bits)
+LM_LOGIT_RTOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -775,6 +809,306 @@ def serve_phase(card: str, cfg, n_batches: int, device="cuda") -> int:
     return launches
 
 
+def flash_bound(B: int, Sq: int, S: int, H: int, KVH: int, D: int, esize: int, causal: bool,
+                flops: float):
+    """Least time for the attention on an H100: q, k, v read once and the
+    output written once, against the two products over the (query, key)
+    pairs the mask keeps (4*D flops a pair and head) at ``flops``.
+    Returns (ms, "bytes" | "operations")."""
+    n_bytes = (2 * B * Sq * H * D + 2 * B * S * KVH * D) * esize
+    pairs = sum(min(i + 1, S) for i in range(Sq)) if causal else Sq * S
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, 4 * D * H * B * pairs / flops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_phase(card: str, device="cuda"):
+    """The flash-attention kernel against its plain version on unit-normal
+    inputs: within FLASH_TOL, repeatable bit for bit, the causal first row
+    equal to v's first row; a strided (B, H, S, D)-layout view read in
+    place.  Times the kernel, the plain version and SDPA at FLASH_TIMED.
+    Returns ({dtype: max error}, {S: numbers})."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    def case(B, Sq, S, H, KVH, D, dtype, causal, seed, head_major=False):
+        g = torch.Generator(device=device).manual_seed(seed)
+        if head_major:  # (B, H, S, D) storage seen as (B, S, H, D)
+            q = torch.randn((B, H, Sq, D), generator=g, device=device).to(dtype).transpose(1, 2)
+        else:
+            q = torch.randn((B, Sq, H, D), generator=g, device=device).to(dtype)
+        k = torch.randn((B, S, KVH, D), generator=g, device=device).to(dtype)
+        v = torch.randn((B, S, KVH, D), generator=g, device=device).to(dtype)
+        return q, k, v
+
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        tol = FLASH_TOL[dn]
+        for H, KVH in FLASH_HEADS:
+            for D in FLASH_DIMS:
+                shapes = [(n, n, True) for n in FLASH_LENGTHS]
+                shapes += [(sq, sk, False) for sq, sk in FLASH_NONCAUSAL]
+                for Sq, S, causal in shapes:
+                    B = 1 if S >= 1000 else 2
+                    q, k, v = case(B, Sq, S, H, KVH, D, dtype, causal, seed=n_cases,
+                                   head_major=(Sq == FLASH_STRIDED and causal))
+                    got = fa.flash_attention(q, k, v, causal=causal)
+                    again = fa.flash_attention(q, k, v, causal=causal)
+                    want = ref.flash_attention_ref(q, k, v, causal=causal)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    what = f"{dn} H={H} KVH={KVH} D={D} Sq={Sq} S={S} causal={causal}"
+                    check(err <= tol, f"flash kernel vs plain {err} > {tol} at {what}")
+                    check(torch.equal(got, again), f"flash kernel not repeatable at {what}")
+                    if causal:
+                        first = v[:, 0].repeat_interleave(H // KVH, dim=1)
+                        row_err = (got[:, 0].float() - first.float()).abs().max().item()
+                        check(row_err <= tol, f"flash first row != v[0] ({row_err}) at {what}")
+                    max_err[dn] = max(max_err[dn], err)
+                    n_cases += 1
+    print(f"[{card}] flash_attention: {n_cases} cases (heads {FLASH_HEADS}, D {FLASH_DIMS}, "
+          f"causal S {FLASH_LENGTHS}, non-causal (Sq, S) {FLASH_NONCAUSAL}) in float32 and "
+          f"bfloat16: max_abs_err {max_err!r}, repeatable, causal first row == v[0]",
+          flush=True)
+
+    at = {}
+    H, KVH = FLASH_HEADS[0]
+    D = FLASH_DIMS[-1]
+    for S in FLASH_TIMED:
+        q, k, v = case(1, S, S, H, KVH, D, torch.bfloat16, True, seed=10_000 + S)
+        got = fa.flash_attention(q, k, v)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        # each side rounds to bf16 on its own: two roundings apart at most
+        lib_err = (library().transpose(1, 2).float() - got.float()).abs().max().item()
+        check(lib_err <= 2 * FLASH_TOL["bfloat16"],
+              f"SDPA yardstick computes another function at S={S} ({lib_err})")
+        ms = time_ms(lambda: fa.flash_attention(q, k, v), iters=50)
+        dev = device_ms(lambda: fa.flash_attention(q, k, v), "flash_fwd_bf16_kernel")
+        plain = time_ms(lambda: ref.flash_attention_ref(q, k, v), iters=10, reps=3)
+        plain_dev = device_busy_ms(lambda: ref.flash_attention_ref(q, k, v), iters=5)
+        lib = time_ms(library, iters=50)
+        lib_dev = device_busy_ms(library, iters=20)
+        bound, bound_by = flash_bound(1, S, S, H, KVH, D, 2, True, H100_BF16_FLOPS)
+        at[S] = dict(ms=ms, device_ms=dev, plain_ms=plain, plain_device_ms=plain_dev,
+                     bound_ms=bound, bound_by=bound_by, library_ms=lib,
+                     library_device_ms=lib_dev)
+        print(f"[{card}] flash_attention bf16 B=1 H={H} KVH={KVH} D={D} S={S} causal: "
+              f"ms={ms!r} device_ms={dev!r} plain_ms={plain!r} plain_device_ms={plain_dev!r} "
+              f"bound_ms={bound!r} ({bound_by}) library_ms(sdpa)={lib!r} "
+              f"library_device_ms={lib_dev!r} sdpa_vs_kernel_max_abs_diff={lib_err!r}",
+              flush=True)
+    return max_err, at
+
+
+def _lm_prompts(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(LM_SEED)
+    lens = rng.integers(LM_PROMPTS[0], LM_PROMPTS[1] + 1, LM_REQUESTS)
+    return [rng.integers(0, cfg.vocab, int(n)).astype(np.int32) for n in lens]
+
+
+def lm_lookup_numbers(card: str, cfg, params, buffers, prompts) -> dict:
+    """The lookup kernel at the LM's token-table shape (c=emb_c, T=2, the
+    table's k and dsub): a 2048-token prefill and an 8-slot decode,
+    against its plain version (bit for bit in float32), with its times."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cce_lookup as cl
+    from repro_torch.kernels import ref
+    from repro_torch.models import lm
+
+    table = lm.make_emb(cfg)
+    tables = params["emb"]["tables"].contiguous()
+    toks = np.concatenate(prompts)
+    out = {}
+    for name, n in (("prefill", LM_MAX_SEQ), ("decode", LM_MAX_BATCH)):
+        ids = torch.from_numpy(np.resize(toks, n).astype(np.int64)).to(tables.device)
+        idx = table._rows(buffers["emb"], ids).reshape(table.c, -1, 2)
+        got = cl.cce_lookup_fwd(idx, tables)
+        want = ref.cce_lookup_ref(idx, tables)
+        check(torch.equal(got, want), f"LM-shape lookup kernel != plain at B={n}")
+        bag, weight, offsets = embedding_bag_args(idx, tables)
+        check(torch.allclose(F.embedding_bag(bag, weight, offsets, mode="sum").reshape(n, -1),
+                             got, rtol=1e-6, atol=1e-6),
+              f"embedding_bag yardstick computes another function at B={n}")
+        ms = time_ms(lambda: cl.cce_lookup_fwd(idx, tables))
+        dev = device_ms(lambda: cl.cce_lookup_fwd(idx, tables), "cce_lookup_fwd_kernel")
+        plain = time_ms(lambda: ref.cce_lookup_ref(idx, tables))
+        lib = time_ms(lambda: F.embedding_bag(bag, weight, offsets, mode="sum"))
+        lib_dev = device_busy_ms(lambda: F.embedding_bag(bag, weight, offsets, mode="sum"),
+                                 iters=20)
+        bound, bound_by = lookup_bound(idx, tables)
+        out[name] = dict(B=n, ms=ms, device_ms=dev, plain_ms=plain, bound_ms=bound,
+                         bound_by=bound_by, library_ms=lib, library_device_ms=lib_dev)
+        print(f"[{card}] cce_lookup_fwd LM shape c={table.c} T=2 k={table.k} "
+              f"dsub={table.dsub} f32 B={n} ({name}): equal to plain, ms={ms!r} "
+              f"device_ms={dev!r} plain_ms={plain!r} bound_ms={bound!r} ({bound_by}) "
+              f"library_ms(embedding_bag)={lib!r} library_device_ms={lib_dev!r}", flush=True)
+    return out
+
+
+def lm_serve_phase(card: str, cfg, device="cuda"):
+    """Full-width LM serving through ``ServeEngine``: LM_REQUESTS prompts
+    over LM_MAX_BATCH slots, greedy, LM_MAX_TOKENS tokens each, with the
+    launch counts reset just before the run and read just after; then a
+    request served alone against itself in the batch, a LM_CHECK_LAYERS
+    cut's prefill logits on the card against CPU copies (float32 and the
+    served bfloat16), the idle share of one decode tick and one full-bucket
+    prefill, and the lookup kernel at the LM's shape.  Returns (launches,
+    lookup numbers)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    params, buffers = lm.init(cfg, gen, device=device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    on_card = torch.cuda.memory_allocated() / 2**30 if device == "cuda" else 0.0
+    print(f"[{card}] lm init: {cfg.name} {cfg.n_layers}L d={cfg.d_model} {cfg.n_heads}H/"
+          f"{cfg.n_kv_heads}KV hd={cfg.head_dim} ff={cfg.d_ff} vocab={cfg.vocab} "
+          f"emb={cfg.emb_method}: {n_params} params (analytic, without biases: "
+          f"{cfg.n_params()}), {on_card:.2f} GiB on the card, "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    prompts = _lm_prompts(cfg)
+
+    def engine():
+        return ServeEngine(cfg, params, buffers, max_batch=LM_MAX_BATCH, max_seq=LM_MAX_SEQ)
+
+    warm = engine()  # first-call set-up (cuBLAS handles, the kernels' libraries) stays out
+    warm.submit(Request(uid=-1, prompt=prompts[0][:LM_PROMPTS[0]], max_tokens=2))
+    warm.run()
+    del warm
+
+    eng = engine()
+    prefill_ms, decode_ms = collections.defaultdict(list), []
+    orig_prefill, orig_decode = eng._prefill_one, eng._decode
+
+    def timed_prefill(slot, toks, last_idx):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_prefill(slot, toks, last_idx)
+        torch.cuda.synchronize()
+        prefill_ms[toks.shape[1]].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def timed_decode():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_decode()
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    eng._prefill_one, eng._decode = timed_prefill, timed_decode
+    reqs = [Request(uid=i, prompt=p, max_tokens=LM_MAX_TOKENS) for i, p in enumerate(prompts)]
+    ops.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    n_dec = len(decode_ms)
+    check(len(done) == LM_REQUESTS and eng.prefills == LM_REQUESTS,
+          f"served {len(done)} requests with {eng.prefills} prefills")
+    check(launches.get("flash_attention") == cfg.n_layers * eng.prefills,
+          f"flash_attention launches {launches} != {cfg.n_layers} x {eng.prefills} prefills")
+    check(launches.get("cce_lookup_fwd") == eng.prefills + n_dec,
+          f"cce_lookup_fwd launches {launches} != {eng.prefills} prefills + {n_dec} decodes")
+    check(all(len(r.generated) == LM_MAX_TOKENS and all(0 <= t < cfg.vocab for t in r.generated)
+              for r in done), "a request came back with the wrong number or range of tokens")
+    n_tok = sum(len(r.generated) for r in done)
+    lat = np.array([r.latency_s for r in done]) * 1e3
+    hist = eng.flush_stats()
+    buckets = {b: statistics.median(v) for b, v in sorted(prefill_ms.items())}
+    counts = {b: len(v) for b, v in sorted(prefill_ms.items())}
+    print(f"[{card}] lm serve: {LM_REQUESTS} requests (prompts {sorted(len(p) for p in prompts)}) "
+          f"over {LM_MAX_BATCH} slots, max_seq {LM_MAX_SEQ}, {n_tok} tokens in {wall!r} s "
+          f"({n_tok / wall!r} tokens/s), {eng.prefills} prefills, {n_dec} decode ticks; "
+          f"launches {launches}", flush=True)
+    print(f"[{card}] lm serve prefill host ms by bucket (median, count): "
+          + ", ".join(f"{b}: {buckets[b]!r} ({counts[b]})" for b in buckets)
+          + f"; decode tick host ms median {statistics.median(decode_ms)!r} "
+          f"(min {min(decode_ms)!r}, max {max(decode_ms)!r})", flush=True)
+    print(f"[{card}] lm serve request latency (admit to retire, host clock): histogram "
+          f"p50={hist['p50']!r} s p99={hist['p99']!r} s (upper bucket edges); exact "
+          f"p50={float(np.percentile(lat, 50))!r} ms p99={float(np.percentile(lat, 99))!r} ms",
+          flush=True)
+
+    # a request served alone gives the tokens it gave in the batch
+    solo_req = max(done, key=lambda r: len(r.prompt))
+    solo = engine()
+    solo.submit(Request(uid=0, prompt=solo_req.prompt, max_tokens=LM_MAX_TOKENS))
+    alone = solo.run()[0].generated
+    check(alone == solo_req.generated,
+          f"request {solo_req.uid} alone {alone} != in the batch {solo_req.generated}")
+    del solo
+    print(f"[{card}] lm serve: request {solo_req.uid} ({len(solo_req.prompt)} prompt tokens) "
+          f"alone gives its batch tokens {alone}", flush=True)
+
+    # idle share of one decode tick and of one full-bucket prefill
+    with torch.inference_mode():
+        toks = np.resize(np.concatenate(prompts), (1, LM_MAX_SEQ)).astype(np.int64)
+        for name, fn in (("decode tick", orig_decode),
+                         (f"prefill {LM_MAX_SEQ}", lambda: orig_prefill(0, toks, LM_MAX_SEQ - 1))):
+            fn()
+            host = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t) * 1e3)
+            busy = device_busy_ms(fn)
+            h = statistics.median(host)
+            print(f"[{card}] lm serve {name}: host {h!r} ms, device busy {busy!r} ms "
+                  f"(idle share {1 - busy / h!r})", flush=True)
+
+    lookup = lm_lookup_numbers(card, cfg, params, buffers, prompts)
+
+    # prefill logits of a LM_CHECK_LAYERS cut: the card against CPU copies
+    cut_p = dict(params, blocks=tree_map(lambda t: t[:LM_CHECK_LAYERS], params["blocks"]))
+    cpu_p = tree_map(lambda t: t.detach().to("cpu", copy=True), cut_p)
+    cpu_b = tree_map(lambda t: t.detach().to("cpu", copy=True), buffers)
+    toks = torch.from_numpy(np.resize(prompts[-1], (1, LM_CHECK_PROMPT)).astype(np.int64))
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        cut = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS, dtype=dtype)
+        with torch.inference_mode():
+            on_card, _ = lm.prefill(cut_p, buffers, cut, toks.to(device),
+                                    lm.init_cache(cut, 1, LM_CHECK_PROMPT, device=device))
+            on_cpu, _ = lm.prefill(cpu_p, cpu_b, cut, toks,
+                                   lm.init_cache(cut, 1, LM_CHECK_PROMPT, device="cpu"))
+        err = (on_card.float().cpu() - on_cpu.float()).abs().max().item()
+        top = on_cpu.float().abs().max().item()
+        check(bool(torch.isfinite(on_card).all()) and err <= LM_LOGIT_RTOL[dn] * top,
+              f"{LM_CHECK_LAYERS}-layer prefill logits card vs CPU ({dn}): max abs diff {err} "
+              f"> {LM_LOGIT_RTOL[dn]} x largest {top}")
+        print(f"[{card}] lm prefill logits, {LM_CHECK_LAYERS}-layer cut, {LM_CHECK_PROMPT} "
+              f"tokens, {dn}: card vs CPU max abs diff {err!r} (largest logit {top!r}, "
+              f"relative {err / top!r}, tolerance {LM_LOGIT_RTOL[dn]})", flush=True)
+    del cpu_p, cpu_b, cut_p, eng
+    return launches, lookup
+
+
 KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call it replaces)
     "cce_lookup_fwd": ("src/repro_torch/kernels/csrc/cce_lookup.cu",
                        "src/repro/kernels/cce_lookup.py:106"),
@@ -782,15 +1116,28 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call it replaces)
                        "src/repro/kernels/cce_lookup.py:134"),
     "kmeans_assign": ("src/repro_torch/kernels/csrc/kmeans_assign.cu",
                       "src/repro/kernels/kmeans_assign.py:67"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:97"),
 }
+PHASES = ("lookup", "bwd", "kmeans", "train", "serve", "flash", "lm_serve")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (a subset prints no result line)")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    check(set(phases) <= set(PHASES), f"unknown phase in {phases}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
         return 1
+    from repro_torch import configs
     from repro_torch.configs.dlrm_criteo import CONFIG
     from repro_torch.kernels import build
 
@@ -813,11 +1160,31 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib}: {line.strip()}")
 
-    fwd_err, fwd_at = kernel_phase(card, CONFIG.collection)
-    bwd_err, bwd_at = bwd_kernel_phase(card, CONFIG.collection)
-    assign_excess, assign_at = kmeans_phase(card)
-    launches = train_phase(card, CONFIG)
-    launches["serve"] = {"cce_lookup_fwd": serve_phase(card, CONFIG, SERVE_BATCHES)}
+    def phase(name, fn, *a):
+        if name not in phases:
+            return None
+        t = time.perf_counter()
+        out = fn(*a)
+        print(f"[{card}] phase {name}: {time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
+    fwd = phase("lookup", kernel_phase, card, CONFIG.collection)
+    bwd = phase("bwd", bwd_kernel_phase, card, CONFIG.collection)
+    assign = phase("kmeans", kmeans_phase, card)
+    launches = phase("train", train_phase, card, CONFIG) or {}
+    serve = phase("serve", serve_phase, card, CONFIG, SERVE_BATCHES)
+    if serve is not None:
+        launches["serve"] = {"cce_lookup_fwd": serve}
+    flash = phase("flash", flash_phase, card)
+    lm_out = phase("lm_serve", lm_serve_phase, card, configs.get(LM_ARCH))
+    if lm_out is not None:
+        launches["lm_serve"] = lm_out[0]
+    if set(phases) != set(PHASES):
+        print(f"chip_smoke: phases {phases} passed in {time.perf_counter() - t_run:.1f} s "
+              f"(a partial run: no result line)")
+        return 0
+    (fwd_err, fwd_at), (bwd_err, bwd_at), (assign_excess, assign_at) = fwd, bwd, assign
+    (flash_err, flash_at), lm_lookup = flash, lm_out[1]
 
     def by_path(name):
         return {path: counts.get(name, 0) for path, counts in launches.items()}
@@ -829,12 +1196,19 @@ def main() -> int:
                 "launches_by_path": by_path(name), "max_abs_err": err, **at, **extra}
 
     steps = ("train", "train_after_transition")
+    S = FLASH_TIMED[-1]
     kernels = [
         entry("cce_lookup_fwd", steps, fwd_err, fwd_at[TRAIN_BATCH], batch=TRAIN_BATCH,
-              at_serve_batch=fwd_at[SERVE_BATCH]),
+              at_serve_batch=fwd_at[SERVE_BATCH], at_lm_shape=lm_lookup),
         entry("cce_lookup_bwd", steps, bwd_err, bwd_at, batch=TRAIN_BATCH),
         entry("kmeans_assign", ("transition",), assign_excess, assign_at,
               shape=list(ASSIGN_SHAPES[0])),
+        entry("flash_attention", ("lm_serve",), flash_err["bfloat16"], flash_at[S],
+              max_abs_err_float32=flash_err["float32"],
+              shape=dict(B=1, S=S, H=FLASH_HEADS[0][0], KVH=FLASH_HEADS[0][1], D=FLASH_DIMS[-1],
+                         dtype="bfloat16", causal=True),
+              library="scaled_dot_product_attention",
+              at_other_lengths={s: flash_at[s] for s in FLASH_TIMED[:-1]}),
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_run:.1f} s")
     print(f"card: {card}")

@@ -14,6 +14,9 @@ Tuples and lists keep their type; other leaves (python ints, strings,
 None) pass through unchanged.  ``train_state_to_torch`` carries a JAX
 ``TrainState`` across whole: params, the optimizer state (its moments
 mirror params), the embedding buffers and the error feedback.
+``lm_to_torch`` carries the JAX LM's ``(params, buffers)``: the stacked
+``(L, ...)`` block leaves as they are, the CCE ``ptr``/``hs``/``epoch``
+buffers, and a ``FullTable`` head.
 """
 from __future__ import annotations
 
@@ -83,3 +86,10 @@ def train_state_to_torch(state, device="cuda"):
         step=int(np.asarray(state.step)),
         err=to_torch(state.err, device),
     )
+
+
+def lm_to_torch(params, buffers, device="cuda"):
+    """The JAX package's ``lm.init`` output (numpy or JAX arrays) -> the
+    port's ``(params, buffers)`` for ``repro_torch.models.lm``: the two
+    packages share the layout, so this is a leaf-wise conversion."""
+    return to_torch(params, device), to_torch(buffers, device)

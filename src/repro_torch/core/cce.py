@@ -118,7 +118,8 @@ class CCE:
 
     def init(self, generator: torch.Generator, device="cuda"):
         scale = 1.0 / math.sqrt(self.d2)
-        tables = torch.randn((self.c, 2, self.k, self.dsub), generator=generator) * scale
+        tables = torch.randn((self.c, 2, self.k, self.dsub), generator=generator,
+                             device=generator.device) * scale
         b = self.init_buffers()
         buffers = {
             "ptr": torch.from_numpy(b["ptr"]).to(device),
@@ -153,6 +154,26 @@ class CCE:
         # contiguous tables
         out = kops.cce_lookup(rows, params["tables"].contiguous())  # (n, c*dsub)
         return out.reshape(*ids.shape, self.d2)
+
+    def logits(self, params, buffers, h):
+        """Factored output head: per column a k-sized matmul and an integer
+        gather over the whole vocabulary,
+
+            logits[..., v] = sum_i scores_i[..., ptr_i(v)] + scores_i[..., k + h'_i(v)]
+
+        with scores_i = h_col_i @ [M_i; M'_i]^T (..., 2k).  Adds main then
+        helper, column by column, in the dtype h and the tables promote to:
+        the JAX package's order, so float32 agrees with it."""
+        hc = h.reshape(*h.shape[:-1], self.c, self.dsub)
+        rows = self._rows(buffers, torch.arange(self.d1, device=h.device)).to(torch.int64)
+        out = None
+        for i in range(self.c):
+            scores = emb_lib.promote_matmul(
+                hc[..., i, :], params["tables"][i].reshape(2 * self.k, self.dsub).T)
+            main = scores[..., rows[i, :, 0]]
+            out = main if out is None else out + main
+            out = out + scores[..., self.k + rows[i, :, 1]]
+        return out
 
     # --- the clustering transition (Alg. 3 lines 10-17) ------------------
 

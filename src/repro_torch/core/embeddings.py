@@ -46,11 +46,17 @@ class FullTable:
 
     def init(self, generator: torch.Generator, device="cuda"):
         scale = 1.0 / math.sqrt(self.d2)
-        table = torch.randn((self.d1, self.d2), generator=generator) * scale
+        table = torch.randn((self.d1, self.d2), generator=generator,
+                            device=generator.device) * scale
         return {"table": table.to(device=device, dtype=self.dtype)}, {}
 
     def lookup(self, params, buffers, ids):
         return params["table"][ids.clamp(0, self.d1 - 1)]
+
+    def logits(self, params, buffers, h):
+        """Output head over the whole vocabulary: ``h @ table.T`` (...,
+        d1), in the dtype the two promote to (as jnp promotes)."""
+        return promote_matmul(h, params["table"].T)
 
     # --- the padded gather of full-table groups -------------------------
 
@@ -105,6 +111,13 @@ class FullTable:
 
     def fuse_rows_np(self, buffers, ids):
         return np.clip(np.asarray(ids), 0, self.d1 - 1).astype(np.int32)[None, :, None]
+
+
+def promote_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the dtype the two promote to: jnp promotes a bf16 by
+    f32 product to f32, while ``torch.matmul`` refuses mixed dtypes."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
 
 def make_table(method: str, d1: int, d2: int, budget: int | None = None, **kw):

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cce_lookup as _cl
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kmeans_assign as _ka
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import LAUNCHES  # noqa: F401  (re-exported)
@@ -60,6 +61,22 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
         return ref.kmeans_assign_ref(x, centroids)
     return _ka.kmeans_assign(x.to(torch.float32).contiguous(),
                              centroids.to(torch.float32).contiguous())
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Causal (or full) GQA softmax attention, forward only: q (B, Sq, H,
+    D), k/v (B, S, KVH, D) -> (B, Sq, H, D) in q's dtype; query head h
+    reads KV head h // (H // KVH); scale 1/sqrt(D); query i sees keys
+    j <= i when ``causal``.  Sq and S are taken as they are: nothing is
+    padded.  Raises where autograd would need a gradient: the kernel has
+    no backward, as the JAX package's has none."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention is forward-only: call it under torch.no_grad() "
+                           "or torch.inference_mode()")
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    return _fa.flash_attention(q, k, v, causal=causal)
 
 
 def pad_stack_tables(slabs, *, k_pad: int | None = None) -> torch.Tensor:

@@ -76,3 +76,25 @@ def kmeans_assign_ref(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     c = centroids.to(torch.float32)
     cn = (c * c).sum(-1)
     return torch.argmin(cn[None, :] - 2.0 * (x @ c.T), dim=-1).to(torch.int32)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True) -> torch.Tensor:
+    """Dense GQA softmax attention, the function of the flash kernel.
+
+    q (B, Sq, H, D); k/v (B, S, KVH, D) -> (B, Sq, H, D) in q's dtype.
+    Query head h reads KV head h // (H // KVH) (``repeat_interleave``,
+    as ``jnp.repeat``).  Scores (q . k) / sqrt(D) in float32; when
+    ``causal``, query i sees keys j <= i (query 0 aligned with key 0)."""
+    B, Sq, H, D = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    kf = k.to(torch.float32).repeat_interleave(G, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf) / (D ** 0.5)
+    if causal:
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(S, device=q.device)[None, :])
+        s = s.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, vf).to(q.dtype)

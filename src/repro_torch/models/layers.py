@@ -1,0 +1,238 @@
+"""Transformer layers of the LM stack: functions over param dicts, the
+counterpart of the JAX package's ``repro/models/layers.py``.
+
+Conventions (the JAX package's):
+  * params are nested dicts of tensors; init functions return params.
+  * activations are (B, S, d) in ``cfg.dtype``; params kept in
+    ``cfg.param_dtype`` and cast at use (mixed precision).
+
+Full-sequence causal attention (``attention_train``, and the LM's
+prefill) goes through ``kernels.ops.flash_attention``: the hand-written
+kernel on CUDA tensors, its plain version on CPU tensors.  Decode
+attention over the cache stays plain torch (``_sdpa``), as the JAX
+package computes it outside any kernel.  Not ported: the sharding hints,
+sinusoidal positions and the ``lax.scan`` form of chunked attention
+(``attn_impl="chunked"`` computes the same function and takes the flash
+route); ``attn_impl="dense_bf16p"``, sliding windows and logit soft-caps
+raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.config import ModelConfig
+
+Params = Any
+
+
+def truncated_normal(generator: torch.Generator, shape, scale, dtype=torch.float32):
+    """Normal draws cut to [-2, 2], times ``scale``, on the generator's
+    device.  Another stream of numbers than ``jax.random``'s: tests carry
+    the JAX package's params over with ``convert``."""
+    x = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (x * scale).to(dtype)
+
+
+def check_attention(cfg: ModelConfig) -> None:
+    """Raise on the attention variants this slice does not port."""
+    if cfg.attn_impl not in ("dense", "chunked"):
+        raise NotImplementedError(f"attn_impl={cfg.attn_impl!r} is not ported")
+    if cfg.sliding_window:
+        raise NotImplementedError("sliding-window attention is not ported")
+    if cfg.logit_softcap:
+        raise NotImplementedError("attention logit soft-capping is not ported")
+
+
+# --- norms -------------------------------------------------------------------
+
+
+def init_norm(cfg: ModelConfig, with_bias: bool | None = None, device="cuda"):
+    p = {"scale": torch.ones((cfg.d_model,), dtype=cfg.param_dtype, device=device)}
+    if with_bias if with_bias is not None else cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=cfg.param_dtype, device=device)
+    return p
+
+
+def apply_norm(p, x, eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    if "bias" in p:  # layernorm
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + eps)
+        out = out * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    else:  # rmsnorm
+        var = (xf * xf).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
+    return out.to(x.dtype)
+
+
+def rms_norm_dim(x, scale, eps: float = 1e-6):
+    """RMS-norm over the last dim with a given scale vector (qk_norm etc.)."""
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+# --- positions ---------------------------------------------------------------
+
+
+def rope_freqs(cfg: ModelConfig, device="cuda") -> torch.Tensor:
+    half = cfg.head_dim // 2
+    return 1.0 / (cfg.rope_theta ** (torch.arange(half, dtype=torch.float32, device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, D) with positions (..., S) -> rotated x, in the
+    split-half layout (the first D/2 features pair with the last D/2)."""
+    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- attention ---------------------------------------------------------------
+
+
+def init_attention(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
+    d = cfg.d_model
+    s = 1.0 / math.sqrt(d)
+    pd = cfg.param_dtype
+    p = {
+        "wq": truncated_normal(generator, (d, cfg.q_dim), s, pd),
+        "wk": truncated_normal(generator, (d, cfg.kv_dim), s, pd),
+        "wv": truncated_normal(generator, (d, cfg.kv_dim), s, pd),
+        "wo": truncated_normal(generator, (cfg.q_dim, d), s / math.sqrt(2 * cfg.n_layers), pd),
+    }
+    p = {k: v.to(device) for k, v in p.items()}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((cfg.q_dim,), dtype=pd, device=device)
+        p["bk"] = torch.zeros((cfg.kv_dim,), dtype=pd, device=device)
+        p["bv"] = torch.zeros((cfg.kv_dim,), dtype=pd, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((cfg.head_dim,), dtype=pd, device=device)
+        p["k_norm"] = torch.ones((cfg.head_dim,), dtype=pd, device=device)
+    return p
+
+
+def _project_qkv(p, cfg: ModelConfig, x):
+    """x (B, S, d) -> q (B, S, H, D), k/v (B, S, KVH, D)."""
+    B, S, _ = x.shape
+    dt = x.dtype
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm_dim(q, p["q_norm"])
+        k = rms_norm_dim(k, p["k_norm"])
+    return q, k, v
+
+
+def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
+    """Grouped-query scaled dot-product attention, plain torch (the
+    decode path).
+
+    q (B, Sq, H, D); k/v (B, Sk, KVH, D); mask broadcastable to
+    (B, 1, Sq, Sk), True where a key is seen.  Returns (B, Sq, H, D).
+    Scores are the product in q's dtype, then float32 over sqrt(D);
+    masked scores are -1e30 (not -inf), as in the JAX package.  Each KV
+    head serves its group of query heads without being copied."""
+    B, Sq, H, D = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    qg = q.reshape(B, Sq, KVH, G, D)
+    scores = torch.einsum("bqngd,bknd->bngqk", qg, k).to(torch.float32)
+    scores = scores.reshape(B, H, Sq, k.shape[1]) / math.sqrt(D)
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.tensor(-1e30, dtype=torch.float32,
+                                                        device=scores.device))
+    w = torch.softmax(scores, dim=-1).to(q.dtype).reshape(B, KVH, G, Sq, -1)
+    return torch.einsum("bngqk,bknd->bqngd", w, v).reshape(B, Sq, H, D)
+
+
+def causal_mask(Sq: int, Sk: int, offset: int = 0, device="cuda"):
+    """(Sq, Sk) boolean mask.  ``offset`` = absolute position of query 0
+    relative to key 0."""
+    qi = torch.arange(Sq, device=device)[:, None] + offset
+    kj = torch.arange(Sk, device=device)[None, :]
+    return qi >= kj
+
+
+def attention_train(p, cfg: ModelConfig, x, positions, freqs) -> torch.Tensor:
+    """Full-sequence causal attention (training / prefill) through the
+    flash route."""
+    check_attention(cfg)
+    q, k, v = _project_qkv(p, cfg, x)
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, positions, freqs)
+        k = apply_rope(k, positions, freqs)
+    out = kops.flash_attention(q, k, v, causal=True)
+    return out.reshape(*x.shape[:2], cfg.q_dim) @ p["wo"].to(x.dtype)
+
+
+def attention_decode(p, cfg: ModelConfig, x, pos, cache_k, cache_v, freqs):
+    """One-token decode with a KV cache.
+
+    x (B, 1, d); pos (B,) int positions; cache_k/v (B, S_max, KVH, D),
+    written in place at each row's position.  Returns (out (B, 1, d),
+    cache_k, cache_v)."""
+    check_attention(cfg)
+    B = x.shape[0]
+    q, k, v = _project_qkv(p, cfg, x)  # q (B,1,H,D), k/v (B,1,KVH,D)
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, pos[:, None], freqs)
+        k = apply_rope(k, pos[:, None], freqs)
+    S_max = cache_k.shape[1]
+    bidx = torch.arange(B, device=x.device)
+    cache_k[bidx, pos] = k[:, 0]
+    cache_v[bidx, pos] = v[:, 0]
+    valid = torch.arange(S_max, device=x.device)[None, :] <= pos[:, None]
+    out = _sdpa(cfg, q, cache_k, cache_v, valid[:, None, None, :])
+    out = out.reshape(B, 1, cfg.q_dim) @ p["wo"].to(x.dtype)
+    return out, cache_k, cache_v
+
+
+# --- MLP ---------------------------------------------------------------------
+
+
+def init_mlp(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
+    d, f = cfg.d_model, cfg.d_ff
+    s = 1.0 / math.sqrt(d)
+    so = 1.0 / math.sqrt(f) / math.sqrt(2 * cfg.n_layers)
+    pd = cfg.param_dtype
+    if cfg.act == "swiglu":
+        p = {
+            "wi": truncated_normal(generator, (d, f), s, pd),
+            "wg": truncated_normal(generator, (d, f), s, pd),
+            "wo": truncated_normal(generator, (f, d), so, pd),
+        }
+        return {k: v.to(device) for k, v in p.items()}
+    return {
+        "wi": truncated_normal(generator, (d, f), s, pd).to(device),
+        "bi": torch.zeros((f,), dtype=pd, device=device),
+        "wo": truncated_normal(generator, (f, d), so, pd).to(device),
+        "bo": torch.zeros((d,), dtype=pd, device=device),
+    }
+
+
+def apply_mlp(p, cfg: ModelConfig, x):
+    dt = x.dtype
+    if cfg.act == "swiglu":
+        h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wi"].to(dt))
+        return h @ p["wo"].to(dt)
+    h = F.gelu(x @ p["wi"].to(dt) + p["bi"].to(dt), approximate="tanh")  # jax.nn.gelu's default
+    return h @ p["wo"].to(dt) + p["bo"].to(dt)

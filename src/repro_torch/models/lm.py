@@ -1,0 +1,244 @@
+"""Decoder LM of the dense family (qwen2/qwen3 style), the counterpart of
+the JAX package's ``repro/models/lm.py``.
+
+The input embedding and the output head are the paper's integration
+points: ``cfg.emb_method`` "cce" makes the token table a CCE table, looked
+up through the fused lookup kernel, and the head a second CCE table in the
+factored form (k-sized matmuls and integer gathers instead of a vocab by
+d matmul); "full" keeps both uncompressed.
+
+Params are stacked ``(L, ...)`` per leaf, as the JAX package stacks them
+for ``lax.scan``, so ``convert`` carries a JAX state across leaf by leaf;
+Python loops over the layers replace the scans.  The KV cache is written
+in place (``prefill`` into the slice it is given, ``decode_step`` at each
+row's position), where the JAX functions return a new cache.  Not ported:
+the MoE, hybrid, xLSTM, VLM and audio families, sinusoidal positions, and
+the loss (training is a later slice).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.core import embeddings as emb_lib
+from repro_torch.kernels import ops as kops
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+
+def _check(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"LM family {cfg.family!r} is not ported (dense only)")
+    if cfg.pos_emb not in ("rope", "none"):
+        raise NotImplementedError(f"pos_emb={cfg.pos_emb!r} is not ported")
+    L.check_attention(cfg)
+
+
+# --- embedding table construction -------------------------------------------
+
+
+def make_emb(cfg: ModelConfig):
+    return emb_lib.make_table(
+        cfg.emb_method,
+        cfg.vocab,
+        cfg.d_model,
+        budget=cfg.emb_budget or None,
+        c=cfg.emb_c,
+        dtype=cfg.param_dtype,
+    )
+
+
+def _head_table(cfg: ModelConfig):
+    """The compressed factored head: a second table instance (own seed)."""
+    return dataclasses.replace(make_emb(cfg), seed_salt=1)
+
+
+# --- init ----------------------------------------------------------------------
+
+
+def _init_layer(generator: torch.Generator, cfg: ModelConfig, device):
+    p = {"ln1": L.init_norm(cfg, device=device),
+         "attn": L.init_attention(generator, cfg, device=device)}
+    if not cfg.parallel_block:
+        p["ln2"] = L.init_norm(cfg, device=device)
+    if cfg.d_ff:
+        p["mlp"] = L.init_mlp(generator, cfg, device=device)
+    return p
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
+    """Returns (params, buffers).  Float draws come from ``generator``, on
+    its own device (a CUDA generator keeps a full-width init on the card);
+    buffers (CCE pointer arrays and hash coefficients) come from numpy and
+    equal the JAX package's bit for bit."""
+    _check(cfg)
+    emb = make_emb(cfg)
+    emb_params, emb_buffers = emb.init(generator, device=device)
+    params: dict[str, Any] = {"emb": emb_params}
+    buffers: dict[str, Any] = {"emb": emb_buffers}
+    params["blocks"] = _stack([_init_layer(generator, cfg, device) for _ in range(cfg.n_layers)])
+    params["ln_f"] = L.init_norm(cfg, device=device)
+    if cfg.tie_embeddings:
+        pass  # head reuses emb params
+    elif cfg.emb_method == "full":
+        params["head"] = L.truncated_normal(
+            generator, (cfg.vocab, cfg.d_model), 1.0 / math.sqrt(cfg.d_model),
+            cfg.param_dtype).to(device)
+    else:
+        hp, hb = _head_table(cfg).init(generator, device=device)
+        params["head"] = hp
+        buffers["head"] = hb
+    return params, buffers
+
+
+def init_buffers(cfg: ModelConfig):
+    """Only the embedding buffers, as numpy (no tensors): the values
+    ``init`` gives, derived from ``seed_salt``."""
+    buffers: dict[str, Any] = {"emb": make_emb(cfg).init_buffers()}
+    if not cfg.tie_embeddings and cfg.emb_method != "full":
+        buffers["head"] = _head_table(cfg).init_buffers()
+    return buffers
+
+
+def layer_params(blocks, i: int):
+    """Layer ``i`` of the stacked block params (views)."""
+    if isinstance(blocks, dict):
+        return {k: layer_params(v, i) for k, v in blocks.items()}
+    return blocks[i]
+
+
+# --- embedding lookup / logits -----------------------------------------------
+
+
+def embed(params, buffers, cfg: ModelConfig, tokens):
+    """tokens (B, S) -> (B, S, d) in ``cfg.dtype``; a CCE table takes the
+    fused lookup (the kernel on CUDA tensors)."""
+    x = make_emb(cfg).lookup(params["emb"], buffers["emb"], tokens)
+    if cfg.emb_scale:
+        x = x * math.sqrt(cfg.d_model)
+    return x.to(cfg.dtype)
+
+
+def logits_fn(params, buffers, cfg: ModelConfig, h):
+    """h (..., d) -> (..., vocab).  A table head (tied or compressed)
+    promotes ``cfg.dtype`` activations against its ``param_dtype`` table,
+    as jnp does; an untied full head multiplies in ``cfg.dtype``."""
+    if cfg.tie_embeddings or cfg.emb_method != "full":
+        key = "emb" if cfg.tie_embeddings else "head"
+        return make_emb(cfg).logits(params[key], buffers[key], h.to(cfg.dtype))
+    return h.to(cfg.dtype) @ params["head"].to(cfg.dtype).T
+
+
+# --- forward (training / prefill) ---------------------------------------------
+
+
+def _block_train(p, cfg: ModelConfig, x, positions, freqs, *, decode_cache=None):
+    """One block over a full sequence, or one decode token when
+    ``decode_cache`` ({"k", "v"} of this layer) is given.  Returns x."""
+    h = L.apply_norm(p["ln1"], x)
+    if decode_cache is None:
+        attn = L.attention_train(p["attn"], cfg, h, positions, freqs)
+    else:
+        attn, _, _ = L.attention_decode(p["attn"], cfg, h, positions, decode_cache["k"],
+                                        decode_cache["v"], freqs)
+    if cfg.parallel_block:
+        # command-r: attn and FFN both read ln1(x), summed into the residual
+        return x + attn + L.apply_mlp(p["mlp"], cfg, h)
+    x = x + attn
+    if cfg.d_ff:
+        x = x + L.apply_mlp(p["mlp"], cfg, L.apply_norm(p["ln2"], x))
+    return x
+
+
+def forward(params, buffers, cfg: ModelConfig, batch):
+    """Full-sequence forward.  batch: {"tokens": (B, S) integer}.  Returns
+    (logits (B, S, vocab), aux), aux a float32 zero (the dense family has
+    no auxiliary loss)."""
+    _check(cfg)
+    tokens = batch["tokens"]
+    x = embed(params, buffers, cfg, tokens)
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    freqs = L.rope_freqs(cfg, device=x.device)
+    for i in range(cfg.n_layers):
+        x = _block_train(layer_params(params["blocks"], i), cfg, x, positions, freqs)
+    x = L.apply_norm(params["ln_f"], x)
+    return logits_fn(params, buffers, cfg, x), torch.zeros((), dtype=torch.float32,
+                                                           device=x.device)
+
+
+# --- decode --------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
+    """Decode cache {"k", "v"}, each (L, batch, max_seq, KVH, D) zeros in
+    ``cfg.dtype``."""
+    _check(cfg)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def cache_batch_axis(cfg: ModelConfig):
+    """The batch-dimension index of each cache leaf."""
+    return {"k": 1, "v": 1}
+
+
+def decode_step(params, buffers, cfg: ModelConfig, tokens, pos, cache):
+    """One-token decode.  tokens (B,), pos (B,) integer positions; the
+    token's k/v go into ``cache`` in place at ``pos``.  Returns (logits
+    (B, vocab), cache)."""
+    _check(cfg)
+    x = embed(params, buffers, cfg, tokens[:, None])
+    freqs = L.rope_freqs(cfg, device=x.device)
+    pos = pos.to(torch.int64)
+    for i in range(cfg.n_layers):
+        lc = {"k": cache["k"][i], "v": cache["v"][i]}
+        x = _block_train(layer_params(params["blocks"], i), cfg, x, pos, freqs,
+                         decode_cache=lc)
+    x = L.apply_norm(params["ln_f"], x)
+    return logits_fn(params, buffers, cfg, x[:, 0]), cache
+
+
+def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None):
+    """Process a full prompt: write its k/v into ``cache[:, :, :S]`` in
+    place and return (logits of one position (B, vocab), cache).
+
+    ``last_idx`` (default ``S - 1``) picks that position: a serving engine
+    that right-pads prompts into power-of-two buckets passes the true last
+    token's index, and causal attention keeps every position up to it
+    blind to the padding."""
+    _check(cfg)
+    B, S = tokens.shape
+    x = embed(params, buffers, cfg, tokens)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    freqs = L.rope_freqs(cfg, device=x.device)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["blocks"], i)
+        h = L.apply_norm(lp["ln1"], x)
+        q, k, v = L._project_qkv(lp["attn"], cfg, h)
+        if cfg.pos_emb == "rope":
+            q = L.apply_rope(q, positions, freqs)
+            k = L.apply_rope(k, positions, freqs)
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+        attn = kops.flash_attention(q, k, v, causal=True)
+        attn = attn.reshape(B, S, cfg.q_dim) @ lp["attn"]["wo"].to(x.dtype)
+        if cfg.parallel_block:
+            x = x + attn + L.apply_mlp(lp["mlp"], cfg, h)
+            continue
+        x = x + attn
+        if cfg.d_ff:
+            x = x + L.apply_mlp(lp["mlp"], cfg, L.apply_norm(lp["ln2"], x))
+    last = S - 1 if last_idx is None else int(last_idx)
+    x = L.apply_norm(params["ln_f"], x[:, last])
+    return logits_fn(params, buffers, cfg, x), cache

@@ -20,6 +20,11 @@ def _port_modules():
 def test_every_port_module_imports_without_jax():
     mods = list(_port_modules())
     assert "repro_torch.serve.dlrm" in mods and "repro_torch.kernels.ops" in mods
+    for lm_slice in ("repro_torch.models.lm", "repro_torch.models.layers",
+                     "repro_torch.models.config", "repro_torch.configs",
+                     "repro_torch.kernels.flash_attention", "repro_torch.serve.engine",
+                     "repro_torch.launch.serve"):
+        assert lm_slice in mods
     code = (
         "import importlib, sys\n"
         "for blocked in ('jax', 'jaxlib', 'repro'):\n"

@@ -1,0 +1,98 @@
+"""Port vs JAX package: the LM serving engine.  On the JAX serving tests'
+model (dense, 2 layers, full tables, float32) with the JAX package's
+params carried over by ``convert``, the port's ``ServeEngine`` generates
+the same greedy tokens as the JAX ``ServeEngine`` for the same requests:
+continuous batching over fewer slots than requests, prompts of every
+length up to a 32-token cache (power-of-two buckets), and eos.  Also
+drives the port's serve launcher on the CPU."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import lm as jlm
+from repro.models.config import ModelConfig as JConfig
+from repro.serve import Request as JRequest
+from repro.serve import ServeEngine as JEngine
+from repro_torch import convert
+from repro_torch.launch import serve as tserve
+from repro_torch.models.config import ModelConfig as TConfig
+from repro_torch.obs.runlog import RunLog, read_runlog
+from repro_torch.serve.engine import Request as TRequest
+from repro_torch.serve.engine import ServeEngine as TEngine
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+FIELDS = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+              d_ff=128, vocab=97, remat="none")
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg = JConfig(dtype=jnp.float32, **FIELDS)
+    params, buffers = jlm.init(jax.random.PRNGKey(0), jcfg)
+    tp, tb = convert.lm_to_torch(*jax.tree.map(np.asarray, (params, buffers)), "cpu")
+    return (jcfg, params, buffers), (TConfig(dtype=torch.float32, **FIELDS), tp, tb)
+
+
+def _serve(engine_cls, request_cls, state, requests, **kw):
+    cfg, params, buffers = state
+    eng = engine_cls(cfg, params, buffers, **kw)
+    for uid, prompt, max_tokens, eos in requests:
+        eng.submit(request_cls(uid=uid, prompt=prompt, max_tokens=max_tokens, eos=eos))
+    done = eng.run()
+    assert len(done) == len(requests)
+    return {r.uid: r.generated for r in done}
+
+
+def _requests(scenario):
+    rng = np.random.default_rng({"batching": 1, "queue": 2, "buckets": 3}[scenario])
+    if scenario == "batching":  # 5 prompts of 4..8 tokens over 3 slots
+        return [(i, rng.integers(0, 97, 4 + i).astype(np.int32), 4, None) for i in range(5)]
+    if scenario == "queue":  # 7 requests over 2 slots
+        return [(i, rng.integers(0, 97, 3).astype(np.int32), 3, None) for i in range(7)]
+    # 17 prompt lengths over 4 buckets, 4 slots
+    return [(i, rng.integers(0, 97, s).astype(np.int32), 3, None)
+            for i, s in enumerate(range(1, 18))]
+
+
+@pytest.mark.parametrize("scenario,max_batch", [("batching", 3), ("queue", 2), ("buckets", 4)])
+def test_engine_tokens_match_jax(model, scenario, max_batch):
+    jstate, tstate = model
+    reqs = _requests(scenario)
+    want = _serve(JEngine, JRequest, jstate, reqs, max_batch=max_batch, max_seq=32)
+    got = _serve(TEngine, TRequest, tstate, reqs, max_batch=max_batch, max_seq=32)
+    assert got == want
+
+
+def test_eos_matches_jax(model):
+    jstate, tstate = model
+    prompt = np.asarray([5, 17, 3], np.int32)
+    free = _serve(TEngine, TRequest, tstate, [(0, prompt, 8, None)], max_batch=1, max_seq=32)[0]
+    reqs = [(0, prompt, 8, free[2]), (1, prompt[:2], 8, None)]
+    want = _serve(JEngine, JRequest, jstate, reqs, max_batch=2, max_seq=32)
+    got = _serve(TEngine, TRequest, tstate, reqs, max_batch=2, max_seq=32)
+    assert got == want and got[0] == free[:3]
+
+
+def test_prefill_count_latency_histogram_and_run_log(model, tmp_path):
+    _, tstate = model
+    cfg, params, buffers = tstate
+    with RunLog(tmp_path / "serve.jsonl") as log:
+        eng = TEngine(cfg, params, buffers, max_batch=2, max_seq=32, runlog=log)
+        for uid, prompt, max_tokens, eos in _requests("queue"):
+            eng.submit(TRequest(uid=uid, prompt=prompt, max_tokens=max_tokens, eos=eos))
+        done = eng.run()
+        hist = eng.flush_stats()
+    assert eng.prefills == len(done) == 7
+    assert hist["n"] == 7 and 0 < hist["p50"] <= hist["p99"]
+    events = [r["event"] for r in read_runlog(tmp_path / "serve.jsonl")]
+    assert events == ["manifest"] + ["request"] * 7 + ["latency_hist"]
+
+
+def test_launch_serve_runs_on_the_cpu(capsys):
+    done = tserve.main(["--device", "cpu", "--requests", "3", "--max-tokens", "3"])
+    assert len(done) == 3 and all(len(r.generated) == 3 for r in done)
+    assert "served 3 requests" in capsys.readouterr().out
