@@ -8,7 +8,9 @@
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes of the main paths (the lookup and its backward bit for bit, the
    k-means assignment by the tie-tolerant rule) and times kernel, plain
-   version and a library call that computes the same function.
+   version and a library call that computes the same function (the
+   lookup at the LM's table and at the wide widths with the L2 flushed
+   before each call, as a serving caller finds the table).
 3. Trains the full-width Criteo DLRM configuration (26 features, 33.7M ids,
    random weights from a seed) for 8 steps at batch 2048, holding the
    first step against the same step on CPU copies of the state; runs one
@@ -61,6 +63,15 @@ POST_STEPS = 4  # after it
 TRAIN_LR = 0.05  # constant, with momentum 0.9 and clip 1.0
 LOOKUP_BATCHES = (1, 7, SERVE_BATCH, TRAIN_BATCH, 4096)
 BWD_BATCHES = (256, TRAIN_BATCH, 4096)
+LM_DSUB = 384  # the LM token table's sub-row width (qwen2-1.5b: d 1536 over c=4)
+# other widths of both lookup kernels: (c, T, k, dsub) -> the layout each
+# dtype takes; the first is the LM token table's shape
+WIDE_LOOKUP = {
+    (4, 2, 4748, LM_DSUB): {"float32": "wide_vector", "bfloat16": "wide_vector"},
+    (26, 2, 305, 36): {"float32": "wide_vector", "bfloat16": "wide_scalar"},
+    (26, 2, 305, 6): {"float32": "wide_scalar", "bfloat16": "wide_scalar"},
+}
+WIDE_BATCHES = (1, 8, TRAIN_BATCH)
 ASSIGN_SHAPES = ((1 << 18, 250, 4), (64000, 250, 4))  # an assign_all chunk; a Lloyd sample
 ASSIGN_RTOL = 1e-5  # the plain distance of the kernel's pick vs the plain minimum
 STEP_RTOL = 1e-4  # card vs CPU, per leaf, relative to the leaf's largest magnitude
@@ -120,9 +131,11 @@ def time_ms(fn, *, iters: int = 200, reps: int = 5, warmup: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel_name: str, *, iters: int = 50):
-    """Mean device time of the named CUDA kernel per launch from
-    torch.profiler, or None where the trace holds no device time."""
+def _profile(fn, iters: int, flush=None):
+    """torch.profiler's per-name averages over ``iters`` calls of ``fn``
+    (after one warm-up call), each after a call of ``flush`` where one is
+    given.  A trace may come back with fewer records than the calls made,
+    or with none: the callers take it again over more calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -130,29 +143,128 @@ def device_ms(fn, kernel_name: str, *, iters: int = 50):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if flush is not None:
+                flush()
             fn()
         torch.cuda.synchronize()
-    for e in prof.key_averages():
-        if kernel_name in e.key and e.count:
-            us = getattr(e, "device_time", None) or getattr(e, "cuda_time", 0.0)
-            return us / 1e3 if us else None
-    return None
+    return prof.key_averages()
 
 
-def device_busy_ms(fn, *, iters: int = 1) -> float:
+def _device_us(event) -> float:
+    return getattr(event, "device_time_total", None) or getattr(event, "cuda_time_total", 0.0)
+
+
+_L2_BYTES = 128 << 20  # over twice the H100's 50 MB L2
+_l2_flush = {}
+
+
+def l2_flush():
+    """(flush, counts): ``flush()`` reads a buffer of _L2_BYTES, so that
+    the call after it finds its inputs in HBM, not in the L2, as a caller
+    does whose other work streams through the L2 between calls (an LM's
+    weights between two prefills).  It sums rows of 4096 floats, one
+    kernel with no memset, and writes 32 KB; ``counts`` holds its launches
+    a call by kernel name."""
+    import torch
+
+    if not _l2_flush:
+        buf = torch.ones((_L2_BYTES // 4 // 4096, 4096), device="cuda")
+
+        def flush():
+            buf.sum(dim=1)
+
+        counts = {}
+        for n_calls in (100, 400, 1600):
+            counts = {e.key: round(e.count / n_calls) for e in _profile(flush, n_calls)
+                      if _device_us(e) and round(e.count / n_calls)}
+            if counts:
+                break
+        check(bool(counts), "three traces of the L2 flush hold none of its kernels")
+        _l2_flush.update(flush=flush, counts=counts)
+    return _l2_flush["flush"], _l2_flush["counts"]
+
+
+# The profiler drops records now and then, up to a few dozen a trace of any
+# length (PERF.md section 7), so device_ms and device_busy_ms take traces of
+# at least TRACE_RECORDS records, and take one that lacks too many again
+# over four times as many calls, at most three times.
+TRACE_RECORDS = 400
+
+
+def device_ms(fn, kernel_name: str, *, iters: int = TRACE_RECORDS,
+              cold: bool = False) -> float:
+    """Device time a call of ``fn`` spent in the CUDA kernel whose name
+    holds ``kernel_name`` (launched once a call), from torch.profiler over
+    ``iters`` calls; with ``cold``, every call comes after ``l2_flush``.
+    Where the trace lacks launches the time is the mean over those it
+    holds, with a line that says so, and one that holds fewer than nine
+    tenths is taken again.  Fails where a trace holds more than one a call,
+    or none holds nine tenths, so that a renamed kernel cannot lose its
+    time without a word."""
+    flush = l2_flush()[0] if cold else None
+    for attempt in range(4):
+        n_calls = iters * 4 ** attempt
+        hits = [e for e in _profile(fn, n_calls, flush) if kernel_name in e.key and e.count]
+        n = sum(e.count for e in hits)
+        us = sum(_device_us(e) for e in hits)
+        check(n <= n_calls, f"{n} launches of *{kernel_name}* in {n_calls} calls")
+        if n >= n_calls - n_calls // 10 and us > 0:
+            if n < n_calls:
+                print(f"chip_smoke: the trace holds {n} of {n_calls} launches of "
+                      f"*{kernel_name}*; its time is their mean", flush=True)
+            return us / 1e3 / n
+        print(f"chip_smoke: trace {attempt + 1} holds {n} launches of *{kernel_name}* in "
+              f"{n_calls} calls; taken again", flush=True)
+    check(False, f"four traces without one launch of *{kernel_name}* a call")
+
+
+def device_busy_ms(fn, *, iters: int = 5, cold: bool = False) -> float:
     """Device time of every CUDA kernel and copy that a call of ``fn``
-    runs, summed from torch.profiler, mean over ``iters`` calls."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    runs, from torch.profiler over at least ``iters`` (and 5) calls, as
+    many more as TRACE_RECORDS needs; with ``cold``, every call comes after
+    ``l2_flush``, whose kernels are not counted.  Each kernel counts as its
+    mean time a record times its launches a call, the trace's count over
+    the calls rounded; a line says when the trace lacks records, and one
+    that lacks more than a tenth is taken again, over more calls where the
+    trace took less than a second."""
+    flush, flushed = l2_flush() if cold else (None, {})
+    n_calls = max(iters, 5)
+    for attempt in range(5):
+        us = lost = want = 0
+        t0 = time.perf_counter()
+        for e in _profile(fn, n_calls, flush):
+            check(e.count <= flushed.get(e.key, 1 << 60) * n_calls,
+                  f"the call launches {e.key[:80]}, a kernel of the L2 flush")
+            per_call = round(e.count / n_calls)
+            if e.key not in flushed and per_call and _device_us(e):
+                us += _device_us(e) / e.count * per_call
+                lost += max(0, per_call * n_calls - e.count)
+                want += per_call * n_calls
+        if want >= TRACE_RECORDS and lost <= want // 10:
+            if lost:
+                print(f"chip_smoke: the trace lacks {lost} of {want} records; each kernel's "
+                      f"time is its mean over those it holds", flush=True)
+            return us / 1e3
+        if lost or not want:
+            print(f"chip_smoke: a trace of {n_calls} calls lacks {lost} of {want} records"
+                  f"{'' if want else ' (it holds no device activity)'}; taken again", flush=True)
+        if time.perf_counter() - t0 < 1.0:  # a second or more of calls: take as many again
+            n_calls = max(4 * n_calls, -(-TRACE_RECORDS * n_calls // want) if want else 0)
+    check(False, "five traces without nine tenths of their records")
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum((getattr(e, "device_time", None) or 0.0) * e.count for e in prof.key_averages())
-    return total_us / 1e3 / iters
+
+def cl_path(t) -> str:
+    """The layout both lookup kernels take for rows along the last dim of
+    ``t`` (a table or an upstream gradient) at its address."""
+    from repro_torch.kernels import cce_lookup as cl
+
+    return cl.lookup_path(t.shape[-1], t.element_size(), t.data_ptr())
+
+
+def lookup_kernel(entry: str, t) -> str:
+    """The CUDA function that ``entry`` launches for the float tensor
+    ``t`` (outputs are fresh allocations, so aligned)."""
+    return f"{entry}_{cl_path(t)}_kernel"
 
 
 def lookup_case(collection, B: int, dtype, seed: int, device="cuda"):
@@ -218,10 +330,80 @@ def embedding_bag_args(idx, tables):
     return flat[valid], tables.reshape(-1, tables.shape[3]), offsets
 
 
+def random_lookup(c: int, T: int, k: int, dsub: int, B: int, dtype, seed: int, device="cuda",
+                  offset: int = 0):
+    """idx and tables of one shape, in the serving layout (the (c, B, T)
+    view of (B, c, T) rows) with 10% -1 sentinels and 5% rows at or past
+    k; ``offset`` > 0 starts the tables that many elements into their
+    storage, so that they are not aligned."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, k, (B, c, T)).astype(np.int32)
+    u = rng.random((B, c, T))
+    rows[u < 0.10] = -1
+    rows[(u >= 0.10) & (u < 0.15)] = k + 7
+    n = c * T * k * dsub
+    flat = torch.from_numpy(rng.normal(size=n + offset).astype(np.float32))
+    tables = flat.to(device=device, dtype=dtype)[offset:].view(c, T, k, dsub)
+    return torch.from_numpy(rows).to(device).movedim(0, 1), tables
+
+
+def wide_lookup_cases(card: str, device="cuda") -> float:
+    """The lookup at widths other than the Criteo supertable's dsub=4: the
+    LM token table's 384, and 36 and 6, at B in WIDE_BATCHES, on strided
+    idx; float32 bit for bit, bfloat16 within one bf16 step; each takes
+    the layout ``lookup_path`` names for it, and an unaligned table takes
+    wide_scalar.  Times the largest batch with the L2 flushed before each
+    call, beside ``embedding_bag`` (float32), flushed the same way.
+    Returns the largest float32 error."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cce_lookup as cl
+    from repro_torch.kernels import ref
+
+    max_err = 0.0
+    for (c, T, k, dsub), paths in WIDE_LOOKUP.items():
+        for dtype, offset in ((torch.float32, 0), (torch.bfloat16, 0), (torch.float32, 1)):
+            dn = str(dtype).split(".")[-1]
+            path = paths[dn] if not offset else "wide_scalar"
+            for B in WIDE_BATCHES:
+                idx, tables = random_lookup(c, T, k, dsub, B, dtype, seed=dsub * 10 + B,
+                                            device=device, offset=offset)
+                check(cl_path(tables) == path,
+                      f"dsub={dsub} {dn} offset {offset} does not take {path}")
+                got = cl.cce_lookup_fwd(idx, tables)
+                want = ref.cce_lookup_ref(idx, tables)
+                err = (got.float() - want.float()).abs().max().item()
+                if dtype == torch.float32:
+                    check(torch.equal(got, want),
+                          f"f32 kernel != plain at dsub={dsub} B={B} {path} (max err {err})")
+                    max_err = max(max_err, err)
+                else:
+                    check(torch.allclose(got.float(), want.float(), rtol=2**-7, atol=0.0),
+                          f"bf16 kernel vs plain beyond 2^-7 relative at dsub={dsub} B={B}")
+            dev = device_ms(lambda: cl.cce_lookup_fwd(idx, tables),
+                            lookup_kernel("cce_lookup_fwd", tables), cold=True)
+            bound, bound_by = lookup_bound(idx, tables)
+            line = (f"[{card}] cce_lookup_fwd c={c} T={T} k={k} dsub={dsub} {dn} {path}: equal to "
+                    f"plain at B={WIDE_BATCHES}; B={B} L2 flushed: device_ms={dev!r} "
+                    f"bound_ms={bound!r} ({bound_by})")
+            if dtype == torch.float32:
+                bag, weight, offsets = embedding_bag_args(idx, tables)
+                lib_dev = device_busy_ms(
+                    lambda: F.embedding_bag(bag, weight, offsets, mode="sum"), iters=20, cold=True)
+                line += f" library_device_ms(embedding_bag)={lib_dev!r}"
+            print(line, flush=True)
+    return max_err
+
+
 def kernel_phase(card: str, collection, device="cuda"):
     """The lookup kernel against its plain version at the supertable's
-    shape, with its times.  Returns (max float32 error, {batch: numbers}
-    at the serve and the train batch)."""
+    shape, with its times, then at other widths (``wide_lookup_cases``).
+    Returns (max float32 error, {batch: numbers} at the serve and the train
+    batch)."""
     import torch
     import torch.nn.functional as F
 
@@ -250,7 +432,8 @@ def kernel_phase(card: str, collection, device="cuda"):
                       f"bf16 kernel vs plain beyond 2^-7 relative at B={B} (max err {err})")
             ms = time_ms(lambda: cl.cce_lookup_fwd(idx, tables))
             plain = time_ms(lambda: ref.cce_lookup_ref(idx, tables))
-            dev = device_ms(lambda: cl.cce_lookup_fwd(idx, tables), "cce_lookup_fwd_kernel")
+            dev = device_ms(lambda: cl.cce_lookup_fwd(idx, tables),
+                            lookup_kernel("cce_lookup_fwd", tables))
             plain_dev = device_busy_ms(lambda: ref.cce_lookup_ref(idx, tables), iters=20)
             bound, bound_by = lookup_bound(idx, tables)
             line = (f"[{card}] cce_lookup_fwd {str(dtype).split('.')[-1]} B={B}: "
@@ -271,6 +454,7 @@ def kernel_phase(card: str, collection, device="cuda"):
                 at[B] = dict(ms=ms, device_ms=dev, plain_ms=plain, plain_device_ms=plain_dev,
                              bound_ms=bound, bound_by=bound_by, library_ms=lib,
                              library_device_ms=lib_dev)
+    max_err = max(max_err, wide_lookup_cases(card, device=device))
     return max_err, at
 
 
@@ -281,9 +465,9 @@ def column_ks(collection) -> list[int]:
 
 
 def bwd_case(collection, B: int, dtype, seed: int, device="cuda"):
-    """idx as the train step gives it to the backward (the (c, B, T) view of
-    rows drawn below each column's real k, the second slot of full-table
-    columns -1, 10% more -1 sentinels) and a random upstream gradient."""
+    """idx with uniform rows (the (c, B, T) view of rows drawn below each
+    column's real k, the second slot of full-table columns -1, 10% more -1
+    sentinels) and a random upstream gradient."""
     import numpy as np
     import torch
 
@@ -302,6 +486,29 @@ def bwd_case(collection, B: int, dtype, seed: int, device="cuda"):
     idx = torch.from_numpy(rows).to(device).movedim(0, 1)  # (c, B, T), strided
     dout = torch.from_numpy(rng.normal(size=(B, c, dsub)).astype(np.float32))
     return idx, dout.to(device=device, dtype=dtype)
+
+
+def bwd_train_case(cfg, B: int, seed: int, device="cuda"):
+    """idx as the train step gives it to the backward: the rows
+    ``EmbeddingCollection.group_rows`` makes on fresh buffers from one
+    synthetic clickstream batch (Zipf 1.1 ids), and a random float32
+    upstream gradient."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import ClickstreamConfig, clickstream_batches
+
+    coll = cfg.collection
+    (g,) = coll.univ_groups
+    grp = coll.groups[g]
+    _, buffers = coll.init(torch.Generator().manual_seed(seed), device)
+    batch = next(clickstream_batches(ClickstreamConfig(vocab_sizes=cfg.vocab_sizes, seed=seed), B))
+    ids = torch.from_numpy(batch["sparse"]).to(device)[:, list(grp.features)]
+    idx = coll.group_rows(grp, buffers[g], ids)
+    del buffers
+    rng = np.random.default_rng(seed)
+    dout = torch.from_numpy(rng.normal(size=(B, grp.n_cols, grp.dsub)).astype(np.float32))
+    return idx, dout.to(device)
 
 
 def bwd_bound(idx, dout, k: int):
@@ -331,70 +538,138 @@ def index_add_args(idx, dout, k: int):
     return (col_t * k + r)[valid], dout.reshape(B * c, -1)[src[valid]]
 
 
-def bwd_kernel_phase(card: str, collection, device="cuda"):
-    """The backward kernel against its plain version at the supertable's
-    shape: equal bit for bit (both sum each row in float32 in increasing b
-    and round once), equal to itself across calls, and exactly zero on
-    rows no index names (sentinels, padding past a column's k).  Returns
-    (max error, numbers at the train batch)."""
+def hottest_share(idx, k: int) -> float:
+    """The largest share of the batch that one row of one (column,
+    sub-table) holds."""
+    import torch
+
+    c, B, T = idx.shape
+    r = idx.to(torch.int64)
+    valid = (r >= 0) & (r < k)
+    key = ((torch.arange(c, device=r.device)[:, None, None] * T
+            + torch.arange(T, device=r.device)[None, None, :]) * k + r)[valid]
+    return torch.bincount(key).max().item() / B if key.numel() else 0.0
+
+
+def bwd_check(card: str, label: str, idx, dout, k: int, ks=None, *, timed=True):
+    """The backward kernel on one input against its plain version: equal
+    bit for bit (both sum each row in float32 in increasing b and round
+    once), equal to itself across calls, exactly zero on rows no index
+    names and on padding rows past a column's real k (``ks``).  With
+    ``timed``, prints and returns its numbers beside its bound, its plain
+    version's and (float32) ``zeros``+``index_add_``'s.  Returns (max
+    error, numbers or None)."""
     import torch
 
     from repro_torch.kernels import cce_lookup as cl
     from repro_torch.kernels import ref
 
+    device = idx.device
+    c, B, T = idx.shape
+    dsub = dout.shape[2]
+    got = cl.cce_lookup_bwd(idx, dout, k)
+    again = cl.cce_lookup_bwd(idx, dout, k)
+    want = ref.cce_lookup_bwd_ref(idx, dout, k)
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.equal(got, want), f"bwd kernel != plain on {label} (max err {err})")
+    check(torch.equal(got, again), f"bwd kernel not repeatable on {label}")
+    named = torch.zeros((c, T, k), dtype=torch.bool, device=device)
+    r = idx.to(torch.int64)
+    valid = (r >= 0) & (r < k)
+    cc, _, tt = torch.nonzero(valid, as_tuple=True)
+    named[cc, tt, r[valid]] = True
+    check(not got[~named].any(), f"bwd kernel wrote a row no index names on {label}")
+    if ks is not None:
+        pad = torch.arange(k, device=device)[None, None, :] >= ks[:, None, None]
+        check(not got[pad.expand(c, T, k)].any(), f"bwd padding rows not zero on {label}")
+    hot = hottest_share(idx, k)
+    if not timed:
+        print(f"[{card}] cce_lookup_bwd {label}: equal to plain, repeatable, zero on unnamed "
+              f"rows; hottest row {hot!r} of the batch", flush=True)
+        return err, None
+    ms = time_ms(lambda: cl.cce_lookup_bwd(idx, dout, k))
+    plain = time_ms(lambda: ref.cce_lookup_bwd_ref(idx, dout, k), iters=3, reps=3, warmup=1)
+    dev = device_ms(lambda: cl.cce_lookup_bwd(idx, dout, k),
+                    lookup_kernel("cce_lookup_bwd", dout))
+    plain_dev = device_busy_ms(lambda: ref.cce_lookup_bwd_ref(idx, dout, k))
+    bound, bound_by = bwd_bound(idx, dout, k)
+    line = (f"[{card}] cce_lookup_bwd {label}: max_abs_err={err!r} repeatable=True "
+            f"zero_unnamed_rows=True hottest_row_share={hot!r} ms={ms!r} device_ms={dev!r} "
+            f"plain_ms={plain!r} plain_device_ms={plain_dev!r} bound_ms={bound!r} ({bound_by})")
+    lib = lib_dev = None
+    if dout.dtype == torch.float32:
+        dest, rows = index_add_args(idx, dout, k)
+        flat = (c * T * k, dsub)
+
+        def call():
+            return torch.zeros(flat, device=device).index_add_(0, dest, rows)
+
+        # atomics add a hot row's hundreds of terms in another order
+        lib_err = (call().reshape(got.shape) - got).abs().max().item()
+        check(lib_err <= 1e-5 * got.abs().max().item(),
+              f"index_add_ yardstick computes another function on {label} ({lib_err})")
+        lib = time_ms(call)
+        lib_dev = device_busy_ms(call, iters=20)
+        line += f" library_ms(zeros+index_add_)={lib!r} library_device_ms={lib_dev!r}"
+    print(line, flush=True)
+    return err, dict(ms=ms, device_ms=dev, plain_ms=plain, plain_device_ms=plain_dev,
+                     bound_ms=bound, bound_by=bound_by, library_ms=lib,
+                     library_device_ms=lib_dev, hottest_row_share=hot)
+
+
+def bwd_kernel_phase(card: str, cfg, device="cuda"):
+    """The backward kernel against its plain version (``bwd_check``) at the
+    supertable's shape on uniform rows at BWD_BATCHES, on the rows a real
+    train batch gives (Zipf ids through ``group_rows``), on every valid
+    index of a column naming one row, on an unaligned dout (wide_scalar),
+    then at the wide widths of WIDE_LOOKUP.  Returns (max error, numbers at
+    the train batch: uniform ids at the top level, the skewed, the one-row
+    and the LM-shape cases under their own keys)."""
+    import torch
+
+    collection = cfg.collection
     (g,) = collection.univ_groups
     k = collection.groups[g].k_pad
     ks = torch.tensor(column_ks(collection), device=device)
     max_err, at = 0.0, {}
     for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
         for B in BWD_BATCHES:
             idx, dout = bwd_case(collection, B, dtype, seed=100 + B, device=device)
-            got = cl.cce_lookup_bwd(idx, dout, k)
-            again = cl.cce_lookup_bwd(idx, dout, k)
-            want = ref.cce_lookup_bwd_ref(idx, dout, k)
-            err = (got.float() - want.float()).abs().max().item()
-            check(torch.equal(got, want), f"bwd kernel != plain at B={B} {dtype} (max err {err})")
-            check(torch.equal(got, again), f"bwd kernel not repeatable at B={B} {dtype}")
-            c, _, T = idx.shape
-            named = torch.zeros((c, T, k), dtype=torch.bool, device=device)
-            r = idx.to(torch.int64)
-            valid = (r >= 0) & (r < k)
-            cc, _, tt = torch.nonzero(valid, as_tuple=True)
-            named[cc, tt, r[valid]] = True
-            check(not got[~named].any(), f"bwd kernel wrote a row no index names at B={B}")
-            pad = torch.arange(k, device=device)[None, None, :] >= ks[:, None, None]
-            check(not got[pad.expand(c, T, k)].any(), f"bwd padding rows not zero at B={B}")
+            err, nums = bwd_check(card, f"{dn} B={B}", idx, dout, k, ks)
             max_err = max(max_err, err)
-            ms = time_ms(lambda: cl.cce_lookup_bwd(idx, dout, k))
-            plain = time_ms(lambda: ref.cce_lookup_bwd_ref(idx, dout, k), iters=3, reps=3,
-                            warmup=1)
-            dev = device_ms(lambda: cl.cce_lookup_bwd(idx, dout, k), "cce_lookup_bwd_kernel")
-            plain_dev = device_busy_ms(lambda: ref.cce_lookup_bwd_ref(idx, dout, k))
-            bound, bound_by = bwd_bound(idx, dout, k)
-            line = (f"[{card}] cce_lookup_bwd {str(dtype).split('.')[-1]} B={B}: "
-                    f"max_abs_err={err!r} repeatable=True zero_unnamed_rows=True ms={ms!r} "
-                    f"device_ms={dev!r} plain_ms={plain!r} plain_device_ms={plain_dev!r} "
-                    f"bound_ms={bound!r} ({bound_by})")
-            lib = lib_dev = None
-            if dtype == torch.float32:
-                dest, rows = index_add_args(idx, dout, k)
-                flat = (c * T * k, dout.shape[2])
-
-                def library():
-                    return torch.zeros(flat, device=device).index_add_(0, dest, rows)
-
-                # atomics add a hot row's hundreds of terms in another order
-                lib_err = (library().reshape(got.shape) - got).abs().max().item()
-                check(lib_err <= 1e-5 * got.abs().max().item(),
-                      f"index_add_ yardstick computes another function at B={B} ({lib_err})")
-                lib = time_ms(library)
-                lib_dev = device_busy_ms(library, iters=20)
-                line += f" library_ms(zeros+index_add_)={lib!r} library_device_ms={lib_dev!r}"
-            print(line, flush=True)
             if dtype == torch.float32 and B == TRAIN_BATCH:
-                at = dict(ms=ms, device_ms=dev, plain_ms=plain, plain_device_ms=plain_dev,
-                          bound_ms=bound, bound_by=bound_by, library_ms=lib,
-                          library_device_ms=lib_dev)
+                at.update(nums)
+                uniform = idx
+    idx, dout = bwd_train_case(cfg, TRAIN_BATCH, seed=3, device=device)
+    err, at["at_skewed_train_batch"] = bwd_check(
+        card, f"float32 B={TRAIN_BATCH} skewed (a train batch's rows)", idx, dout, k, ks)
+    max_err = max(max_err, err)
+    valid = (uniform >= 0) & (uniform < ks[:, None, None])
+    one_row = torch.where(valid, (ks - 1).to(torch.int32)[:, None, None], uniform)
+    err, at["at_one_row"] = bwd_check(
+        card, f"float32 B={TRAIN_BATCH} one row a column", one_row, dout, k, ks)
+    max_err = max(max_err, err)
+    flat = torch.empty(dout.numel() + 1, device=device)[1:]
+    odd = flat.view(dout.shape).copy_(dout)
+    check(cl_path(odd) == "wide_scalar", "an unaligned dout does not take wide_scalar")
+    err, _ = bwd_check(card, f"float32 B={TRAIN_BATCH} unaligned dout", uniform, odd, k, ks,
+                       timed=False)
+    max_err = max(max_err, err)
+    for (c, T, kw, dsub), paths in WIDE_LOOKUP.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            idx, _ = random_lookup(c, T, kw, dsub, TRAIN_BATCH, torch.float32, seed=dsub,
+                                   device=device)
+            gen = torch.Generator(device=device).manual_seed(dsub)
+            dout = torch.randn((TRAIN_BATCH, c, dsub), generator=gen, device=device).to(dtype)
+            check(cl_path(dout) == paths[dn], f"dsub={dsub} {dn} dout does not take {paths[dn]}")
+            label = f"{dn} B={TRAIN_BATCH} c={c} T={T} k={kw} dsub={dsub} {paths[dn]}"
+            err, nums = bwd_check(card, label, idx, dout, kw, timed=dtype == torch.float32)
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+                if dsub == LM_DSUB:
+                    at["at_lm_shape"] = nums
     return max_err, at
 
 
@@ -919,7 +1194,10 @@ def _lm_prompts(cfg):
 def lm_lookup_numbers(card: str, cfg, params, buffers, prompts) -> dict:
     """The lookup kernel at the LM's token-table shape (c=emb_c, T=2, the
     table's k and dsub): a 2048-token prefill and an 8-slot decode,
-    against its plain version (bit for bit in float32), with its times."""
+    against its plain version (bit for bit in float32), with its times.
+    Device times of kernel and ``embedding_bag`` are taken with the L2
+    flushed before each call, as serving finds the table (the layers'
+    weights stream through the L2 between two lookups), and warm beside."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -943,18 +1221,30 @@ def lm_lookup_numbers(card: str, cfg, params, buffers, prompts) -> dict:
                              got, rtol=1e-6, atol=1e-6),
               f"embedding_bag yardstick computes another function at B={n}")
         ms = time_ms(lambda: cl.cce_lookup_fwd(idx, tables))
-        dev = device_ms(lambda: cl.cce_lookup_fwd(idx, tables), "cce_lookup_fwd_kernel")
+        kernel = lookup_kernel("cce_lookup_fwd", tables)
+        dev = device_ms(lambda: cl.cce_lookup_fwd(idx, tables), kernel, cold=True)
+        dev_warm = device_ms(lambda: cl.cce_lookup_fwd(idx, tables), kernel)
         plain = time_ms(lambda: ref.cce_lookup_ref(idx, tables))
-        lib = time_ms(lambda: F.embedding_bag(bag, weight, offsets, mode="sum"))
-        lib_dev = device_busy_ms(lambda: F.embedding_bag(bag, weight, offsets, mode="sum"),
-                                 iters=20)
+        plain_dev = device_busy_ms(lambda: ref.cce_lookup_ref(idx, tables), iters=20)
+
+        def library():
+            return F.embedding_bag(bag, weight, offsets, mode="sum")
+
+        lib = time_ms(library)
+        lib_dev = device_busy_ms(library, iters=20, cold=True)
+        lib_dev_warm = device_busy_ms(library, iters=20)
         bound, bound_by = lookup_bound(idx, tables)
-        out[name] = dict(B=n, ms=ms, device_ms=dev, plain_ms=plain, bound_ms=bound,
-                         bound_by=bound_by, library_ms=lib, library_device_ms=lib_dev)
+        out[name] = dict(B=n, ms=ms, device_ms=dev, device_ms_warm=dev_warm, plain_ms=plain,
+                         plain_device_ms=plain_dev, bound_ms=bound, bound_by=bound_by,
+                         library_ms=lib, library_device_ms=lib_dev,
+                         library_device_ms_warm=lib_dev_warm)
         print(f"[{card}] cce_lookup_fwd LM shape c={table.c} T=2 k={table.k} "
               f"dsub={table.dsub} f32 B={n} ({name}): equal to plain, ms={ms!r} "
-              f"device_ms={dev!r} plain_ms={plain!r} bound_ms={bound!r} ({bound_by}) "
-              f"library_ms(embedding_bag)={lib!r} library_device_ms={lib_dev!r}", flush=True)
+              f"device_ms(L2 flushed)={dev!r} device_ms(warm)={dev_warm!r} plain_ms={plain!r} "
+              f"plain_device_ms={plain_dev!r} "
+              f"bound_ms={bound!r} ({bound_by}) library_ms(embedding_bag)={lib!r} "
+              f"library_device_ms(L2 flushed)={lib_dev!r} library_device_ms(warm)="
+              f"{lib_dev_warm!r}", flush=True)
     return out
 
 
@@ -1169,7 +1459,7 @@ def main(argv=None) -> int:
         return out
 
     fwd = phase("lookup", kernel_phase, card, CONFIG.collection)
-    bwd = phase("bwd", bwd_kernel_phase, card, CONFIG.collection)
+    bwd = phase("bwd", bwd_kernel_phase, card, CONFIG)
     assign = phase("kmeans", kmeans_phase, card)
     launches = phase("train", train_phase, card, CONFIG) or {}
     serve = phase("serve", serve_phase, card, CONFIG, SERVE_BATCHES)

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with
 a plain C interface, ``build/repro_torch/lib<name>-<digest>.so`` under the
 repository root, loaded with ``ctypes``.  The digest covers the source and
-the flags, so an edited kernel rebuilds and an unchanged one is reused.
+the flags (and every header in ``csrc``), so an edited kernel rebuilds and
+an unchanged one is reused.
 Nothing here runs at import: the CPU tests import every module on a host
 without ``nvcc``.
 """
@@ -47,6 +48,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))  # what a source includes
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -17,13 +17,29 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: The kernels' layouts, in the order the C entry points number them
+#: (each source's header describes them).
+PATHS = ("vec4", "wide_vector", "wide_scalar")
 _fns: dict[str, ctypes._CFuncPtr] = {}
+
+
+def lookup_path(dsub: int, element_size: int, *addresses: int) -> str:
+    """The layout both kernels take for rows of ``dsub`` elements of
+    ``element_size`` bytes in tensors at ``addresses`` (the float tensors'
+    data pointers): ``"vec4"`` for dsub 4 with every address aligned to
+    the row, ``"wide_vector"`` where dsub is a multiple of a 16-byte vector
+    and every address is 16-byte aligned, else ``"wide_scalar"``."""
+    if dsub == 4 and all(a % (4 * element_size) == 0 for a in addresses):
+        return "vec4"
+    if dsub % (16 // element_size) == 0 and all(a % 16 == 0 for a in addresses):
+        return "wide_vector"
+    return "wide_scalar"
 
 
 def _kernel(lib_name: str, entry: str):
     """The C entry point ``entry`` of ``csrc/<lib_name>.cu`` (forward and
     backward share one signature: idx, a float tensor in, a float tensor
-    out, dtype code, c B T k dsub, idx strides, vec4, stream)."""
+    out, dtype code, c B T k dsub, idx strides, path, stream)."""
     if entry not in _fns:
         lib = build.library(lib_name)
         fn = getattr(lib, entry)
@@ -32,7 +48,7 @@ def _kernel(lib_name: str, entry: str):
             ctypes.c_int,  # dtype code
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # c B T k dsub
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # idx strides
-            ctypes.c_int,  # vec4
+            ctypes.c_int,  # path: its index in PATHS
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -44,17 +60,16 @@ def _kernel(lib_name: str, entry: str):
 
 
 def _launch(lib_name: str, entry: str, idx, src, out, k: int, dsub: int) -> None:
-    """Launches ``entry`` on the current stream and counts it in
-    ``LAUNCHES[entry]``; raises if the launch fails."""
+    """Launches ``entry`` in the layout ``lookup_path`` picks, on the
+    current stream, and counts it in ``LAUNCHES[entry]``; raises if the
+    launch fails."""
     c, B, T = idx.shape
-    vec4 = dsub == 4 and all(
-        t.data_ptr() % (4 * t.element_size()) == 0 for t in (src, out)
-    )
+    path = lookup_path(dsub, out.element_size(), src.data_ptr(), out.data_ptr())
     fn = _kernel(lib_name, entry)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(idx.data_ptr(), src.data_ptr(), out.data_ptr(), _DTYPE_CODE[out.dtype],
-                 c, B, T, k, dsub, *idx.stride(), int(vec4), stream)
+                 c, B, T, k, dsub, *idx.stride(), PATHS.index(path), stream)
     if err:
         msg = getattr(build.library(lib_name), f"{lib_name}_error_string")(err).decode()
         raise RuntimeError(f"{entry} kernel launch failed: {msg} ({err})")

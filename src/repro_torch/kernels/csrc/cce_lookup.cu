@@ -16,143 +16,185 @@
 // in the Pallas kernel.  In float32 this is bit for bit the plain version,
 // src/repro_torch/kernels/ref.py::cce_lookup_ref.
 //
-// Bound.  The function must move B*c*T*4 bytes of idx, at most
-// B*c*T*dsub*esize bytes of gathered rows (fewer when rows repeat, are
-// sentinels or lie past k) and B*c*dsub*esize bytes of output, and it does
-// at most B*c*T*dsub float adds: it is bound by bytes.  On the full Criteo
-// configuration (c=104, T=2, k=305, dsub=4, float32) at a serving batch of
-// B=256 that is 213 KB + <= 852 KB + 426 KB, about 1.5 MB, or about 0.45 us at
-// the H100's 3.35 TB/s: far below the few microseconds a launch costs, so at
-// serving batch sizes the kernel is bound by launch latency.
+// Bound.  The function must move B*c*T*4 bytes of idx, the distinct rows it
+// gathers (at most B*c*T*dsub*esize bytes) and B*c*dsub*esize bytes of
+// output, and it does at most B*c*T*dsub float adds: it is bound by bytes.
+// On the Criteo supertable (c=104, T=2, k=305, dsub=4, float32) at the serve
+// batch B=256 that is about 1.1 MB, 0.3 us at 3.35 TB/s: a launch costs
+// more, so serving batches are bound by launch latency.  On the LM token
+// table (c=4, T=2, k=4748, dsub=384, float32) a 2048-token prefill moves
+// about 33 MB, 9.8 us; a decode tick of 8 tokens about 0.15 MB, 0.04 us.
 //
-// Design response.  One launch covers every column and both sub-tables
-// (main + helper) of the whole supertable, with no scratch memory, no second
-// pass and no atomics.  One thread owns one (b, column) pair, the column
-// index varying fastest, so the output stores of a warp are contiguous; in
-// the serving layout (rows (B, c, T) seen through a (c, B, T) view, passed by
-// strides without a copy) the idx reads are contiguous too.  At dsub=4 each
-// stored row is one 16-byte load (8 bytes in bfloat16) and each output one
-// vector store; other widths take a scalar loop.  The slab (about 1 MB on
-// the Criteo configuration) stays resident in the 50 MB L2 from one launch
-// to the next.  What remains is launch latency, which only fewer launches
-// (a CUDA graph around the serve program) can cut.
+// Design.  One launch covers every column and both sub-tables, with no
+// scratch memory, no second pass and no atomics.  Three layouts, chosen by
+// the launcher (cce_lookup.py::lookup_path) and named by the path argument:
+//   vec4         dsub == 4, rows aligned: one thread owns one (b, column)
+//                output row, the column fastest, and reads each stored row
+//                with one 16-byte load (8 bytes in bfloat16).  A Criteo row
+//                is 16 bytes, so a thread per row already reads whole rows.
+//   wide_vector  dsub a multiple of 16 bytes' worth of elements, rows
+//                aligned: the lanes of a warp run along d.  One warp owns a
+//                512-byte slice of one (b, column) output row (128 float32
+//                or 256 bfloat16 elements); each lane loads 16 bytes, so one
+//                warp instruction reads 512 contiguous bytes of a stored row.
+//   wide_scalar  any other width or an unaligned pointer: the same warp per
+//                (row, slice), each lane holding elements lane + 32*j, j < 4,
+//                loaded one at a time; still coalesced.
+// The first version of this kernel gave every width the vec4 layout with a scalar loop over
+// d: at dsub=384 the 32 lanes of a warp read 32 different 1.5 KB rows (no
+// load coalesced), the index was reloaded inside the d loop, and a decode
+// tick's 32 rows ran as one warp on one SM, 2 x 384 dependent loads deep.
+// In the wide layouts each (row, t) index is one broadcast load, requested for
+// two sub-tables before either row is loaded, and the grid has one warp per
+// (row, slice): 96 warps over 24 CTAs for a decode tick, 24576 warps for a
+// 2048-token prefill.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <string.h>
+#include "cce_lookup_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+constexpr int kThreads = 256;      // vec4: a thread per output row
+constexpr int kWideThreads = 128;  // wide: 4 warps a CTA, so a decode tick spreads over SMs
+constexpr int kTStep = 2;          // sub-tables whose indices are loaded before their rows
 
-// Four consecutive elements: one 16-byte load for float32, 8 bytes for bfloat16.
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = x.z;
-  v[3] = x.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
-  __nv_bfloat162 lo, hi;
-  memcpy(&lo, &x.x, sizeof(lo));
-  memcpy(&hi, &x.y, sizeof(hi));
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = b.x;
-  v[3] = b.y;
-}
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 x;
-  memcpy(&x.x, &lo, sizeof(lo));
-  memcpy(&x.y, &hi, sizeof(hi));
-  *reinterpret_cast<uint2*>(p) = x;
-}
-
-constexpr int kThreads = 256;
-
-template <typename scalar_t, bool kVec4>
+template <typename scalar_t>
 __global__ void __launch_bounds__(kThreads)
-cce_lookup_fwd_kernel(const int32_t* __restrict__ idx, const scalar_t* __restrict__ tables,
-                      scalar_t* __restrict__ out, int c, int B, int T, int k, int dsub,
-                      int64_t s_col, int64_t s_b, int64_t s_t) {
+cce_lookup_fwd_vec4_kernel(const int32_t* __restrict__ idx, const scalar_t* __restrict__ tables,
+                           scalar_t* __restrict__ out, int c, int B, int T, int k,
+                           int64_t s_col, int64_t s_b, int64_t s_t) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (tid >= static_cast<int64_t>(B) * c) return;
   const int col = static_cast<int>(tid % c);
   const int64_t b = tid / c;
   const int32_t* ip = idx + col * s_col + b * s_b;
-  const scalar_t* tab = tables + static_cast<int64_t>(col) * T * k * dsub;
-  scalar_t* op = out + tid * dsub;  // out[b, col*dsub]: (b*c + col)*dsub
-  if (kVec4) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int t = 0; t < T; ++t) {
-      const int r = __ldg(ip + t * s_t);
-      if (r >= 0 && r < k) {
-        float v[4];
-        load4(tab + (static_cast<int64_t>(t) * k + r) * 4, v);
-        acc[0] += v[0];
-        acc[1] += v[1];
-        acc[2] += v[2];
-        acc[3] += v[3];
-      }
-    }
-    store4(op, acc);
-  } else {
-    for (int d = 0; d < dsub; ++d) {
-      float acc = 0.f;
-      for (int t = 0; t < T; ++t) {
-        const int r = __ldg(ip + t * s_t);
-        if (r >= 0 && r < k) acc += to_float(tab[(static_cast<int64_t>(t) * k + r) * dsub + d]);
-      }
-      store1(op + d, acc);
+  const scalar_t* tab = tables + static_cast<int64_t>(col) * T * k * 4;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int t = 0; t < T; ++t) {
+    const int r = __ldg(ip + t * s_t);
+    if (r >= 0 && r < k) {
+      float v[4];
+      load4(tab + (static_cast<int64_t>(t) * k + r) * 4, v);
+      acc[0] += v[0];
+      acc[1] += v[1];
+      acc[2] += v[2];
+      acc[3] += v[3];
     }
   }
+  store4(out + tid * 4, acc);  // out[b, col*4]: (b*c + col)*4
+}
+
+// One warp per (output row, slice); warps are numbered (b, column, slice)
+// with the slice fastest.
+template <typename scalar_t, bool kVector>
+__device__ __forceinline__ void fwd_wide(const int32_t* __restrict__ idx,
+                                         const scalar_t* __restrict__ tables,
+                                         scalar_t* __restrict__ out, int c, int B, int T, int k,
+                                         int dsub, int64_t s_col, int64_t s_b, int64_t s_t) {
+  using L = Lanes<scalar_t, kVector>;
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int n_slices = (dsub + L::kSlice - 1) / L::kSlice;
+  const int64_t w =
+      static_cast<int64_t>(blockIdx.x) * (kWideThreads / 32) + (static_cast<int>(threadIdx.x) >> 5);
+  if (w >= static_cast<int64_t>(B) * c * n_slices) return;  // the whole warp
+  const int e0 = static_cast<int>(w % n_slices) * L::kSlice;
+  const int64_t row = w / n_slices;  // b*c + col
+  const int col = static_cast<int>(row % c);
+  const int64_t b = row / c;
+  const int32_t* ip = idx + col * s_col + b * s_b;
+  const scalar_t* tab = tables + static_cast<int64_t>(col) * T * k * dsub;
+  float acc[L::kPer];
+#pragma unroll
+  for (int j = 0; j < L::kPer; ++j) acc[j] = 0.f;
+  for (int t0 = 0; t0 < T; t0 += kTStep) {
+    int r[kTStep];
+#pragma unroll
+    for (int u = 0; u < kTStep; ++u) {  // every lane loads the same index: one broadcast
+      const int t = t0 + u;
+      r[u] = t < T ? __ldg(ip + t * s_t) : -1;
+      if (r[u] >= k) r[u] = -1;
+    }
+    float v[kTStep][L::kPer];
+#pragma unroll
+    for (int u = 0; u < kTStep; ++u)
+      if (r[u] >= 0) L::load(tab + (static_cast<int64_t>(t0 + u) * k + r[u]) * dsub, e0, lane,
+                             dsub, v[u]);
+#pragma unroll
+    for (int u = 0; u < kTStep; ++u)  // in t order
+      if (r[u] >= 0) {
+#pragma unroll
+        for (int j = 0; j < L::kPer; ++j) acc[j] += v[u][j];
+      }
+  }
+  L::store(out + row * dsub, e0, lane, dsub, acc);
 }
 
 template <typename scalar_t>
-void launch(const void* idx, const void* tables, void* out, int c, int B, int T, int k, int dsub,
-            int64_t s_col, int64_t s_b, int64_t s_t, bool vec4, cudaStream_t stream) {
-  const int64_t n = static_cast<int64_t>(B) * c;
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+__global__ void __launch_bounds__(kWideThreads)
+cce_lookup_fwd_wide_vector_kernel(const int32_t* __restrict__ idx,
+                                  const scalar_t* __restrict__ tables, scalar_t* __restrict__ out,
+                                  int c, int B, int T, int k, int dsub, int64_t s_col, int64_t s_b,
+                                  int64_t s_t) {
+  fwd_wide<scalar_t, true>(idx, tables, out, c, B, T, k, dsub, s_col, s_b, s_t);
+}
+
+template <typename scalar_t>
+__global__ void __launch_bounds__(kWideThreads)
+cce_lookup_fwd_wide_scalar_kernel(const int32_t* __restrict__ idx,
+                                  const scalar_t* __restrict__ tables, scalar_t* __restrict__ out,
+                                  int c, int B, int T, int k, int dsub, int64_t s_col, int64_t s_b,
+                                  int64_t s_t) {
+  fwd_wide<scalar_t, false>(idx, tables, out, c, B, T, k, dsub, s_col, s_b, s_t);
+}
+
+template <typename scalar_t>
+int launch(const void* idx, const void* tables, void* out, int c, int B, int T, int k, int dsub,
+           int64_t s_col, int64_t s_b, int64_t s_t, int path, cudaStream_t stream) {
   const int32_t* ip = static_cast<const int32_t*>(idx);
   const scalar_t* tp = static_cast<const scalar_t*>(tables);
   scalar_t* op = static_cast<scalar_t*>(out);
-  if (vec4)
-    cce_lookup_fwd_kernel<scalar_t, true><<<blocks, kThreads, 0, stream>>>(
+  const int64_t rows = static_cast<int64_t>(B) * c;
+  if (path == kVec4) {
+    if (dsub != 4) return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned blocks = static_cast<unsigned>((rows + kThreads - 1) / kThreads);
+    cce_lookup_fwd_vec4_kernel<scalar_t><<<blocks, kThreads, 0, stream>>>(
+        ip, tp, op, c, B, T, k, s_col, s_b, s_t);
+    return 0;
+  }
+  const int slice = path == kWideVector ? Lanes<scalar_t, true>::kSlice
+                                        : Lanes<scalar_t, false>::kSlice;
+  const int64_t warps = rows * ((dsub + slice - 1) / slice);
+  const int64_t per_block = kWideThreads / 32;
+  const unsigned blocks = static_cast<unsigned>((warps + per_block - 1) / per_block);
+  if (path == kWideVector)
+    cce_lookup_fwd_wide_vector_kernel<scalar_t><<<blocks, kWideThreads, 0, stream>>>(
+        ip, tp, op, c, B, T, k, dsub, s_col, s_b, s_t);
+  else if (path == kWideScalar)
+    cce_lookup_fwd_wide_scalar_kernel<scalar_t><<<blocks, kWideThreads, 0, stream>>>(
         ip, tp, op, c, B, T, k, dsub, s_col, s_b, s_t);
   else
-    cce_lookup_fwd_kernel<scalar_t, false><<<blocks, kThreads, 0, stream>>>(
-        ip, tp, op, c, B, T, k, dsub, s_col, s_b, s_t);
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  vec4 requires dsub == 4 and tables/out
-// aligned to 4 elements (the caller checks).  Returns the cudaError_t of the
-// launch (0 on success).  B*c >= 1.
+// dtype: 0 = float32, 1 = bfloat16.  path: 0 = vec4 (dsub == 4, tables and
+// out aligned to 4 elements), 1 = wide_vector (dsub a multiple of 16 bytes
+// of elements, tables and out aligned to 16 bytes), 2 = wide_scalar (any);
+// the caller checks the conditions.  Returns the cudaError_t of the launch
+// (0 on success).  B*c >= 1.
 extern "C" int cce_lookup_fwd(const void* idx, const void* tables, void* out, int dtype, int c,
                               int B, int T, int k, int dsub, long long s_col, long long s_b,
-                              long long s_t, int vec4, void* stream) {
+                              long long s_t, int path, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err;
   if (dtype == 0)
-    launch<float>(idx, tables, out, c, B, T, k, dsub, s_col, s_b, s_t, vec4 != 0, st);
+    err = launch<float>(idx, tables, out, c, B, T, k, dsub, s_col, s_b, s_t, path, st);
   else if (dtype == 1)
-    launch<__nv_bfloat16>(idx, tables, out, c, B, T, k, dsub, s_col, s_b, s_t, vec4 != 0, st);
+    err = launch<__nv_bfloat16>(idx, tables, out, c, B, T, k, dsub, s_col, s_b, s_t, path, st);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    err = static_cast<int>(cudaErrorInvalidValue);
+  return err ? err : static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* cce_lookup_error_string(int code) {

@@ -1,5 +1,6 @@
 // Fused CCE lookup, backward: the gradient of every column and sub-table of
-// the universal supertable in ONE launch, deterministic, without atomics.
+// the universal supertable in ONE launch, deterministic, without atomics on
+// floats.
 //
 // Replaces the TPU kernel src/repro/kernels/cce_lookup.py::cce_lookup_bwd_pallas
 // (body _bwd_kernel), which writes the scatter-add as the transposed blocked
@@ -12,178 +13,470 @@
 // for every r < k, accumulated in float32 as `acc = 0; acc += dout[b]` in
 // increasing b and stored once in the dout dtype.  An index < 0 (the -1
 // sentinel) or >= k matches no row, so it adds nothing; rows that no index
-// names, and the padding rows of a ragged supertable, get exactly 0.
+// names, and the padding rows of a ragged supertable, get exactly 0.  This
+// is bit for bit the plain version, src/repro_torch/kernels/ref.py::
+// cce_lookup_bwd_ref, in both dtypes.
 //
 // Bound.  The function must read B*c*T*4 bytes of idx and B*c*dsub*esize
 // bytes of dout and write c*T*k*dsub*esize bytes of dtab, and it does
 // B*c*T*dsub float adds (fewer for sentinels): it is bound by bytes.  On the
-// full Criteo configuration (c=104, T=2, k=305, dsub=4, float32) at a
-// training batch of B=2048 that is 1.7 MB + 3.4 MB + 1.0 MB, about 6.1 MB,
-// or about 1.8 us at the H100's 3.35 TB/s.
+// Criteo supertable (c=104, T=2, k=305, dsub=4, float32) at the training
+// batch B=2048 that is 1.7 MB + 3.4 MB + 1.0 MB, about 6.1 MB, or 1.8 us at
+// the H100's 3.35 TB/s.
 //
-// Design response.  No float atomics anywhere (the JAX reference has none,
-// and a train step must be bitwise repeatable), so every output row has ONE
-// owner: one CTA per (column i, sub-table t), one thread per row r.  The CTA
-// stages idx[i, :, t] through shared memory in chunks of kChunk entries
-// (strided reads, passed by strides, never copied); every thread walks the
-// chunk in b order (broadcast shared loads, four indices per 16-byte load)
-// and, where the index is its own row, adds dout[b, i, :] (one 16-byte load
-// at dsub=4 in float32, 8 bytes in bfloat16).  It writes its row once.  The
-// scan costs B comparisons per thread, O(B*k) per CTA; that is the price of
-// determinism without a sort, and it is far above the byte bound at large B.
-// Making it fast (a counting sort per CTA, several CTAs per column) is a
-// later change.
+// What held the first design back.  It gave each of the k threads of a
+// (column, sub-table) CTA one row and had every thread scan all B staged
+// indices: O(B*k) comparisons per CTA, and where a thread's row matched, a
+// global load of dout under a divergent branch.  A warp of 32 rows matched
+// in about one b of ten, so it serialised some 200 L2 round trips at
+// B=2048 (0.109 ms, on uniform ids as on the train step's); other widths
+// made dsub such passes.
+//
+// Design.  Every output row still has ONE owner that adds its terms in
+// increasing b and writes the row once, so no float is ever added
+// atomically.  A CTA owns the rows [r_lo, r_lo + R) of one (column,
+// sub-table) (one CTA per (column, sub-table) wherever k <= R); for each
+// chunk of kChunk b it
+//   1. loads its 2048 indices (4 a thread, strided reads of the view, no
+//      copy) and, on vec4, the dout rows of the same entries into
+//      registers, so that the sort below hides their latency;
+//   2. buckets the chunk by row with a stable counting sort in shared
+//      memory: each warp takes 128 consecutive b as 4 tiles of 32, in
+//      order, ranks each entry among the equal rows of its tile with one
+//      __ballot_sync a key bit (cheaper than __match_any_sync) and keeps
+//      per-warp counts (integers, written by one lane a row: exact and
+//      deterministic); an exclusive scan over (row, warp) gives every
+//      entry its place, so each row's terms form one segment, ascending
+//      in b.  On vec4 the entries' dout rows themselves are placed, so
+//      that a row's terms lie side by side;
+//   3. lets each owner walk only its own segment, carrying acc in
+//      registers from chunk to chunk: no comparisons against other rows,
+//      no index to chase, no data-dependent branch in the loop.
+// A row is never split along b, since that would change the order of its
+// adds.  On vec4 a row of more than kHot terms is split along d instead:
+// its 4 elements are 4 independent chains of adds, walked by 4 threads in
+// warps on the SM's 4 schedulers, each with kHotAhead loads in flight.
+// One row holding the whole chunk is still 2048 dependent adds.
+// Layouts (the launcher's path, as in the forward):
+//   vec4         dsub == 4, aligned: a thread owns a row (R = 512); the
+//                sorted rows take 32 KB of shared memory a chunk in
+//                float32, 16 KB in bfloat16.
+//   wide_vector  a warp owns kWarpRows rows (R = 64) and one 512-byte slice
+//   wide_scalar  of d (grid y); its lanes run along d and read dout from
+//                global memory, 16 bytes (or one element) a lane, as in the
+//                forward.  The LM's dsub=384 takes this path, in one pass.
+// What bounds it (phase times from tools/probe_lookup_bwd.py in PERF.md).
+// On the train step's shape each CTA first gathers 2048 dout rows of 16
+// bytes that lie 1664 bytes apart (and, from the serving layout, 2048
+// indices as far apart): one L1 request each, two CTAs on 76 of the 132
+// SMs.  Then come the ballots, the scan and the placement, and last the
+// walk of the CTA's longest row, whose chain of adds ends the grid: a
+// small-vocabulary column's row on uniform ids, the Zipf head on a train
+// batch.  Together several times the byte bound.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <string.h>
+#include "cce_lookup_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// Four consecutive elements: one 16-byte load for float32, 8 bytes for bfloat16.
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+// Four consecutive elements from shared memory.
+__device__ __forceinline__ void load4_shared(const float* p, float v[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
   v[0] = x.x;
   v[1] = x.y;
   v[2] = x.z;
   v[3] = x.w;
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
-  __nv_bfloat162 lo, hi;
-  memcpy(&lo, &x.x, sizeof(lo));
-  memcpy(&hi, &x.y, sizeof(hi));
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = b.x;
-  v[3] = b.y;
-}
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 x;
-  memcpy(&x.x, &lo, sizeof(lo));
-  memcpy(&x.y, &hi, sizeof(hi));
-  *reinterpret_cast<uint2*>(p) = x;
+__device__ __forceinline__ void load4_shared(const __nv_bfloat16* p, float v[4]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  unpack_bf16x2(x.x, v);
+  unpack_bf16x2(x.y, v + 2);
 }
 
-constexpr int kMaxThreads = 1024;
-constexpr int kChunk = 2048;  // idx entries staged per pass (8 KB), a multiple of 4
+// Four consecutive elements as one access, their bits untouched.
+template <typename scalar_t>
+struct Row4 {
+  using type = float4;
+};
+template <>
+struct Row4<__nv_bfloat16> {
+  using type = uint2;
+};
 
-// Adds dout[b, col, :] (or its element d when !kVec4) to acc when the
-// staged index q equals row r.
-template <typename scalar_t, bool kVec4>
-__device__ __forceinline__ void take(int q, int r, const scalar_t* src, int d, float acc[4]) {
-  if (q != r) return;
-  if (kVec4) {
-    float v[4];
-    load4(src, v);
-    acc[0] += v[0];
-    acc[1] += v[1];
-    acc[2] += v[2];
-    acc[3] += v[3];
-  } else {
-    acc[0] += to_float(src[d]);
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 2048;                     // b bucketed at once
+constexpr int kTiles = kChunk / kThreads;        // 32-entry tiles a warp sorts, in order
+constexpr int kWarpRows = 4;                     // rows a warp owns on the wide paths
+constexpr int kThreadRange = kThreads;           // rows a CTA owns: vec4
+constexpr int kWarpRange = kWarps * kWarpRows;   // wide
+// vec4: a row of more than kHot terms is walked along d by 4 threads;
+// -DCCE_BWD_HOT_TERMS=2048 compiles that out (tools/probe_lookup_bwd.py
+// times the kernel with and without it)
+#ifndef CCE_BWD_HOT_TERMS
+#define CCE_BWD_HOT_TERMS 32
+#endif
+constexpr int kHot = CCE_BWD_HOT_TERMS;
+constexpr bool kSplit = kHot < kChunk;
+constexpr int kMaxHot = kChunk / (kHot + 1) + 1;  // hot rows a chunk can hold
+constexpr int kHotAhead = 16;                     // loads in flight ahead of a hot row's adds
+
+#ifdef CCE_BWD_STAMPS
+// A build for timing the kernel's phases (tools/probe_lookup_bwd.py): at the
+// start and at the end of each phase of the first chunk, and after the
+// store, a barrier, then thread 0 of each of the first kStampCtas CTAs
+// writes %globaltimer (ns).  The barrier does not stall a warp until an
+// instruction needs it, so the timer is read under a predicate on the
+// barrier's count, which exists only once every thread has arrived.
+constexpr int kStamps = 7;
+constexpr int kStampCtas = 4096;
+__device__ unsigned long long g_stamps[kStampCtas][kStamps];
+__device__ __forceinline__ void stamp(int b0, int i) {
+  const int arrived = __syncthreads_count(1);
+  if (arrived == static_cast<int>(blockDim.x) && b0 == 0 && threadIdx.x == 0 &&
+      blockIdx.y == 0 && blockIdx.x < kStampCtas) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    g_stamps[blockIdx.x][i] = ns;
   }
 }
+#else
+__device__ __forceinline__ void stamp(int, int) {}
+#endif
 
-// Grid: c*T blocks, block b = col*T + t.  Threads own rows r0 + threadIdx.x.
-// Without kVec4 each element d of a row is a separate pass over idx.
-template <typename scalar_t, bool kVec4>
-__global__ void __launch_bounds__(kMaxThreads)
-cce_lookup_bwd_kernel(const int32_t* __restrict__ idx, const scalar_t* __restrict__ dout,
-                      scalar_t* __restrict__ dtab, int c, int B, int T, int k, int dsub,
-                      int64_t s_col, int64_t s_b, int64_t s_t) {
-  __shared__ __align__(16) int32_t s_idx[kChunk];
-  const int col = static_cast<int>(blockIdx.x) / T;
-  const int t = static_cast<int>(blockIdx.x) - col * T;
+// The lanes of this warp whose key equals this lane's, for keys < 2^nbits:
+// one ballot a bit, cheaper than __match_any_sync.
+__device__ __forceinline__ unsigned match_key(int key, int nbits) {
+  unsigned m = 0xffffffffu;
+  for (int b = 0; b < nbits; ++b) {
+    const bool one = (key >> b) & 1;
+    const unsigned set = __ballot_sync(0xffffffffu, one);
+    m &= one ? set : ~set;
+  }
+  return m;
+}
+
+// Exclusive prefix sum of v over the CTA, in thread order; s_wsum holds
+// kWarps ints.  Every thread must call it.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* s_wsum) {
+  const int lane = static_cast<int>(threadIdx.x) & 31, warp = static_cast<int>(threadIdx.x) >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_wsum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kWarps ? s_wsum[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < kWarps) s_wsum[lane] = w;  // inclusive over warps
+  }
+  __syncthreads();
+  return x - v + (warp ? s_wsum[warp - 1] : 0);
+}
+
+// Shared memory of one CTA, in bytes: the sorted chunk (its dout rows on
+// vec4, padded for the hot walk's reads ahead; its b otherwise), per-warp
+// row counts, row starts and counts, warp sums, the hot rows and their sums.
+__host__ __device__ constexpr size_t smem_bytes(bool vec4, int esize, int rows) {
+  return (vec4 ? static_cast<size_t>(kChunk + kHotAhead) * 4 * esize : kChunk * sizeof(int)) +
+         (static_cast<size_t>(kWarps) * rows + 2 * static_cast<size_t>(rows) + kWarps + 1 +
+          kMaxHot + 4 * kMaxHot) * sizeof(int);
+}
+
+// Grid: x = (column*T + t) * n_ranges + range, y = slice of d (wide paths).
+template <typename scalar_t, int kPath>
+__device__ __forceinline__ void bwd(const int32_t* __restrict__ idx,
+                                    const scalar_t* __restrict__ dout,
+                                    scalar_t* __restrict__ dtab, int c, int B, int T, int k,
+                                    int dsub, int64_t s_col, int64_t s_b, int64_t s_t) {
+  constexpr bool kByThread = kPath == kVec4;
+  constexpr int kRange = kByThread ? kThreadRange : kWarpRange;
+  using L = Lanes<scalar_t, kPath == kWideVector>;
+  constexpr int kOwned = kByThread ? 1 : kWarpRows;  // rows an owner holds
+  constexpr int kPer = kByThread ? 4 : L::kPer;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int tid = static_cast<int>(threadIdx.x), lane = tid & 31, warp = tid >> 5;
+  const int n_ranges = (k + kRange - 1) / kRange;
+  const int range = static_cast<int>(blockIdx.x) % n_ranges;
+  const int ct = static_cast<int>(blockIdx.x) / n_ranges;  // column*T + t
+  const int col = ct / T, t = ct - col * T;
+  const int r_lo = range * kRange;
+  const int rows = min(kRange, k - r_lo);  // rows [r_lo, r_lo + rows), keys 0..rows-1
+  const int stride = min(kRange, k);       // of the count table, as the launcher sized it
+  const int nbits = 32 - __clz(rows);      // keys, the sentinel `rows` included, < 2^nbits
+  const int e0 = static_cast<int>(blockIdx.y) * L::kSlice;
+  // vec4 hot rows: hot row h's element e is walked by the thread in warp
+  // 4*(h/32) + e, lane h%32, so that its 4 chains of adds run on the 4
+  // schedulers of the SM at once
+  const int hot_h = (warp >> 2) * 32 + lane, hot_e = warp & 3;
+
+  using row4_t = typename Row4<scalar_t>::type;
+  row4_t* s_rows = reinterpret_cast<row4_t*>(smem);  // vec4: the chunk's dout rows, sorted
+  int* s_sorted = reinterpret_cast<int*>(smem);        // wide: the chunk's b, sorted
+  int* s_hist = reinterpret_cast<int*>(smem + (kByThread ? (kChunk + kHotAhead) * sizeof(row4_t)
+                                                          : kChunk * sizeof(int)));
+  int* s_start = s_hist + kWarps * stride;
+  int* s_count = s_start + stride;
+  int* s_wsum = s_count + stride;
+  int* s_nhot = s_wsum + kWarps;  // vec4: hot rows of the chunk, then each one's row
+  int* s_hot = s_nhot + 1;
+  float* s_hotacc = reinterpret_cast<float*>(s_hot + kMaxHot);  // their 4 running sums
+
   const int32_t* ip = idx + col * s_col + t * s_t;
   const scalar_t* dp = dout + static_cast<int64_t>(col) * dsub;  // dout[0, col, :]
   const int64_t d_b = static_cast<int64_t>(c) * dsub;            // stride of b in dout
-  scalar_t* out = dtab + (static_cast<int64_t>(col) * T + t) * k * dsub;
-  const int n_pass = kVec4 ? 1 : dsub;
+  int* hist = s_hist + warp * stride;
 
-  for (int r0 = 0; r0 < k; r0 += blockDim.x) {
-    const int r = r0 + static_cast<int>(threadIdx.x);
-    for (int d = 0; d < n_pass; ++d) {
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int b0 = 0; b0 < B; b0 += kChunk) {
-        const int nb = min(kChunk, B - b0);
-        const int nb4 = (nb + 3) & ~3;
-        __syncthreads();  // every thread is done with the previous chunk
-        for (int j = threadIdx.x; j < nb4; j += blockDim.x)
-          s_idx[j] = j < nb ? __ldg(ip + static_cast<int64_t>(b0 + j) * s_b) : -1;
+  float acc[kOwned][kPer];
+#pragma unroll
+  for (int o = 0; o < kOwned; ++o)
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) acc[o][j] = 0.f;
+
+  for (int b0 = 0; b0 < B; b0 += kChunk) {
+    const int nb = min(kChunk, B - b0);
+    __syncthreads();  // every owner is done with the previous chunk
+    stamp(b0, 0);
+    // this warp's entries: j = warp*32*kTiles + 32*i + lane, key = row - r_lo
+    // or `rows` for an index outside [r_lo, r_lo + rows) (sentinels, >= k);
+    // on vec4 also their dout rows, loaded now so that the sort hides them
+    int key[kTiles];
+    row4_t row[kTiles];
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i) {
+      const int j = warp * 32 * kTiles + 32 * i + lane;
+      const int r = j < nb ? __ldg(ip + static_cast<int64_t>(b0 + j) * s_b) : -1;
+      key[i] = r >= r_lo && r - r_lo < rows ? r - r_lo : rows;
+      if (kByThread && j < nb)
+        row[i] = __ldg(reinterpret_cast<const row4_t*>(dp + static_cast<int64_t>(b0 + j) * d_b));
+    }
+    for (int j = tid; j < kWarps * stride; j += kThreads) s_hist[j] = 0;
+    __syncthreads();
+    stamp(b0, 1);
+    // rank of each entry among the equal keys before it in this warp's b
+    int rank[kTiles];
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i) {
+      const unsigned same = match_key(key[i], nbits);
+      const unsigned before_me = same & ((1u << lane) - 1u);
+      const bool real = key[i] < rows;
+      const int seen = real ? hist[key[i]] : 0;
+      rank[i] = seen + __popc(before_me);
+      __syncwarp();
+      if (real && before_me == 0) hist[key[i]] = seen + __popc(same);
+      __syncwarp();
+    }
+    __syncthreads();
+    stamp(b0, 2);
+    // per row: counts of the warps before each warp, then the row's start
+    int total = 0;
+    if (tid < rows)
+      for (int w = 0; w < kWarps; ++w) {
+        int* h = s_hist + w * stride + tid;
+        const int n = *h;
+        *h = total;
+        total += n;
+      }
+    const int start = block_exclusive_scan(total, s_wsum);
+    if (tid < rows) {
+      s_start[tid] = start;
+      s_count[tid] = total;
+    }
+    __syncthreads();
+    stamp(b0, 3);
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i)
+      if (key[i] < rows) {
+        const int pos = s_start[key[i]] + hist[key[i]] + rank[i];
+        if (kByThread)
+          s_rows[pos] = row[i];
+        else
+          s_sorted[pos] = warp * 32 * kTiles + 32 * i + lane;
+      }
+    if (kByThread && kSplit && tid == 0) *s_nhot = 0;
+    __syncthreads();
+    stamp(b0, 4);
+
+    if (kByThread) {
+      // a row of at most kHot terms is walked by its owner; a longer one is
+      // handed, with its running sums, to 4 threads, one per element
+      const int n = tid < rows ? s_count[tid] : 0;
+      int my_hot = -1;
+      if (kSplit && n > kHot) {
+        my_hot = atomicAdd(s_nhot, 1);  // in any order: each hot row is walked alone
+        s_hot[my_hot] = tid;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s_hotacc[4 * my_hot + j] = acc[0][j];
+      } else if (n > 0) {  // the row's terms lie side by side: no index to chase
+        const scalar_t* seg = reinterpret_cast<const scalar_t*>(s_rows + s_start[tid]);
+#pragma unroll 8
+        for (int p = 0; p < n; ++p) {
+          float v[4];
+          load4_shared(seg + 4 * p, v);
+          acc[0][0] += v[0];
+          acc[0][1] += v[1];
+          acc[0][2] += v[2];
+          acc[0][3] += v[3];
+        }
+      }
+      if (kSplit) {
         __syncthreads();
-        if (r < k) {
+        if (*s_nhot) {  // the same for the whole CTA
+          if (hot_h < *s_nhot) {
+            const int lr = s_hot[hot_h], m = s_count[lr];
+            // element hot_e of term p is q[4p]; kHotAhead loads stay in flight
+            // ahead of the adds (reads past the segment stay inside the padded
+            // shared memory and are not added)
+            const scalar_t* q = reinterpret_cast<const scalar_t*>(s_rows + s_start[lr]) + hot_e;
+            float a = s_hotacc[4 * hot_h + hot_e];
+            scalar_t ahead[kHotAhead];
+#pragma unroll
+            for (int u = 0; u < kHotAhead; ++u) ahead[u] = q[4 * u];
+            int p = 0;
+            for (; p + kHotAhead <= m; p += kHotAhead)
+#pragma unroll
+              for (int u = 0; u < kHotAhead; ++u) {
+                a += to_float(ahead[u]);
+                ahead[u] = q[4 * (p + kHotAhead + u)];
+              }
+#pragma unroll
+            for (int u = 0; u < kHotAhead; ++u)
+              if (p + u < m) a += to_float(ahead[u]);
+            s_hotacc[4 * hot_h + hot_e] = a;
+          }
+          __syncthreads();
+          if (my_hot >= 0)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[0][j] = s_hotacc[4 * my_hot + j];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int o = 0; o < kOwned; ++o) {
+        const int lr = warp * kWarpRows + o;
+        if (lr < rows) {  // the same for the whole warp
+          const int* seg = s_sorted + s_start[lr];
+          const int n = s_count[lr];
           const scalar_t* src = dp + static_cast<int64_t>(b0) * d_b;
-          const int4* q4 = reinterpret_cast<const int4*>(s_idx);
-          for (int j4 = 0; j4 < nb4 / 4; ++j4) {
-            const int4 q = q4[j4];  // padded slots hold -1 and match no row
-            const scalar_t* s = src + static_cast<int64_t>(4 * j4) * d_b;
-            take<scalar_t, kVec4>(q.x, r, s, d, acc);
-            take<scalar_t, kVec4>(q.y, r, s + d_b, d, acc);
-            take<scalar_t, kVec4>(q.z, r, s + 2 * d_b, d, acc);
-            take<scalar_t, kVec4>(q.w, r, s + 3 * d_b, d, acc);
+#pragma unroll 4
+          for (int p = 0; p < n; ++p) {
+            float v[kPer] = {};
+            L::load(src + seg[p] * d_b, e0, lane, dsub, v);
+#pragma unroll
+            for (int j = 0; j < kPer; ++j) acc[o][j] += v[j];
           }
         }
       }
-      if (r < k) {
-        if (kVec4)
-          store4(out + static_cast<int64_t>(r) * 4, acc);
-        else
-          store1(out + static_cast<int64_t>(r) * dsub + d, acc[0]);
-      }
+    }
+    stamp(b0, 5);
+  }
+
+  scalar_t* out = dtab + (static_cast<int64_t>(ct) * k + r_lo) * dsub;  // dtab[col, t, r_lo]
+#pragma unroll
+  for (int o = 0; o < kOwned; ++o) {
+    if (kByThread) {
+      if (tid < rows) store4(out + tid * 4, acc[0]);
+    } else {
+      const int lr = warp * kWarpRows + o;
+      if (lr < rows) L::store(out + static_cast<int64_t>(lr) * dsub, e0, lane, dsub, acc[o]);
     }
   }
+  stamp(0, 6);
 }
 
 template <typename scalar_t>
-void launch(const void* idx, const void* dout, void* dtab, int c, int B, int T, int k, int dsub,
-            int64_t s_col, int64_t s_b, int64_t s_t, bool vec4, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>(c) * static_cast<unsigned>(T);
-  const int rows = (k + 31) / 32 * 32;
-  const int threads = rows < kMaxThreads ? rows : kMaxThreads;
+__global__ void __launch_bounds__(kThreads, 2)
+cce_lookup_bwd_vec4_kernel(const int32_t* __restrict__ idx, const scalar_t* __restrict__ dout,
+                           scalar_t* __restrict__ dtab, int c, int B, int T, int k, int dsub,
+                           int64_t s_col, int64_t s_b, int64_t s_t) {
+  bwd<scalar_t, kVec4>(idx, dout, dtab, c, B, T, k, dsub, s_col, s_b, s_t);
+}
+
+template <typename scalar_t>
+__global__ void __launch_bounds__(kThreads)
+cce_lookup_bwd_wide_vector_kernel(const int32_t* __restrict__ idx,
+                                  const scalar_t* __restrict__ dout, scalar_t* __restrict__ dtab,
+                                  int c, int B, int T, int k, int dsub, int64_t s_col, int64_t s_b,
+                                  int64_t s_t) {
+  bwd<scalar_t, kWideVector>(idx, dout, dtab, c, B, T, k, dsub, s_col, s_b, s_t);
+}
+
+template <typename scalar_t>
+__global__ void __launch_bounds__(kThreads)
+cce_lookup_bwd_wide_scalar_kernel(const int32_t* __restrict__ idx,
+                                  const scalar_t* __restrict__ dout, scalar_t* __restrict__ dtab,
+                                  int c, int B, int T, int k, int dsub, int64_t s_col, int64_t s_b,
+                                  int64_t s_t) {
+  bwd<scalar_t, kWideScalar>(idx, dout, dtab, c, B, T, k, dsub, s_col, s_b, s_t);
+}
+
+template <typename scalar_t>
+int launch(const void* idx, const void* dout, void* dtab, int c, int B, int T, int k, int dsub,
+           int64_t s_col, int64_t s_b, int64_t s_t, int path, cudaStream_t stream) {
   const int32_t* ip = static_cast<const int32_t*>(idx);
   const scalar_t* gp = static_cast<const scalar_t*>(dout);
   scalar_t* op = static_cast<scalar_t*>(dtab);
-  if (vec4)
-    cce_lookup_bwd_kernel<scalar_t, true><<<blocks, threads, 0, stream>>>(
-        ip, gp, op, c, B, T, k, dsub, s_col, s_b, s_t);
-  else
-    cce_lookup_bwd_kernel<scalar_t, false><<<blocks, threads, 0, stream>>>(
-        ip, gp, op, c, B, T, k, dsub, s_col, s_b, s_t);
+  const bool vec4 = path == kVec4;
+  if (vec4 && dsub != 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (path != kVec4 && path != kWideVector && path != kWideScalar)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int range = vec4 ? kThreadRange : kWarpRange;
+  const int slice = path == kWideVector ? Lanes<scalar_t, true>::kSlice
+                                        : Lanes<scalar_t, false>::kSlice;
+  const int n_ranges = (k + range - 1) / range;
+  const dim3 grid(static_cast<unsigned>(c) * T * n_ranges,
+                  vec4 ? 1u : static_cast<unsigned>((dsub + slice - 1) / slice));
+  const size_t smem = smem_bytes(vec4, sizeof(scalar_t), range < k ? range : k);
+  void (*kernel)(const int32_t*, const scalar_t*, scalar_t*, int, int, int, int, int, int64_t,
+                 int64_t, int64_t) =
+      vec4 ? cce_lookup_bwd_vec4_kernel<scalar_t>
+           : path == kWideVector ? cce_lookup_bwd_wide_vector_kernel<scalar_t>
+                                 : cce_lookup_bwd_wide_scalar_kernel<scalar_t>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kThreads, smem, stream>>>(ip, gp, op, c, B, T, k, dsub, s_col, s_b, s_t);
+  return 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (of dout and dtab).  vec4 requires
-// dsub == 4 and dout/dtab aligned to 4 elements (the caller checks).
-// Writes every element of dtab (c, T, k, dsub).  Returns the cudaError_t of
-// the launch (0 on success).  c*T >= 1, k >= 1, B >= 0.
+// dtype: 0 = float32, 1 = bfloat16 (of dout and dtab).  path: 0 = vec4
+// (dsub == 4, dout and dtab aligned to 4 elements), 1 = wide_vector (dsub a
+// multiple of 16 bytes of elements, dout and dtab aligned to 16 bytes),
+// 2 = wide_scalar (any); the caller checks the conditions.  Writes every
+// element of dtab (c, T, k, dsub).  Returns the cudaError_t of the launch
+// (0 on success).  c*T >= 1, k >= 1, B >= 0.
 extern "C" int cce_lookup_bwd(const void* idx, const void* dout, void* dtab, int dtype, int c,
                               int B, int T, int k, int dsub, long long s_col, long long s_b,
-                              long long s_t, int vec4, void* stream) {
+                              long long s_t, int path, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err;
   if (dtype == 0)
-    launch<float>(idx, dout, dtab, c, B, T, k, dsub, s_col, s_b, s_t, vec4 != 0, st);
+    err = launch<float>(idx, dout, dtab, c, B, T, k, dsub, s_col, s_b, s_t, path, st);
   else if (dtype == 1)
-    launch<__nv_bfloat16>(idx, dout, dtab, c, B, T, k, dsub, s_col, s_b, s_t, vec4 != 0, st);
+    err = launch<__nv_bfloat16>(idx, dout, dtab, c, B, T, k, dsub, s_col, s_b, s_t, path, st);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    err = static_cast<int>(cudaErrorInvalidValue);
+  return err ? err : static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* cce_lookup_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#ifdef CCE_BWD_STAMPS
+// Copies the stamps of the first n_ctas CTAs of the last launch, kStamps
+// each, to host memory.  Returns the cudaError_t.
+extern "C" int cce_lookup_bwd_stamps(unsigned long long* host, int n_ctas) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      host, g_stamps, static_cast<size_t>(n_ctas) * kStamps * sizeof(unsigned long long)));
+}
+#endif

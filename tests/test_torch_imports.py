@@ -1,6 +1,6 @@
 """The port stands alone: every ``repro_torch`` module imports with JAX
-and the JAX package blocked, and no port file (nor ``chip_smoke.py``)
-names either in an import."""
+and the JAX package blocked, and no port file (nor ``chip_smoke.py`` and
+``tools/*.py``) names either in an import."""
 import ast
 import os
 import pathlib
@@ -49,6 +49,7 @@ def _imported_names(path):
 
 def test_no_port_file_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files += sorted(ROOT.glob("tools/*.py"))
     bad = [
         (str(f.relative_to(ROOT)), name)
         for f in files

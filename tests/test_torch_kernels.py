@@ -43,6 +43,8 @@ def _case(c, B, T, k, dsub, seed):
         (104, 9, 2, 305, 4),  # the full-Criteo supertable shape
         (2, 33, 1, 300, 3),
         (6, 20, 2, 130, 2),
+        (2, 5, 2, 300, 384),  # the LM token table's width (wide_vector on the card)
+        (3, 9, 2, 300, 36),
     ],
 )
 def test_cce_lookup_bit_exact_vs_pallas(c, B, T, k, dsub):
@@ -103,6 +105,7 @@ def test_pad_stack_tables_matches_jax():
         (4, 13, 1, 40, 8),
         (104, 6, 2, 305, 4),  # the full-Criteo supertable shape
         (6, 40, 2, 130, 2),
+        (2, 24, 2, 300, 384),  # the LM token table's width (wide_vector on the card)
     ],
 )
 def test_cce_lookup_bwd_matches_pallas_vjp(c, B, T, k, dsub):
@@ -117,6 +120,31 @@ def test_cce_lookup_bwd_matches_pallas_vjp(c, B, T, k, dsub):
                                   k)
     assert got.shape == (c, T, k, dsub) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dsub", [4, 384])
+def test_cce_lookup_bwd_hot_row_matches_pallas_vjp(dsub):
+    """Half the batch of every (column, sub-table) names one row: the
+    plain backward against ``jax.vjp`` of the Pallas lookup, and that
+    row's gradient equals the float32 sum in increasing b."""
+    c, B, T, k = 3, 48, 2, 300
+    idx, tables = _case(c, B, T, k, dsub, seed=dsub)
+    hot = np.random.default_rng(dsub + 1).permutation(B)[: B // 2]
+    idx[:, hot, :] = 17
+    dout = np.random.default_rng(dsub + 2).normal(size=(B, c * dsub)).astype(np.float32)
+    _, vjp = jax.vjp(lambda t: jops.cce_lookup(jnp.asarray(idx), t), jnp.asarray(tables))
+    (want,) = vjp(jnp.asarray(dout))
+    got = tref.cce_lookup_bwd_ref(torch.from_numpy(idx), torch.from_numpy(dout).reshape(B, c, dsub),
+                                  k).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
+    d = dout.reshape(B, c, dsub)
+    for i in range(c):
+        for t in range(T):
+            seq = np.zeros(dsub, np.float32)
+            for b in range(B):
+                if idx[i, b, t] == 17:
+                    seq += d[b, i]
+            np.testing.assert_array_equal(got[i, t, 17], seq)
 
 
 def test_cce_lookup_autograd_matches_pallas_vjp_on_strided_idx():
@@ -174,6 +202,41 @@ def test_cuda_bwd_wrapper_refuses_cpu_tensors():
     idx, _ = _case(2, 3, 2, 5, 4, seed=14)
     with pytest.raises(ValueError, match="CUDA"):
         tcl.cce_lookup_bwd(torch.from_numpy(idx), torch.zeros(3, 2, 4), 5)
+
+
+@pytest.mark.parametrize("dsub", [384, 6])
+def test_cuda_wrappers_refuse_cpu_tensors_at_wide_widths(dsub):
+    idx, tables = _case(2, 3, 2, 5, dsub, seed=dsub)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcl.cce_lookup_fwd(torch.from_numpy(idx), torch.from_numpy(tables))
+    with pytest.raises(ValueError, match="CUDA"):
+        tcl.cce_lookup_bwd(torch.from_numpy(idx), torch.zeros(3, 2, dsub), 5)
+
+
+@pytest.mark.parametrize(
+    "dsub,dtype,offset,path",
+    [
+        (4, torch.float32, 0, "vec4"),  # the Criteo supertable
+        (4, torch.bfloat16, 0, "vec4"),
+        (384, torch.float32, 0, "wide_vector"),  # the LM token table
+        (384, torch.bfloat16, 0, "wide_vector"),
+        (36, torch.float32, 0, "wide_vector"),
+        (36, torch.bfloat16, 0, "wide_scalar"),  # 36 bf16 is not whole 16-byte vectors
+        (6, torch.float32, 0, "wide_scalar"),
+        (384, torch.float32, 1, "wide_scalar"),  # a view one element into its storage
+        (4, torch.float32, 1, "wide_scalar"),
+        (4, torch.bfloat16, 4, "vec4"),  # 8 bytes in: still aligned to its 8-byte rows
+    ],
+)
+def test_lookup_path_selection(dsub, dtype, offset, path):
+    """Which layout both kernels take for each width, dtype and alignment,
+    read from the tensors' addresses as the launcher reads them."""
+    flat = torch.zeros(64 * dsub + offset, dtype=dtype)
+    view = flat[offset:].view(64, dsub)
+    aligned = torch.zeros(64, dsub, dtype=dtype)
+    assert aligned.data_ptr() % 16 == 0
+    got = tcl.lookup_path(dsub, view.element_size(), view.data_ptr(), aligned.data_ptr())
+    assert got == path and got in tcl.PATHS
 
 
 # --- k-means assignment ---------------------------------------------------------
