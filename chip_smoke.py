@@ -20,8 +20,9 @@
 4. Serves freshly initialised weights through ``DLRMServeEngine``
    (submit/step/drain), the serving path of the first slice.
 5. Holds the flash-attention kernel against its plain version (float32
-   and bfloat16, GQA and plain heads, D 64 and 128, ragged lengths,
-   causal and not) and times it beside ``scaled_dot_product_attention``.
+   and bfloat16 at both CTA heights, GQA and plain heads, D 64 and 128,
+   ragged lengths, causal and not) and times it beside
+   ``scaled_dot_product_attention`` at the LM's prefill buckets.
 6. Serves full-width qwen2-1.5b (28 layers, CCE token table and factored
    CCE head, random weights from a seed) through the LM ``ServeEngine``:
    16 requests of 16-1900 prompt tokens over 8 slots, 16 greedy tokens
@@ -80,10 +81,15 @@ FLASH_DIMS = (64, 128)
 FLASH_LENGTHS = (1, 7, 127, 128, 129, 1000, 2048)  # Sq = S, causal
 FLASH_NONCAUSAL = ((129, 129), (1000, 1000), (129, 300))  # (Sq, S) without the causal mask
 FLASH_STRIDED = 129  # the causal case at this length reads q from a (B, H, S, D) layout
-FLASH_TIMED = (128, 512, 2048)  # bf16, qwen2-1.5b's heads
+FLASH_TIMED = (128, 512, 1024, 2048)  # bf16, qwen2-1.5b's heads: the LM's prefill buckets
 # kernel vs plain on unit-normal inputs: float32 sums in another order;
 # bfloat16 rounds P to bf16 for the tensor cores and the output once
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# bfloat16, each row's error over that row's scale (flash_row_err): a late causal
+# row averages ~1/sqrt(i) and is small against FLASH_TOL, but rounding P to bf16
+# leaves every row ~2^-9 of its own scale, at any length; a key masked wrongly on
+# late rows gives > 0.1 (tests/test_torch_flash.py emulates both on the CPU)
+FLASH_ROW_TOL = 2 ** -6
 LM_ARCH = "qwen2-1.5b"
 LM_SEED = 0
 LM_REQUESTS = 16
@@ -1084,6 +1090,13 @@ def serve_phase(card: str, cfg, n_batches: int, device="cuda") -> int:
     return launches
 
 
+def flash_flops(B: int, Sq: int, S: int, H: int, D: int, causal: bool) -> int:
+    """The two products' operations over the (query, key) pairs the mask
+    keeps: 4*D a pair and head."""
+    pairs = sum(min(i + 1, S) for i in range(Sq)) if causal else Sq * S
+    return 4 * D * H * B * pairs
+
+
 def flash_bound(B: int, Sq: int, S: int, H: int, KVH: int, D: int, esize: int, causal: bool,
                 flops: float):
     """Least time for the attention on an H100: q, k, v read once and the
@@ -1091,17 +1104,25 @@ def flash_bound(B: int, Sq: int, S: int, H: int, KVH: int, D: int, esize: int, c
     pairs the mask keeps (4*D flops a pair and head) at ``flops``.
     Returns (ms, "bytes" | "operations")."""
     n_bytes = (2 * B * Sq * H * D + 2 * B * S * KVH * D) * esize
-    pairs = sum(min(i + 1, S) for i in range(Sq)) if causal else Sq * S
-    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, 4 * D * H * B * pairs / flops
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, flash_flops(B, Sq, S, H, D, causal) / flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_row_err(got, want) -> float:
+    """The largest over (b, s, h) rows of max_d |got - want| / (max_d |want|
+    + 1e-3): the error of each query row and head against its own scale."""
+    want = want.float()
+    diff = (got.float() - want).abs().amax(-1)
+    return (diff / (want.abs().amax(-1) + 1e-3)).max().item()
 
 
 def flash_phase(card: str, device="cuda"):
     """The flash-attention kernel against its plain version on unit-normal
-    inputs: within FLASH_TOL, repeatable bit for bit, the causal first row
-    equal to v's first row; a strided (B, H, S, D)-layout view read in
-    place.  Times the kernel, the plain version and SDPA at FLASH_TIMED.
-    Returns ({dtype: max error}, {S: numbers})."""
+    inputs: within FLASH_TOL, bfloat16 also within FLASH_ROW_TOL of each
+    row's scale against the plain version in float32, repeatable bit for
+    bit, the causal first row equal to v's first row; a strided
+    (B, H, S, D)-layout view read in place.  Times the kernel, the plain
+    version and SDPA at FLASH_TIMED.  Returns ({dtype: max error}, {S: numbers})."""
     import torch
     import torch.nn.functional as F
 
@@ -1119,6 +1140,7 @@ def flash_phase(card: str, device="cuda"):
         return q, k, v
 
     max_err = {"float32": 0.0, "bfloat16": 0.0}
+    max_row_err = 0.0
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
@@ -1131,23 +1153,39 @@ def flash_phase(card: str, device="cuda"):
                     B = 1 if S >= 1000 else 2
                     q, k, v = case(B, Sq, S, H, KVH, D, dtype, causal, seed=n_cases,
                                    head_major=(Sq == FLASH_STRIDED and causal))
-                    got = fa.flash_attention(q, k, v, causal=causal)
-                    again = fa.flash_attention(q, k, v, causal=causal)
-                    want = ref.flash_attention_ref(q, k, v, causal=causal)
-                    torch.cuda.synchronize()
-                    err = (got.float() - want.float()).abs().max().item()
-                    what = f"{dn} H={H} KVH={KVH} D={D} Sq={Sq} S={S} causal={causal}"
-                    check(err <= tol, f"flash kernel vs plain {err} > {tol} at {what}")
-                    check(torch.equal(got, again), f"flash kernel not repeatable at {what}")
-                    if causal:
-                        first = v[:, 0].repeat_interleave(H // KVH, dim=1)
-                        row_err = (got[:, 0].float() - first.float()).abs().max().item()
-                        check(row_err <= tol, f"flash first row != v[0] ({row_err}) at {what}")
-                    max_err[dn] = max(max_err[dn], err)
+                    want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                                     causal=causal)
+                    want = want32.to(dtype)
+                    # bf16: CTAs of 64 and of 128 query rows, whichever the wrapper picks
+                    for rows in (None,) if dtype == torch.float32 else (64, 128):
+                        if rows:
+                            got = fa._launch(q, k, v, causal, rows)
+                            again = fa._launch(q, k, v, causal, rows)
+                        else:
+                            got = fa.flash_attention(q, k, v, causal=causal)
+                            again = fa.flash_attention(q, k, v, causal=causal)
+                        torch.cuda.synchronize()
+                        err = (got.float() - want.float()).abs().max().item()
+                        what = (f"{dn} H={H} KVH={KVH} D={D} Sq={Sq} S={S} causal={causal}"
+                                f"{f' rows={rows}' if rows else ''}")
+                        check(err <= tol, f"flash kernel vs plain {err} > {tol} at {what}")
+                        if rows:
+                            row_err = flash_row_err(got, want32)
+                            check(row_err <= FLASH_ROW_TOL, f"flash kernel vs plain {row_err} "
+                                  f"> {FLASH_ROW_TOL} of a row's scale at {what}")
+                            max_row_err = max(max_row_err, row_err)
+                        check(torch.equal(got, again), f"flash kernel not repeatable at {what}")
+                        if causal:
+                            first = v[:, 0].repeat_interleave(H // KVH, dim=1)
+                            row_err = (got[:, 0].float() - first.float()).abs().max().item()
+                            check(row_err <= tol, f"flash first row != v[0] ({row_err}) at {what}")
+                        max_err[dn] = max(max_err[dn], err)
                     n_cases += 1
     print(f"[{card}] flash_attention: {n_cases} cases (heads {FLASH_HEADS}, D {FLASH_DIMS}, "
           f"causal S {FLASH_LENGTHS}, non-causal (Sq, S) {FLASH_NONCAUSAL}) in float32 and "
-          f"bfloat16: max_abs_err {max_err!r}, repeatable, causal first row == v[0]",
+          f"bfloat16 (at 64 and 128 query rows a CTA): max_abs_err {max_err!r}, bfloat16 "
+          f"max_row_scaled_err {max_row_err!r} (<= {FLASH_ROW_TOL!r}), repeatable, "
+          f"causal first row == v[0]",
           flush=True)
 
     at = {}
@@ -1166,18 +1204,26 @@ def flash_phase(card: str, device="cuda"):
         check(lib_err <= 2 * FLASH_TOL["bfloat16"],
               f"SDPA yardstick computes another function at S={S} ({lib_err})")
         ms = time_ms(lambda: fa.flash_attention(q, k, v), iters=50)
-        dev = device_ms(lambda: fa.flash_attention(q, k, v), "flash_fwd_bf16_kernel")
+        dev = device_ms(lambda: fa.flash_attention(q, k, v), "flash_fwd_wgmma_kernel")
+        # both CTA heights, whichever the wrapper picks: 64 or 128 query rows
+        by_rows = {r: device_ms(lambda r=r: fa._launch(q, k, v, True, r),
+                                "flash_fwd_wgmma_kernel") for r in (64, 128)}
+        picked = fa.block_rows(1, S, H, torch.cuda.get_device_properties(0).multi_processor_count)
         plain = time_ms(lambda: ref.flash_attention_ref(q, k, v), iters=10, reps=3)
         plain_dev = device_busy_ms(lambda: ref.flash_attention_ref(q, k, v), iters=5)
         lib = time_ms(library, iters=50)
         lib_dev = device_busy_ms(library, iters=20)
         bound, bound_by = flash_bound(1, S, S, H, KVH, D, 2, True, H100_BF16_FLOPS)
-        at[S] = dict(ms=ms, device_ms=dev, plain_ms=plain, plain_device_ms=plain_dev,
+        tflops = flash_flops(1, S, S, H, D, True) / (dev * 1e-3) / 1e12
+        at[S] = dict(ms=ms, device_ms=dev, device_ms_by_rows=by_rows, rows=picked, tflops=tflops,
+                     bound_share=bound / dev, plain_ms=plain, plain_device_ms=plain_dev,
                      bound_ms=bound, bound_by=bound_by, library_ms=lib,
                      library_device_ms=lib_dev)
         print(f"[{card}] flash_attention bf16 B=1 H={H} KVH={KVH} D={D} S={S} causal: "
-              f"ms={ms!r} device_ms={dev!r} plain_ms={plain!r} plain_device_ms={plain_dev!r} "
-              f"bound_ms={bound!r} ({bound_by}) library_ms(sdpa)={lib!r} "
+              f"ms={ms!r} device_ms={dev!r} (rows {picked}; "
+              f"64 rows {by_rows[64]!r}, 128 rows {by_rows[128]!r}) {tflops!r} TFLOP/s, "
+              f"{bound / dev!r} of bound_ms={bound!r} ({bound_by}) plain_ms={plain!r} "
+              f"plain_device_ms={plain_dev!r} library_ms(sdpa)={lib!r} "
               f"library_device_ms={lib_dev!r} sdpa_vs_kernel_max_abs_diff={lib_err!r}",
               flush=True)
     return max_err, at

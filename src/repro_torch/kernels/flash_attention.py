@@ -8,7 +8,9 @@ is the public entry point and sends CPU tensors to the plain version
 
 Unlike the JAX wrapper, nothing is padded: the kernel takes the true
 lengths and the (b, s, h) strides of each tensor and masks the ragged
-tails itself.
+tails itself.  bfloat16 tensors reach the kernel through TMA tensor maps
+whose geometry ``tma_geometry`` computes here, so that it can be checked
+without a card.
 """
 from __future__ import annotations
 
@@ -20,6 +22,9 @@ from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
+BOX_COLS = 64  # bf16 columns of one 128-byte-swizzled TMA box
+BLOCK_N = 128  # keys of one K/V tile: the rows of k's and v's boxes
+_GEOM = 11  # values per tensor map: 4 dims, 3 byte strides, 4 box dims
 _fn = None
 
 
@@ -32,7 +37,9 @@ def _kernel():
             [ctypes.c_void_p] * 4  # q k v o
             + [ctypes.c_int] * 7  # dtype B Sq S H KVH D
             + [ctypes.c_longlong] * 12  # (b, s, h) strides of q k v o
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale causal stream
+            + [ctypes.c_float, ctypes.c_int]  # scale causal
+            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]  # tma_geom block_rows
+            + [ctypes.c_void_p]  # stream
         )
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -41,12 +48,32 @@ def _kernel():
     return _fn
 
 
-def _aligned(t: torch.Tensor) -> bool:
-    """d contiguous, the (b, s, h) strides whole 16-byte steps and the
-    base 16-byte aligned: what the kernel's vector loads need."""
+def needs_copy(t: torch.Tensor) -> bool:
+    """Whether ``t`` (B, S, H, D) must be copied before the kernel reads
+    it: d not contiguous, a (b, s, h) stride that is not a positive
+    multiple of 16 bytes, or a base not 16-byte aligned.  TMA (bfloat16)
+    and the float32 kernel's loads read everything else in place."""
     step = 16 // t.element_size()
-    return (t.stride(3) == 1 and all(s % step == 0 for s in t.stride()[:3])
-            and t.data_ptr() % 16 == 0)
+    return not (t.stride(3) == 1 and all(s > 0 and s % step == 0 for s in t.stride()[:3])
+                and t.data_ptr() % 16 == 0)
+
+
+def tma_geometry(t: torch.Tensor, box_rows: int):
+    """The tensor map of a bf16 (B, S, H, D) tensor as the kernel loads it:
+    (dims, strides, box).  dims innermost first, (D, S, H, B); strides in
+    bytes of s, h and b (d, dim 0, is contiguous and has none); box: 64
+    columns by ``box_rows`` rows of one (h, b), so a row of D = 128 comes
+    as two boxes, at columns 0 and 64."""
+    B, S, H, D = t.shape
+    es = t.element_size()
+    return ((D, S, H, B), (t.stride(1) * es, t.stride(2) * es, t.stride(0) * es),
+            (BOX_COLS, box_rows, 1, 1))
+
+
+def block_rows(B: int, Sq: int, H: int, n_sm: int) -> int:
+    """Query rows of a CTA: 128 (two consumer warpgroups) where that still
+    gives each of the ``n_sm`` SMs a CTA, else 64."""
+    return 128 if B * H * -(-Sq // 128) >= n_sm else 64
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -54,9 +81,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, Sq, H, D), k/v (B, S, KVH, D), one dtype (float32 or
     bfloat16), on one CUDA device, D in ``HEAD_DIMS``, H a multiple of
     KVH -> (B, Sq, H, D) in q's dtype.  Strided inputs are read in place
-    where their strides allow 16-byte loads, else copied into fresh
-    contiguous storage.
-    Raises on anything else, or if the launch fails."""
+    unless ``needs_copy``, then copied into fresh contiguous storage.
+    Raises on anything else, or if a tensor map or the launch fails."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA device, got "
                          f"{q.device}, {k.device}, {v.device}")
@@ -75,18 +101,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}, got {D}")
     if S < 1:
         raise ValueError("flash_attention needs at least one key")
-    q, k, v = (t if _aligned(t) else t.clone(memory_format=torch.contiguous_format)
+    n_rows = 0
+    if q.dtype == torch.bfloat16:
+        n_rows = block_rows(
+            B, Sq, H, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    return _launch(q, k, v, causal, n_rows)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            n_rows: int) -> torch.Tensor:
+    """The launch behind ``flash_attention``, on inputs it has checked:
+    a bf16 CTA takes ``n_rows`` (64 or 128) query rows; float32 takes 0."""
+    B, Sq, H, D = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    q, k, v = (t.clone(memory_format=torch.contiguous_format) if needs_copy(t) else t
                for t in (q, k, v))
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    geom = None
+    if q.dtype == torch.bfloat16:
+        flat = [x for t, r in ((q, n_rows), (k, BLOCK_N), (v, BLOCK_N))
+                for part in tma_geometry(t, r) for x in part]
+        geom = (ctypes.c_longlong * (3 * _GEOM))(*flat)
     fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  _DTYPE_CODE[q.dtype], B, Sq, S, H, KVH, D,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-                 1.0 / D ** 0.5, int(causal), stream)
+                 1.0 / D ** 0.5, int(causal), geom, n_rows, stream)
     if err:
         msg = build.library("flash_attention").flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: {msg} ({err})")
