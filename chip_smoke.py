@@ -7,7 +7,9 @@
    (into ``build/repro_torch/``), one nvcc per source, all at once.
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes of the main paths (the lookup and its backward bit for bit, the
-   k-means assignment by the tie-tolerant rule) and times kernel, plain
+   k-means assignment by the tie-tolerant rule, one column a launch, the
+   four columns of a table in one, and every chunk shape the transition
+   launches) and times kernel, plain
    version and a library call that computes the same function (the
    lookup at the LM's table and at the wide widths with the L2 flushed
    before each call, as a serving caller finds the table).
@@ -74,6 +76,8 @@ WIDE_LOOKUP = {
 }
 WIDE_BATCHES = (1, 8, TRAIN_BATCH)
 ASSIGN_SHAPES = ((1 << 18, 250, 4), (64000, 250, 4))  # an assign_all chunk; a Lloyd sample
+ASSIGN_BATCHED = (4, 1 << 18, 250, 4)  # (c, n, k, d): an assign_all chunk of a c=4 table
+ASSIGN_GENERAL = ((5000, 250, 3), (3000, 40, 16))  # (n, k, d) off the d = 4 kernel
 ASSIGN_RTOL = 1e-5  # the plain distance of the kernel's pick vs the plain minimum
 STEP_RTOL = 1e-4  # card vs CPU, per leaf, relative to the leaf's largest magnitude
 FLASH_HEADS = ((12, 2), (32, 8), (4, 4))  # (H, KVH): qwen2-1.5b, qwen3-4b/14b style, no GQA
@@ -679,68 +683,184 @@ def bwd_kernel_phase(card: str, cfg, device="cuda"):
     return max_err, at
 
 
-def assign_bound(n: int, k: int, d: int):
-    """Least time for the assignment on an H100: x, the centroids and the
-    output moved once, against n*k*(d+1) float32 FMAs (2 operations each)
-    at the data-sheet rate.  Returns (ms, "bytes" | "operations")."""
-    n_bytes = (n * d + k * d) * 4 + n * 4
-    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, 2 * n * k * (d + 1) / H100_F32_FLOPS
+def assign_bound(n: int, k: int, d: int, c: int = 1):
+    """Least time for the assignment of c columns on an H100: x, the
+    centroids and the output moved once, against c*n*k*(d+1) float32 FMAs
+    (2 operations each) at the data-sheet rate.  Returns (ms, "bytes" |
+    "operations")."""
+    n_bytes = c * ((n * d + k * d) * 4 + n * 4)
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, 2 * c * n * k * (d + 1) / H100_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kmeans_phase(card: str, device="cuda"):
-    """The assignment kernel against its plain version at an assign_all
-    chunk and at a Lloyd-sample shape: for every point the plain distance
-    of the kernel's pick is within ASSIGN_RTOL*(|min|+1) of the plain
-    minimum.  Returns (max excess, numbers at the chunk shape)."""
+def ptxas_registers(log: str) -> dict:
+    """{function: (registers, spill store bytes)} from an ``nvcc -Xptxas -v``
+    log."""
+    import re
+
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            out[fn] = (out.get(fn, (None, 0))[0], int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn] = (int(m.group(1)), out.get(fn, (None, 0))[1])
+    return out
+
+
+def assign_excess(got, x, cent):
+    """Per point, how far the plain distance of the kernel's pick lies
+    above the plain minimum, checked against ASSIGN_RTOL*(|min|+1)
+    (float32 sums in another order may swap near ties); x (n, d), cent
+    (k, d).  Returns the largest excess."""
+    dist = (cent * cent).sum(-1)[None, :] - 2.0 * (x @ cent.T)
+    best = dist.min(1).values
+    excess = dist.gather(1, got.long()[:, None])[:, 0] - best
+    check(bool((excess <= ASSIGN_RTOL * (best.abs() + 1)).all()),
+          f"kmeans_assign picks beyond tolerance at n={x.shape[0]} k={cent.shape[0]} "
+          f"(max excess {excess.max().item()})")
+    return excess.max().item()
+
+
+def assign_chunk_shapes(cfg) -> list[tuple[int, int, int, int]]:
+    """Every distinct (c, n, k, d) launch of the transition's
+    ``CCE.assign_all`` over cfg's CCE tables: each table's full chunks and
+    its last, ragged one, as ``CCE._id_chunks`` cuts them."""
+    from repro_torch.core import cce as cce_lib
+
+    shapes = set()
+    for t in cfg.collection.tables:
+        if isinstance(t, cce_lib.CCE):
+            ch = cfg.emb_cluster_chunk
+            step = ch if ch and ch < t.d1 else t.d1
+            shapes.update((t.c, min(step, t.d1 - s), t.k, t.dsub) for s in range(0, t.d1, step))
+    return sorted(shapes)
+
+
+def check_batched_assign(c, n, k, d, device):
+    """One batched launch over random (c, n, d) points and (c, k, d)
+    centroids into columns [5, 5 + n) of a (c, n + 9) table, as
+    ``CCE.assign_all`` writes a chunk: nothing outside the slice written,
+    every pick within ASSIGN_RTOL of the plain minimum (column by column),
+    and a second launch, into a new array, bit for bit.  Returns (x,
+    centroids, the table, picks, max excess, agreement with
+    ``ref.kmeans_assign_batched_ref``)."""
     import torch
 
     from repro_torch.kernels import kmeans_assign as ka
     from repro_torch.kernels import ref
 
-    max_excess, at = 0.0, {}
-    for n, k, d in ASSIGN_SHAPES:
-        g = torch.Generator(device=device).manual_seed(n)
-        x = torch.randn((n, d), generator=g, device=device)
-        cent = torch.randn((k, d), generator=g, device=device)
-        got = ka.kmeans_assign(x, cent)
-        want = ref.kmeans_assign_ref(x, cent)
-        dist = (cent * cent).sum(-1)[None, :] - 2.0 * (x @ cent.T)
-        best = dist.min(1).values
-        excess = dist.gather(1, got.long()[:, None])[:, 0] - best
-        check(bool((excess <= ASSIGN_RTOL * (best.abs() + 1)).all()),
-              f"kmeans_assign picks beyond tolerance at n={n} (max excess {excess.max().item()})")
-        agree = (got == want).float().mean().item()
-        max_excess = max(max_excess, excess.max().item())
-        ms = time_ms(lambda: ka.kmeans_assign(x, cent))
-        plain = time_ms(lambda: ref.kmeans_assign_ref(x, cent), iters=50)
-        dev = device_ms(lambda: ka.kmeans_assign(x, cent), "kmeans_assign_kernel")
-        plain_dev = device_busy_ms(lambda: ref.kmeans_assign_ref(x, cent), iters=10)
+    g = torch.Generator(device=device).manual_seed(n)
+    x = torch.randn((c, n, d), generator=g, device=device)
+    cent = torch.randn((c, k, d), generator=g, device=device)
+    table = torch.full((c, n + 9), -1, dtype=torch.int32, device=device)
+    got = ka.kmeans_assign(x, cent, out=table[:, 5:5 + n]).clone()
+    check(bool((table[:, :5] == -1).all() and (table[:, 5 + n:] == -1).all()),
+          f"the batched kernel wrote outside its slice at c={c} n={n}")
+    excess = max(assign_excess(got[i], x[i], cent[i]) for i in range(c))
+    check(torch.equal(ka.kmeans_assign(x, cent), got), f"a second launch differs at c={c} n={n}")
+    agree = (got == ref.kmeans_assign_batched_ref(x, cent)).float().mean().item()
+    return x, cent, table, got, excess, agree
+
+
+def kmeans_phase(card: str, cfg, device="cuda"):
+    """The assignment kernel against its plain version at an assign_all
+    chunk and at a Lloyd-sample shape (one column), at the chunk of a c=4
+    table in one launch (ASSIGN_BATCHED, written into a strided slice of a
+    pointer table, as ``CCE.assign_all`` does), at every other chunk shape
+    the transition over cfg's tables launches (``assign_chunk_shapes``:
+    each template instance and each table's ragged last chunk) and,
+    through the general kernel, at d 3 and 16: for every point the plain
+    distance of the kernel's pick is within ASSIGN_RTOL*(|min|+1) of the
+    plain minimum, and a second launch gives the same picks bit for bit.
+    Times each d = 4 shape of ASSIGN_SHAPES and ASSIGN_BATCHED beside
+    ``cdist``+``argmin``.  Returns (max excess, numbers at the chunk shape,
+    with the others under ``at_lloyd_sample`` and ``batched``)."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import kmeans_assign as ka
+    from repro_torch.kernels import ref
+
+    sm = torch.cuda.get_device_properties(device).multi_processor_count if device == "cuda" else 132
+    regs = {fn: r for fn, r in ptxas_registers(build.BUILD_LOGS.get("kmeans_assign", "")).items()
+            if "kmeans_assign" in fn}
+    max_excess, at = 0.0, []
+    for c, n, k, d in [(None, n, k, d) for n, k, d in ASSIGN_SHAPES] + [ASSIGN_BATCHED]:
+        if c is None:
+            g = torch.Generator(device=device).manual_seed(n)
+            x = torch.randn((n, d), generator=g, device=device)
+            cent = torch.randn((k, d), generator=g, device=device)
+            got = ka.kmeans_assign(x, cent)
+            excess = assign_excess(got, x, cent)
+            check(torch.equal(ka.kmeans_assign(x, cent), got), f"a second launch differs at n={n}")
+            agree = (got == ref.kmeans_assign_ref(x, cent)).float().mean().item()
+            run = (lambda: ka.kmeans_assign(x, cent))
+            plain_fn = (lambda: ref.kmeans_assign_ref(x, cent))
+        else:
+            x, cent, table, got, excess, agree = check_batched_assign(c, n, k, d, device)
+            run = (lambda: ka.kmeans_assign(x, cent, out=table[:, 5:5 + n]))
+            plain_fn = (lambda: ref.kmeans_assign_batched_ref(x, cent))
+        max_excess = max(max_excess, excess)
+        ms = time_ms(run)
+        plain = time_ms(plain_fn, iters=50)
+        dev = device_ms(run, "kmeans_assign_kernel")
+        plain_dev = device_busy_ms(plain_fn, iters=10)
 
         def library():
-            return torch.cdist(x, cent).argmin(1)
+            return torch.cdist(x, cent).argmin(-1)
 
         lib_agree = (library() == got.long()).float().mean().item()
         lib = time_ms(library, iters=50)
         lib_dev = device_busy_ms(library, iters=10)
-        bound, bound_by = assign_bound(n, k, d)
-        print(f"[{card}] kmeans_assign n={n} k={k} d={d}: max_excess={excess.max().item()!r} "
-              f"agree_with_plain={agree!r} agree_with_cdist={lib_agree!r} ms={ms!r} "
-              f"device_ms={dev!r} plain_ms={plain!r} plain_device_ms={plain_dev!r} "
+        bound, bound_by = assign_bound(n, k, d, c or 1)
+        p, threads = ka.assign_geometry(n, c or 1, k, d, sm)
+        reg = next((r for fn, r in regs.items() if f"kmeans_assign_kernelILi{p}E" in fn),
+                   "not measured")
+        print(f"[{card}] kmeans_assign c={c or 1} n={n} k={k} d={d}: max_excess={excess!r} "
+              f"agree_with_plain={agree!r} agree_with_cdist={lib_agree!r}; repeats bit for bit; "
+              f"ms={ms!r} device_ms={dev!r} plain_ms={plain!r} plain_device_ms={plain_dev!r} "
               f"library_ms(cdist+argmin, two calls)={lib!r} library_device_ms={lib_dev!r} "
-              f"bound_ms={bound!r} ({bound_by})", flush=True)
-        if not at:
-            at = dict(agree_with_plain=agree, ms=ms, device_ms=dev, plain_ms=plain,
-                      plain_device_ms=plain_dev, bound_ms=bound, bound_by=bound_by,
-                      library_ms=lib, library_device_ms=lib_dev)
-    return max_excess, at
+              f"bound_ms={bound!r} ({bound_by}), share of bound {bound / dev!r}; points a "
+              f"thread {p}, threads a CTA {threads}, (registers, spill bytes) {reg}", flush=True)
+        at.append(dict(c=c or 1, n=n, k=k, d=d, agree_with_plain=agree, ms=ms, device_ms=dev,
+                       plain_ms=plain, plain_device_ms=plain_dev, bound_ms=bound,
+                       bound_by=bound_by, library_ms=lib, library_device_ms=lib_dev,
+                       points_per_thread=p, threads=threads))
+    for n, k, d in ASSIGN_GENERAL:  # the general kernel, one point a thread
+        g = torch.Generator(device=device).manual_seed(n)
+        x = torch.randn((2, n, d), generator=g, device=device)
+        cent = torch.randn((2, k, d), generator=g, device=device)
+        got = ka.kmeans_assign(x, cent)
+        excess = max(assign_excess(got[i], x[i], cent[i]) for i in range(2))
+        check(torch.equal(ka.kmeans_assign(x, cent), got), f"a second launch differs at d={d}")
+        max_excess = max(max_excess, excess)
+        print(f"[{card}] kmeans_assign (general kernel) c=2 n={n} k={k} d={d}: "
+              f"max_excess={excess!r}; repeats bit for bit", flush=True)
+    main_path = assign_chunk_shapes(cfg)
+    geometries = collections.Counter()
+    for c, n, k, d in main_path:  # what the transition launches, held as above
+        *_, excess, agree = check_batched_assign(c, n, k, d, device)
+        max_excess = max(max_excess, excess)
+        geometries[ka.assign_geometry(n, c, k, d, sm)] += 1
+        print(f"[{card}] kmeans_assign (transition chunk) c={c} n={n} k={k} d={d}: "
+              f"max_excess={excess!r} agree_with_plain={agree!r}; repeats bit for bit; "
+              f"(points a thread, threads a CTA) {ka.assign_geometry(n, c, k, d, sm)}", flush=True)
+    print(f"[{card}] kmeans_assign: all {len(main_path)} chunk shapes of the transition held; "
+          f"launch geometries {dict(geometries)}", flush=True)
+    chunk, lloyd, batched = at
+    return max_excess, dict(chunk, at_lloyd_sample=lloyd, batched=batched,
+                            transition_chunk_shapes_held=len(main_path))
 
 
 class PhaseClock:
     """Host ms of the transition by phase: wraps the functions that make up
     the phases so that each top-level call (not one nested in another
-    phase) is timed between two synchronisations and runs inside a
-    profiler range named ``transition:<phase>``."""
+    phase) is timed between two synchronisations."""
 
     def __init__(self, targets):
         self.ms = collections.Counter()
@@ -748,25 +868,29 @@ class PhaseClock:
         self._saved = []
         self._depth = 0
 
-    def __enter__(self):
+    def _measure(self, phase, call):
         import torch
 
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return call()
+        finally:
+            torch.cuda.synchronize()
+            self.ms[phase] += (time.perf_counter() - t0) * 1e3
+
+    def __enter__(self):
         for owner, name, phase in self._targets:
             orig = getattr(owner, name)
 
             def wrapped(*args, _orig=orig, _phase=phase, **kw):
                 if self._depth:
                     return _orig(*args, **kw)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
                 self._depth += 1
                 try:
-                    with torch.profiler.record_function(f"transition:{_phase}"):
-                        return _orig(*args, **kw)
+                    return self._measure(_phase, lambda: _orig(*args, **kw))
                 finally:
                     self._depth -= 1
-                    torch.cuda.synchronize()
-                    self.ms[_phase] += (time.perf_counter() - t0) * 1e3
 
             self._saved.append((owner, name, orig))
             setattr(owner, name, wrapped)
@@ -776,6 +900,22 @@ class PhaseClock:
         for owner, name, orig in reversed(self._saved):
             setattr(owner, name, orig)
         self._saved.clear()
+
+
+class PhaseBusy(PhaseClock):
+    """Device busy of the transition by phase: each top-level call of a
+    phase runs under its own torch.profiler trace of the card, and the
+    device time of every kernel and copy in it adds up in ``ms``."""
+
+    def _measure(self, phase, call):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = call()
+            torch.cuda.synchronize()
+        self.ms[phase] += sum(_device_us(e) for e in prof.key_averages()) / 1e3
+        return out
 
 
 def _leaf_errors(got, want) -> list[tuple[float, float]]:
@@ -885,8 +1025,8 @@ def train_phase(card: str, cfg, device="cuda"):
     counts = [np.bincount(np.concatenate([b["sparse"][:, f] for b in raw[:TRAIN_STEPS]]),
                           minlength=v) for f, v in enumerate(cfg.vocab_sizes)]
     cce_feats = [i for i, t in enumerate(coll.tables) if isinstance(t, cce_lib.CCE)]
-    want_assign = sum(coll.tables[i].c * -(-coll.tables[i].d1 // cfg.emb_cluster_chunk)
-                      for i in cce_feats)
+    # one launch a chunk, for all c columns of a table
+    want_assign = sum(-(-coll.tables[i].d1 // cfg.emb_cluster_chunk) for i in cce_feats)
     key = jr.PRNGKey(2)
     phases = [(cce_lib.CCE, "materialize", "sample materialize"),
               (km, "kmeans", "kmeans++/Lloyd"),
@@ -923,8 +1063,12 @@ def train_phase(card: str, cfg, device="cuda"):
               f"feature {i}: helper table not zero")
         check(not coll.feature_params(new_opt["m"]["emb"], i)["tables"][:, 1].any(),
               f"feature {i}: helper moments not zero")
-    # bitwise repeatable from the same state and key
-    again = dlrm.cluster_tables(key, state.params, state.ebuf, cfg, state.opt, id_counts=counts)
+    # bitwise repeatable from the same state and key; this run also takes
+    # the device busy of assign_all (each of its calls profiled; the other
+    # phases' busy comes from feature 2 alone, below)
+    with PhaseBusy([ph for ph in phases if ph[2] == "assign_all"]) as busy:
+        again = dlrm.cluster_tables(key, state.params, state.ebuf, cfg, state.opt,
+                                    id_counts=counts)
     for a, b, what in ((new_p["emb"], again[0]["emb"], "tables"), (new_b["emb"], again[1]["emb"],
                        "ptr/hs/epoch"), (new_opt["m"]["emb"], again[2]["m"]["emb"], "moments")):
         check(all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b))),
@@ -935,8 +1079,11 @@ def train_phase(card: str, cfg, device="cuda"):
     print(f"[{card}] transition: {len(cce_feats)} CCE features, {total_ms!r} ms host; "
           f"launches {launches['transition']} (expected kmeans_assign {want_assign}); "
           f"invariants hold; a second run from the same state is bitwise equal", flush=True)
-    print(f"[{card}] transition host ms by phase: " + ", ".join(
-        f"{k} {v!r}" for k, v in phase_ms.items()) + f", other {other!r}", flush=True)
+    print(f"[{card}] transition by phase: " + ", ".join(
+        f"{k}: host {v!r} ms" + (f", device busy {busy.ms[k]!r} ms" if k in busy.ms else "")
+        for k, v in phase_ms.items())
+        + f"; other host {other!r} ms (host: the first run; device busy: the second, "
+        f"each assign_all call profiled)", flush=True)
 
     # device busy by phase: the largest CCE table's transition alone, profiled
     from torch.profiler import ProfilerActivity, profile
@@ -948,20 +1095,23 @@ def train_phase(card: str, cfg, device="cuda"):
     per_p = coll.unstack_group_params(grp, state.params["emb"][g])[f_local]
     per_m = coll.unstack_group_params(grp, state.opt["m"]["emb"][g])[f_local]
     per_b = state.ebuf["emb"][g][f_local]
-    with PhaseClock(phases) as one, profile(activities=[ProfilerActivity.CPU,
-                                                          ProfilerActivity.CUDA]) as prof:
+
+    def feature_transition():
         _, _, upd = transition_table(coll.tables[big], jr.fold_in(key, big), per_p, per_b,
                                      counts=counts[big], chunk_size=cfg.emb_cluster_chunk)
         upd(per_m)
         torch.cuda.synchronize()
-    busy = {e.key.split(":", 1)[1]: e.device_time_total / 1e3 for e in prof.key_averages()
-            if e.key.startswith("transition:")}
+
+    with PhaseClock(phases) as one, profile(activities=[ProfilerActivity.CPU,
+                                                          ProfilerActivity.CUDA]) as prof:
+        feature_transition()
+    with PhaseBusy(phases) as one_busy:
+        feature_transition()
     print(f"[{card}] transition of feature {big} (d1={coll.tables[big].d1}) alone, by phase: "
-          + ", ".join(f"{k}: host {v!r} ms, device busy "
-                      f"{busy.get(k) if busy.get(k) else 'not measured'!r} ms"
-                      for k, v in one.ms.items()), flush=True)
-    top = sorted((e for e in prof.key_averages() if not e.key.startswith("transition:")),
-                 key=lambda e: e.self_device_time_total, reverse=True)[:8]
+          + ", ".join(f"{k}: host {v!r} ms, device busy {one_busy.ms[k]!r} ms"
+                      for k, v in one.ms.items()) + " (host: profiled for the top list below; "
+          "device busy: a second run, each call of a phase profiled)", flush=True)
+    top = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)[:8]
     print(f"[{card}] transition of feature {big}, top device time: " + "; ".join(
         f"{e.key[:60]} {e.self_device_time_total / 1e3!r} ms x{e.count}" for e in top), flush=True)
     del per_p, per_m, per_b
@@ -1506,7 +1656,7 @@ def main(argv=None) -> int:
 
     fwd = phase("lookup", kernel_phase, card, CONFIG.collection)
     bwd = phase("bwd", bwd_kernel_phase, card, CONFIG)
-    assign = phase("kmeans", kmeans_phase, card)
+    assign = phase("kmeans", kmeans_phase, card, CONFIG)
     launches = phase("train", train_phase, card, CONFIG) or {}
     serve = phase("serve", serve_phase, card, CONFIG, SERVE_BATCHES)
     if serve is not None:
@@ -1519,7 +1669,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: phases {phases} passed in {time.perf_counter() - t_run:.1f} s "
               f"(a partial run: no result line)")
         return 0
-    (fwd_err, fwd_at), (bwd_err, bwd_at), (assign_excess, assign_at) = fwd, bwd, assign
+    (fwd_err, fwd_at), (bwd_err, bwd_at), (assign_err, assign_at) = fwd, bwd, assign
     (flash_err, flash_at), lm_lookup = flash, lm_out[1]
 
     def by_path(name):
@@ -1537,8 +1687,7 @@ def main(argv=None) -> int:
         entry("cce_lookup_fwd", steps, fwd_err, fwd_at[TRAIN_BATCH], batch=TRAIN_BATCH,
               at_serve_batch=fwd_at[SERVE_BATCH], at_lm_shape=lm_lookup),
         entry("cce_lookup_bwd", steps, bwd_err, bwd_at, batch=TRAIN_BATCH),
-        entry("kmeans_assign", ("transition",), assign_excess, assign_at,
-              shape=list(ASSIGN_SHAPES[0])),
+        entry("kmeans_assign", ("transition",), assign_err, assign_at),
         entry("flash_attention", ("lm_serve",), flash_err["bfloat16"], flash_at[S],
               max_abs_err_float32=flash_err["float32"],
               shape=dict(B=1, S=S, H=FLASH_HEADS[0][0], KVH=FLASH_HEADS[0][1], D=FLASH_DIMS[-1],

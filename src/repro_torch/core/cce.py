@@ -198,20 +198,24 @@ class CCE:
         """Single-pass full-vocab nearest-centroid assignment.
 
         ``centroids`` (c, k, dsub) -> (c, d1) int32.  The vocabulary is
-        materialized once, in ``chunk_size`` id slices; per chunk and
-        column the assignment routes through ``kops.kmeans_assign`` when
-        ``use_kernel`` (default: on a CUDA device, as the JAX package takes
-        its kernel on the TPU).  Chunking cannot change an argmin: each
-        point's distances are its own."""
+        materialized once, in ``chunk_size`` id slices.  When ``use_kernel``
+        (default: on a CUDA device, as the JAX package takes its kernel on
+        the TPU) each chunk is ONE ``kops.kmeans_assign_batched`` call for
+        all c columns, written straight into the chunk's slice of the
+        result; else each column goes through ``km.assign``.  Chunking
+        cannot change an argmin: each point's distances are its own."""
         device = centroids.device
         if use_kernel is None:
             use_kernel = device.type == "cuda"
         out = torch.empty((self.c, self.d1), dtype=torch.int32, device=device)
         for s, ids in self._id_chunks(chunk_size, device):
             emb = self.materialize(params, buffers, ids)  # (c, n, dsub)
-            for i in range(self.c):
-                out[i, s: s + ids.shape[0]] = km.assign(
-                    emb[i], centroids[i], use_kernel=use_kernel)
+            block = out[:, s: s + ids.shape[0]]
+            if use_kernel:
+                kops.kmeans_assign_batched(emb, centroids, out=block)
+            else:
+                for i in range(self.c):
+                    block[i] = km.assign(emb[i], centroids[i])
         return out
 
     def _finish_transition(self, key, centroids, assignments, buffers):

@@ -10,9 +10,10 @@ multiset where point i appears weights[i] times.
 Keys are the JAX package's (``repro_torch.random``).  Integer work on keys
 is bit-exact with it; the float draws of kmeans++ and of ``subsample``
 come from a ``torch.Generator`` seeded with ``_seed_of(key)`` and are not
-JAX's draws.  Lloyd iterations run the plain-torch assignment, as the
-JAX package's ``CCE.cluster`` runs them outside any kernel; only
-``assign(..., use_kernel=True)`` (``CCE.assign_all``) takes the kernel.
+JAX's draws.  As in the JAX package, ``kmeans(..., use_kernel=True)``
+routes every Lloyd assignment through the kernel and the default does
+not; ``CCE.cluster`` takes the default, and only ``CCE.assign_all`` takes
+the kernel.
 """
 from __future__ import annotations
 
@@ -112,8 +113,8 @@ def kmeans_plus_plus(key, x: torch.Tensor, k: int,
     return centroids
 
 
-def _lloyd_step(x, centroids, k: int, weights=None):
-    a = assign(x, centroids)
+def _lloyd_step(x, centroids, k: int, use_kernel: bool = False, weights=None):
+    a = assign(x, centroids, use_kernel=use_kernel)
     onehot = torch.nn.functional.one_hot(a.to(torch.int64), k).to(x.dtype)  # (n, k)
     if weights is None:
         counts = onehot.sum(0)  # (k,)
@@ -130,12 +131,13 @@ def _lloyd_step(x, centroids, k: int, weights=None):
     return new_c, a, inertia
 
 
-def kmeans(key, x: torch.Tensor, k: int, niter: int = 50,
+def kmeans(key, x: torch.Tensor, k: int, niter: int = 50, use_kernel: bool = False,
            weights: torch.Tensor | None = None) -> KMeansResult:
-    """Full-batch Lloyd's algorithm with kmeans++ init.  ``weights`` runs
-    the count-weighted variant: the result equals unweighted k-means on the
-    expanded multiset.  Assignments sum one-hot products (no atomics), so a
-    run repeats bit for bit on the card."""
+    """Full-batch Lloyd's algorithm with kmeans++ init.  ``use_kernel``
+    routes every iteration's assignment through ``kops.kmeans_assign``.
+    ``weights`` runs the count-weighted variant: the result equals
+    unweighted k-means on the expanded multiset.  Assignments sum one-hot
+    products (no atomics), so a run repeats bit for bit on the card."""
     x = x.to(torch.float32)
     if weights is not None:
         weights = weights.to(torch.float32)
@@ -143,7 +145,7 @@ def kmeans(key, x: torch.Tensor, k: int, niter: int = 50,
     a = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
     inertia = torch.zeros((), dtype=torch.float32, device=x.device)
     for _ in range(niter):
-        c, a, inertia = _lloyd_step(x, c, k, weights)
+        c, a, inertia = _lloyd_step(x, c, k, use_kernel, weights)
     return KMeansResult(c, a, inertia)
 
 

@@ -63,6 +63,18 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
                              centroids.to(torch.float32).contiguous())
 
 
+def kmeans_assign_batched(x: torch.Tensor, centroids: torch.Tensor,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
+    """(c, n, d) points, (c, k, d) centroids -> (c, n) int32: column i's
+    nearest-centroid ids among centroids[i], as ``kmeans_assign`` gives
+    them, in one launch for all columns.  Written into ``out`` ((c, n)
+    int32; on CUDA with unit last stride, any row stride) when given."""
+    if _on_cpu(x, centroids, *(() if out is None else (out,))):
+        return ref.kmeans_assign_batched_ref(x, centroids, out)
+    return _ka.kmeans_assign(x.to(torch.float32).contiguous(),
+                             centroids.to(torch.float32).contiguous(), out=out)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Causal (or full) GQA softmax attention, forward only: q (B, Sq, H,

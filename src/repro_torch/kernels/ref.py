@@ -78,6 +78,19 @@ def kmeans_assign_ref(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     return torch.argmin(cn[None, :] - 2.0 * (x @ c.T), dim=-1).to(torch.int32)
 
 
+def kmeans_assign_batched_ref(x: torch.Tensor, centroids: torch.Tensor,
+                              out: torch.Tensor | None = None) -> torch.Tensor:
+    """(c, n, d) points, (c, k, d) centroids -> (c, n) int32: column i's
+    points against column i's centroids, ``kmeans_assign_ref`` column by
+    column (so each column's bits are the single-column function's).
+    Written into ``out`` ((c, n) int32, any strides) when given."""
+    if out is None:
+        out = torch.empty(x.shape[:2], dtype=torch.int32, device=x.device)
+    for i in range(x.shape[0]):
+        out[i] = kmeans_assign_ref(x[i], centroids[i])
+    return out
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True) -> torch.Tensor:
     """Dense GQA softmax attention, the function of the flash kernel.

@@ -288,3 +288,78 @@ def test_kmeans_assign_exact_on_separated_data_and_ties_to_lowest():
 def test_cuda_kmeans_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tka.kmeans_assign(torch.zeros(4, 4), torch.zeros(2, 4))
+
+
+@pytest.mark.parametrize("c,n,k,d", [
+    (1, 1, 5, 4), (3, 1, 250, 4), (1, 513, 250, 4), (3, 513, 5, 4), (3, 1000, 250, 4),
+    (1, 1000, 5, 3), (3, 513, 250, 3), (1, 513, 5, 16), (3, 1000, 250, 16), (3, 1, 5, 16),
+])
+def test_kmeans_assign_batched_ref_matches_pallas(c, n, k, d):
+    """The batched plain version: each column tie-tolerant against the
+    Pallas kernel (interpret mode) and bit for bit the one-column plain
+    version."""
+    rng = np.random.default_rng(c * 7 + n + k + d)
+    x = rng.normal(size=(c, n, d)).astype(np.float32)
+    cent = rng.normal(size=(c, k, d)).astype(np.float32)
+    got = tops.kmeans_assign_batched(torch.from_numpy(x), torch.from_numpy(cent))
+    assert got.dtype == torch.int32 and got.shape == (c, n)
+    for i in range(c):
+        want = np.asarray(jops.kmeans_assign(jnp.asarray(x[i]), jnp.asarray(cent[i])))
+        _tie_tolerant(got[i].numpy(), x[i], cent[i])
+        _tie_tolerant(want, x[i], cent[i])
+        assert (got[i].numpy() == want).mean() >= 0.99
+        assert torch.equal(got[i], tops.kmeans_assign(torch.from_numpy(x[i]),
+                                                      torch.from_numpy(cent[i])))
+
+
+def test_kmeans_assign_batched_writes_a_strided_slice_only():
+    """``out`` a (c, n) slice of a wider int32 table (row stride > n): the
+    picks land in the slice and nothing else changes."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(3, 50, 4)).astype(np.float32))
+    cent = torch.from_numpy(rng.normal(size=(3, 9, 4)).astype(np.float32))
+    table = torch.full((3, 70), -1, dtype=torch.int32)
+    block = table[:, 7:57]
+    assert not block.is_contiguous()
+    got = tops.kmeans_assign_batched(x, cent, out=block)
+    assert got.data_ptr() == block.data_ptr()
+    assert torch.equal(table[:, 7:57], tref.kmeans_assign_batched_ref(x, cent))
+    assert (table[:, :7] == -1).all() and (table[:, 57:] == -1).all()
+
+
+@pytest.mark.parametrize("n,c,k,d,want", [
+    (1 << 18, 1, 250, 4, (4, 128)),  # an assign_all chunk, one column: 512 CTAs
+    (1 << 18, 4, 250, 4, (4, 128)),  # the chunk of a c=4 table in one launch: 2048 CTAs
+    (64000, 1, 250, 4, (4, 64)),  # a Lloyd sample: 250 CTAs
+    (1000, 1, 250, 4, (1, 64)),  # nothing fills the card: the smallest
+    (1 << 18, 4, 250, 3, (1, 256)),  # d != 4: the general kernel
+    (1 << 18, 4, tka.FAST_MAX_K + 1, 4, (1, 256)),  # k past the d = 4 kernel's slots
+])
+def test_assign_geometry(n, c, k, d, want):
+    assert tka.assign_geometry(n, c, k, d, 132) == want
+    p, threads = want
+    if tka.fast_path(k, d) and p > 1:  # at least one CTA an SM
+        assert c * -(-n // (p * threads)) >= 132
+
+
+def test_fast_path_bounds():
+    assert tka.FAST_MAX_K == 2456  # 20 bytes a slot, k rounded up to 8, in 48 KB
+    assert tka.fast_path(250, 4) and tka.fast_path(tka.FAST_MAX_K, 4)
+    assert not tka.fast_path(tka.FAST_MAX_K + 1, 4) and not tka.fast_path(250, 16)
+
+
+@pytest.mark.parametrize("x,cent,out,match", [
+    (torch.zeros(2, 5, 4), torch.zeros(3, 7, 4), None, "columns"),
+    (torch.zeros(2, 5, 4), torch.zeros(2, 7, 3), None, "columns or d"),
+    (torch.zeros(5, 4), torch.zeros(2, 7, 4), None, "shape"),
+    (torch.zeros(2, 5, 4), torch.zeros(2, 7, 4), torch.zeros(2, 10, dtype=torch.int32)[:, ::2],
+     "unit last stride"),
+    (torch.zeros(2, 5, 4), torch.zeros(2, 7, 4), torch.zeros(2, 5), "int32"),
+    (torch.zeros(2, 5, 4), torch.zeros(2, 7, 4), torch.zeros(2, 6, dtype=torch.int32), "shape"),
+    (torch.zeros(2, 5, 4).double(), torch.zeros(2, 7, 4), None, "float32"),
+    (torch.zeros(2, 4, 5).transpose(1, 2), torch.zeros(2, 7, 4), None, "contiguous"),
+    (torch.zeros(2, 5, 4), torch.zeros(2, 7, 4), torch.zeros(2, 5, dtype=torch.int32), "CUDA"),
+])
+def test_cuda_kmeans_launcher_refuses(x, cent, out, match):
+    with pytest.raises(ValueError, match=match):
+        tka.kmeans_assign(x, cent, out=out)

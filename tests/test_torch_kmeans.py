@@ -14,6 +14,7 @@ from repro.core import kmeans as jkm
 from repro.stream import points as jpoints
 from repro_torch import random as jr
 from repro_torch.core import kmeans as tkm
+from repro_torch.kernels.ops import kmeans_assign as tops_assign
 from repro_torch.stream import points as tpoints
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -69,6 +70,26 @@ def test_kmeans_from_jax_seeds_matches_jax(weighted, monkeypatch):
     monkeypatch.setattr(tkm, "kmeans_plus_plus", lambda *a, **k: torch.from_numpy(seeds))
     got = tkm.kmeans(jr.PRNGKey(6), torch.from_numpy(x), 8, niter=12,
                      weights=None if w is None else torch.from_numpy(w))
+    np.testing.assert_allclose(got.centroids.numpy(), np.asarray(want.centroids), atol=1e-5)
+    np.testing.assert_array_equal(got.assignments.numpy(), np.asarray(want.assignments))
+    np.testing.assert_allclose(float(got.inertia), float(want.inertia), rtol=1e-5)
+
+
+def test_kmeans_use_kernel_matches_jax(monkeypatch):
+    """``use_kernel=True`` routes every Lloyd assignment through the kernel
+    entry point (its plain version here), as JAX's routes them through the
+    Pallas kernel (interpret mode): from JAX's seeds, the same picks and
+    centroids within 1e-5."""
+    x = _blobs(200, 6, 4, seed=8)
+    key = jax.random.PRNGKey(9)
+    seeds = np.array(jkm.kmeans_plus_plus(key, jnp.asarray(x), 6))
+    want = jkm.kmeans(key, jnp.asarray(x), 6, niter=3, use_kernel=True)
+    monkeypatch.setattr(tkm, "kmeans_plus_plus", lambda *a, **k: torch.from_numpy(seeds))
+    calls = []
+    monkeypatch.setattr(tkm.kops, "kmeans_assign",
+                        lambda *a: calls.append(1) or tops_assign(*a))
+    got = tkm.kmeans(jr.PRNGKey(9), torch.from_numpy(x), 6, niter=3, use_kernel=True)
+    assert len(calls) == 3
     np.testing.assert_allclose(got.centroids.numpy(), np.asarray(want.centroids), atol=1e-5)
     np.testing.assert_array_equal(got.assignments.numpy(), np.asarray(want.assignments))
     np.testing.assert_allclose(float(got.inertia), float(want.inertia), rtol=1e-5)

@@ -29,6 +29,7 @@ from repro_torch.configs import dlrm_criteo as tcfg
 from repro_torch.core import cce as tcce
 from repro_torch.core import hashing as thash
 from repro_torch.core import kmeans as tkm
+from repro_torch.kernels import ops as tkops
 from repro_torch.models import dlrm as tdlrm
 from repro_torch.train import loop as tloop
 from repro_torch.tree import tree_map
@@ -222,6 +223,21 @@ def test_inputs_untouched_and_repeatable(transitioned):
     for x, y in zip(jax.tree.leaves(convert.to_numpy(runs[0])),
                     jax.tree.leaves(convert.to_numpy(runs[1]))):
         np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("chunk", [None, 700])
+def test_assign_all_kernel_route_is_the_per_column_function(chunk):
+    """``use_kernel``: one batched call a chunk, written into the chunk's
+    slice of the pointer table (strided when chunked), gives bit for bit
+    what the kernel entry point gives column by column on the whole
+    vocabulary."""
+    table = tcce.CCE(3000, 16, k=12, c=4)
+    p, b = table.init(torch.Generator().manual_seed(0), device="cpu")
+    cent = torch.randn(4, 12, 4, generator=torch.Generator().manual_seed(1))
+    emb = table.materialize(p, b, torch.arange(3000))
+    want = torch.stack([tkops.kmeans_assign(emb[i], cent[i]) for i in range(4)])
+    got = table.assign_all(p, b, cent, chunk_size=chunk, use_kernel=True)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
 def test_chunked_assign_and_remap_equal_unchunked():
