@@ -19,13 +19,25 @@
    CCE clustering transition with the optimizer moments remapped (checked
    for its invariants and for bitwise repeatability); trains 4 more steps;
    then serves the trained state through ``DLRMServeEngine.update_state``.
-4. Serves freshly initialised weights through ``DLRMServeEngine``
+4. Runs the paper's training loop at that width through
+   ``launch.train.build_dlrm_trainer``: a ``Trainer`` with the sketch
+   frequency tracker (cell count in the step, host fold on a background
+   thread), the entropy/drift trigger beside a periodic fallback,
+   telemetry, a run log and async checkpoints, for 48 steps (windows of 8
+   batches) with up to 2 transitions.  Holds one step's in-step sketch
+   delta against the host cell count; crashes a second run at step 40,
+   restores and resumes it, and holds it bit for bit against the first;
+   restores the card's last checkpoint into a CPU Trainer; serves a batch
+   with the trained tracker's heads in the hot cache.  Then times the
+   step against the plain step, and the Trainer's own loop with the fold
+   on its thread, on the step's thread and without a tracker.
+5. Serves freshly initialised weights through ``DLRMServeEngine``
    (submit/step/drain), the serving path of the first slice.
-5. Holds the flash-attention kernel against its plain version (float32
+6. Holds the flash-attention kernel against its plain version (float32
    and bfloat16 at both CTA heights, GQA and plain heads, D 64 and 128,
    ragged lengths, causal and not) and times it beside
    ``scaled_dot_product_attention`` at the LM's prefill buckets.
-6. Serves full-width qwen2-1.5b (28 layers, CCE token table and factored
+7. Serves full-width qwen2-1.5b (28 layers, CCE token table and factored
    CCE head, random weights from a seed) through the LM ``ServeEngine``:
    16 requests of 16-1900 prompt tokens over 8 slots, 16 greedy tokens
    each; holds a 2-layer cut's prefill logits against CPU copies.
@@ -35,8 +47,8 @@ after.  Prints the kernels' JSON line, the card line and, last,
 
     python3 chip_smoke.py --phases flash,lm_serve
 
-runs only the named phases (of lookup, bwd, kmeans, train, serve, flash,
-lm_serve) and prints neither result line.
+runs only the named phases (of lookup, bwd, kmeans, train, loop, serve,
+flash, lm_serve) and prints neither result line.
 
 Exits non-zero, with no result line, when there is no CUDA device, when the
 port is missing, or when any phase fails.  Imports nothing of JAX.
@@ -64,6 +76,15 @@ TRAIN_BATCH = 2048
 TRAIN_STEPS = 8  # before the transition
 POST_STEPS = 4  # after it
 TRAIN_LR = 0.05  # constant, with momentum 0.9 and clip 1.0
+LOOP_STEPS = 48  # the loop phase's run, cut in depth
+LOOP_WINDOW = 8  # tracker window in batches (the deployment's STREAM has 256)
+LOOP_CLUSTER_EVERY = 24  # the periodic fallback beside the trigger
+LOOP_CLUSTER_MAX = 2
+LOOP_CKPT_EVERY = 16
+LOOP_KEEP_LAST = 2
+LOOP_FAIL_AT = 40  # the crash run's injected failure
+LOOP_SEED = 4
+LOOP_TIMED_STEPS = 16  # each unsynchronised Trainer run of the loop's timing
 LOOKUP_BATCHES = (1, 7, SERVE_BATCH, TRAIN_BATCH, 4096)
 BWD_BATCHES = (256, TRAIN_BATCH, 4096)
 LM_DSUB = 384  # the LM token table's sub-row width (qwen2-1.5b: d 1536 over c=4)
@@ -864,6 +885,7 @@ class PhaseClock:
 
     def __init__(self, targets):
         self.ms = collections.Counter()
+        self.calls = collections.Counter()
         self._targets = targets  # (owner, attribute, phase)
         self._saved = []
         self._depth = 0
@@ -887,6 +909,7 @@ class PhaseClock:
                 if self._depth:
                     return _orig(*args, **kw)
                 self._depth += 1
+                self.calls[_phase] += 1
                 try:
                     return self._measure(_phase, lambda: _orig(*args, **kw))
                 finally:
@@ -1152,6 +1175,370 @@ def train_phase(card: str, cfg, device="cuda"):
     print(f"[{card}] serve after train: {len(served)} requests through update_state, "
           f"logits vs forward max_abs_diff={diff!r}", flush=True)
     return launches
+
+
+def _host_cells(tracker, sparse):
+    """The tracker's sketch cells of one batch, counted on the host with
+    ``CountMinSketch.cells``: (F_tracked, depth, width) int32."""
+    import numpy as np
+
+    cms0 = tracker.features[tracker.tracked[0]].cms
+    out = np.zeros((len(tracker.tracked), cms0.depth, cms0.width), np.int32)
+    for j, f in enumerate(tracker.tracked):
+        cells = tracker.features[f].cms.cells(sparse[:, f])
+        for r in range(cells.shape[0]):
+            np.add.at(out[j, r], cells[r], 1)
+    return out
+
+
+def loop_phase(card: str, cfg, device="cuda"):
+    """The paper's training loop at full width, through
+    ``launch.train.build_dlrm_trainer``: a Trainer with the sketch tracker
+    (cell count in the step, async host fold), the entropy/drift trigger
+    and the periodic fallback, telemetry, a run log and async checkpoints.
+    One run of LOOP_STEPS steps; a second run crashes at LOOP_FAIL_AT,
+    restores the latest checkpoint and resumes, and must end bit for bit
+    where the first ended; the last checkpoint restores into a CPU
+    Trainer; the trained tracker's heads feed a served batch.  Then the
+    timings: the step against the plain step, synchronised, and the
+    Trainer's loop unsynchronised three ways.  Returns {"loop": launches}."""
+    import argparse
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import list_checkpoints
+    from repro_torch.configs.dlrm_criteo import STREAM
+    from repro_torch.core import cce as cce_lib
+    from repro_torch.core import kmeans as km
+    from repro_torch.data.synthetic import ClickstreamConfig, clickstream_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.models import dlrm
+    from repro_torch.obs.pump import MetricsPump
+    from repro_torch.obs.runlog import read_runlog
+    from repro_torch.optim import sgd
+    from repro_torch.serve.dlrm import DLRMServeEngine
+    from repro_torch.stream.trigger import ClusterTrigger
+    from repro_torch.train import loop
+    from repro_torch.train import transition as trans_mod
+    from repro_torch.tree import jax_leaves, jax_leaves_with_paths
+
+    coll = cfg.collection
+    cce_feats = [i for i, t in enumerate(coll.tables) if isinstance(t, cce_lib.CCE)]
+    assign_per_transition = sum(-(-coll.tables[i].d1 // cfg.emb_cluster_chunk)
+                                for i in cce_feats)
+    t0 = time.perf_counter()
+    stream = clickstream_batches(ClickstreamConfig(vocab_sizes=cfg.vocab_sizes, seed=LOOP_SEED),
+                                 TRAIN_BATCH)
+    raw = [next(stream) for _ in range(LOOP_STEPS)]  # made once, replayed from any step
+    print(f"loop data: {len(raw)} batches of {TRAIN_BATCH} in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+    def data_from(start):
+        return iter(raw[start:])
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_loop_"))
+    stream_cfg = dataclasses.replace(STREAM, window=LOOP_WINDOW)
+
+    def build(tag, fail_at=(), dev=device, ckpt_dir=None, obs=True):
+        args = argparse.Namespace(
+            device=dev, seed=LOOP_SEED, momentum=0.9, lr=TRAIN_LR, clip=1.0, accum=1,
+            emb="cce", batch=TRAIN_BATCH, ckpt_dir=ckpt_dir or str(tmp / tag / "ckpt"),
+            ckpt_every=LOOP_CKPT_EVERY, keep_last=LOOP_KEEP_LAST,
+            cluster_every=LOOP_CLUSTER_EVERY, cluster_max=LOOP_CLUSTER_MAX,
+            fail_at=list(fail_at), obs=str(tmp / tag / "run.jsonl") if obs else None)
+        if obs:
+            (tmp / tag).mkdir(parents=True, exist_ok=True)
+        t = time.perf_counter()
+        trainer = launch.build_dlrm_trainer(
+            cfg, args, stream=stream_cfg, data_from=data_from,
+            trigger=ClusterTrigger(entropy_drop=0.1, drift_threshold=0.25, warmup=2))
+        print(f"loop: {tag} Trainer built on {dev} in {time.perf_counter() - t:.3f} s", flush=True)
+        return trainer
+
+    phases = [(trans_mod, "_draw_points", "sketch points"),
+              (trans_mod, "_dense_weights", "sketch id_weights"),
+              (cce_lib.CCE, "materialize", "sample materialize"),
+              (km, "kmeans", "kmeans++/Lloyd"),
+              (cce_lib.CCE, "assign_all", "assign_all"),
+              (cce_lib.CCE, "remap_moments", "moment remap")]
+    try:
+        # the uninterrupted run; its first step's in-step delta kept aside
+        clean = build("clean")
+        tracker = clean.id_tracker
+        seen, observe_ms = {}, []
+        orig_observe = tracker.observe
+
+        def observe(batch, *, delta=None):
+            if "delta" not in seen:
+                seen.update(delta=delta.clone(), sparse=np.asarray(batch["sparse"]).copy())
+            t = time.perf_counter()
+            orig_observe(batch, delta=delta)
+            observe_ms.append((time.perf_counter() - t) * 1e3)
+
+        tracker.observe = observe
+        ops.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with PhaseClock([(loop.Trainer, "_transition", "transition")]) as whole, \
+                PhaseClock(phases) as by_phase:
+            clean.run(LOOP_STEPS)
+        torch.cuda.synchronize()
+        clean_s = time.perf_counter() - t0
+        launches_clean = dict(ops.LAUNCHES)
+        n_trans = whole.calls["transition"]
+        check(clean.state.step == LOOP_STEPS and clean.clusters_done == n_trans >= 1,
+              f"clean run: step {clean.state.step}, clusters {clean.clusters_done}, "
+              f"transitions {n_trans}")
+        check(launches_clean.get("cce_lookup_fwd") == LOOP_STEPS
+              and launches_clean.get("cce_lookup_bwd") == LOOP_STEPS
+              and launches_clean.get("kmeans_assign") == assign_per_transition * n_trans,
+              f"clean run launches {launches_clean}: {LOOP_STEPS} steps, {n_trans} transitions "
+              f"of {assign_per_transition} assignment launches")
+        losses = {h["step"]: h["loss"] for h in clean.history}
+        check(sorted(losses) == list(range(LOOP_STEPS))
+              and all(math.isfinite(x) for x in losses.values()), f"clean losses {losses}")
+        trig = [e.as_dict() for e in clean.trigger.events]
+        print(f"[{card}] loop: {LOOP_STEPS} steps at batch {TRAIN_BATCH} in {clean_s:.3f} s, "
+              f"{n_trans} transitions (steps {[r['step'] for r in read_runlog(clean.runlog.path) if r['event'] == 'transition']}), "
+              f"launches {launches_clean}; losses first {losses[0]!r} last "
+              f"{losses[LOOP_STEPS - 1]!r}; trigger {[(e['step'], round(e['entropy'], 4), round(e['drift'], 4), e['reason'] or 'held') for e in trig]}",
+              flush=True)
+
+        # check 2: the in-step delta of step 0 == the host cells of its batch
+        want = _host_cells(tracker, seen["sparse"])
+        got = seen["delta"].cpu().numpy()
+        check(got.dtype == np.int32 and got.shape == want.shape and np.array_equal(got, want),
+              f"step 0's in-step sketch delta differs from the host cells "
+              f"({int(np.abs(got.astype(np.int64) - want).sum())} counts off)")
+        print(f"[{card}] loop: step 0's in-step sketch delta {got.shape} equals the host "
+              f"CountMinSketch.cells count of its batch bit for bit ({int(got.sum())} counts)",
+              flush=True)
+
+        # check 3: crash at LOOP_FAIL_AT, restore, resume: bit for bit
+        crash = build("crash", fail_at=(LOOP_FAIL_AT,))
+        ops.LAUNCHES.clear()
+        with PhaseClock([(loop.Trainer, "_transition", "transition")]) as crash_whole:
+            try:
+                crash.run(LOOP_STEPS)
+                check(False, f"no failure at step {LOOP_FAIL_AT}")
+            except loop.InjectedFailure:
+                pass
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restored = crash.restore_latest()
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            check(restored == LOOP_FAIL_AT // LOOP_CKPT_EVERY * LOOP_CKPT_EVERY,
+                  f"restored to step {restored}")
+            crash.data_iter = data_from(restored)
+            crash.run(LOOP_STEPS - restored)
+        launches_crash = dict(ops.LAUNCHES)
+        n_steps_run = LOOP_FAIL_AT + LOOP_STEPS - restored
+        n_trans_crash = crash_whole.calls["transition"]
+        check(launches_crash.get("cce_lookup_fwd") == n_steps_run
+              and launches_crash.get("cce_lookup_bwd") == n_steps_run
+              and launches_crash.get("kmeans_assign") == assign_per_transition * n_trans_crash,
+              f"crash run launches {launches_crash}: {n_steps_run} steps run, "
+              f"{n_trans_crash} transitions")
+        diffs = []
+        for what, a, b in (("params", crash.state.params, clean.state.params),
+                           ("moments", crash.state.opt, clean.state.opt),
+                           ("ptr/hs/epoch", crash.state.ebuf, clean.state.ebuf)):
+            la, lb = jax_leaves(a), jax_leaves(b)
+            if len(la) != len(lb) or not all(torch.equal(x, y) for x, y in zip(la, lb)):
+                diffs.append(what)
+        for what, a, b in (("tracker", crash.id_tracker.state_tree(), tracker.state_tree()),
+                           ("trigger", crash.trigger.state_tree(), clean.trigger.state_tree())):
+            if len(a) != len(b) or not all(np.array_equal(x, y) for x, y in zip(a, b)):
+                diffs.append(what)
+        if crash.clusters_done != clean.clusters_done or crash.state.step != LOOP_STEPS:
+            diffs.append(f"clusters_done {crash.clusters_done} / step {crash.state.step}")
+        bad_loss = sorted({h["step"] for h in crash.history if h["loss"] != losses[h["step"]]})
+        if bad_loss or sorted({h["step"] for h in crash.history}) != list(range(LOOP_STEPS)):
+            diffs.append(f"losses at steps {bad_loss}")
+        check(not diffs, f"crash and resume differs from the uninterrupted run in {diffs}")
+        recs = read_runlog(crash.runlog.path)
+        keys = [(r["event"], r["step"]) for r in recs
+                if "step" in r and r["event"] not in ("fault", "checkpoint_restore")]
+        dup = sorted({k for k in keys if keys.count(k) > 1})
+        check(not dup, f"the crash run's log repeats {dup}")
+        check([r["step"] for r in recs if r["event"] == "step"] == list(range(LOOP_STEPS)),
+              "the crash run's log does not hold each step once")
+        print(f"[{card}] loop: crash at step {LOOP_FAIL_AT}, restore from step {restored} in "
+              f"{restore_ms!r} ms, resume to {LOOP_STEPS}: params, moments, ptr/hs/epoch, "
+              f"tracker, trigger, clusters_done ({crash.clusters_done}) and all {LOOP_STEPS} "
+              f"losses equal the uninterrupted run bit for bit ({n_steps_run} steps run, "
+              f"launches {launches_crash}); its run log holds no (event, step) twice",
+              flush=True)
+        del crash
+
+        # check 4: the card's last checkpoint restores into a CPU Trainer
+        last = list_checkpoints(clean.ckpt.directory)[-1]
+        with open(pathlib.Path(last[1]) / "manifest.json") as f:
+            manifest = json.load(f)
+        on_cpu = build("cpu", dev="cpu", ckpt_dir=clean.ckpt.directory, obs=False)
+        t0 = time.perf_counter()
+        check(on_cpu.restore_latest() == LOOP_STEPS, "the CPU restore found another step")
+        cpu_restore_ms = (time.perf_counter() - t0) * 1e3
+        paths = [p for p, _ in jax_leaves_with_paths(on_cpu._ckpt_tree())]
+        hs = [i for i, p in enumerate(paths) if p.endswith("['hs']")]
+        check(manifest["n_leaves"] == len(paths) and hs
+              and all(manifest["leaves"][i]["dtype"] == "uint32" for i in hs),
+              f"the checkpoint's hs leaves on disk: "
+              f"{sorted({manifest['leaves'][i]['dtype'] for i in hs})}")
+        bad = [p for (p, x), y in zip(jax_leaves_with_paths(on_cpu.state), jax_leaves(clean.state))
+               if not (torch.equal(x, y.cpu()) if isinstance(x, torch.Tensor) else x == y)]
+        bad += ["tracker"] * (not all(np.array_equal(x, y) for x, y in zip(
+            on_cpu.id_tracker.state_tree(), tracker.state_tree())))
+        check(not bad and on_cpu.clusters_done == clean.clusters_done
+              and all(x.device.type == "cpu" for x in jax_leaves(on_cpu.state.params)),
+              f"the card checkpoint restored on the CPU differs at {bad[:5]}")
+        print(f"[{card}] loop: the card's checkpoint of step {LOOP_STEPS} ({manifest['n_leaves']} "
+              f"leaves, {len(hs)} hs leaves uint32 on disk) restores into a CPU Trainer in "
+              f"{cpu_restore_ms!r} ms with every leaf equal", flush=True)
+        del on_cpu
+
+        # check 5: serve a batch from the final state with the trained tracker's heads
+        engine = DLRMServeEngine(clean.state.params, clean.state.ebuf, cfg, tracker=tracker,
+                                 max_batch=SERVE_BATCH)
+        dense, sparse = raw[-1]["dense"][:SERVE_BATCH], raw[-1]["sparse"][:SERVE_BATCH]
+        ops.LAUNCHES.clear()
+        served = engine.predict(dense, sparse)
+        launches_serve = dict(ops.LAUNCHES)
+        with torch.no_grad():
+            fwd = dlrm.forward(clean.state.params, clean.state.ebuf, cfg, {
+                "dense": torch.from_numpy(dense).to(device),
+                "sparse": torch.from_numpy(sparse).to(device)}).cpu().numpy()
+        diff = float(np.abs(fwd - served).max())
+        hits = engine.counters["n_id_hits"]
+        check(bool(np.isfinite(served).all()) and diff <= 1e-5,
+              f"served logits differ from forward by {diff}")
+        check(hits > 0 and launches_serve.get("cce_lookup_fwd", 0) == engine.counters["n_launches"],
+              f"serve: {hits} cache hits, launches {launches_serve}, engine {engine.counters}")
+        print(f"[{card}] loop: served {len(served)} requests from the final state with the "
+              f"tracker's heads ({engine.cache.n_slots} cache slots): logits vs forward "
+              f"max_abs_diff={diff!r}, {hits} of {engine.counters['n_id_lookups']} id lookups "
+              f"hit the cache, launches {launches_serve}", flush=True)
+        launches = collections.Counter(launches_clean)
+        launches.update(launches_crash)
+        launches.update(launches_serve)
+
+        # where the time goes
+        dts = [h["dt"] * 1e3 for h in clean.history if h.get("dt") is not None]
+        folds = tracker._folder.fold_ms
+        print(f"[{card}] loop step timing: dispatch-to-dispatch host {statistics.median(dts)!r} "
+              f"ms (median of {len(dts)}; max {max(dts)!r}); tracker.observe on the step's "
+              f"thread {statistics.median(observe_ms)!r} ms (median; max {max(observe_ms)!r}); "
+              f"sketch fold on its thread {statistics.median(folds)!r} ms (median of "
+              f"{len(folds)}; max {max(folds)!r})", flush=True)
+        print(f"[{card}] loop checkpoints: enqueue (host copy) ms {clean.ckpt.enqueue_ms!r}, "
+              f"write ms {clean.ckpt.write_ms!r}; restore {restore_ms!r} ms on the card, "
+              f"{cpu_restore_ms!r} ms on the CPU", flush=True)
+        print(f"[{card}] loop transition by phase ({n_trans} transitions): total host "
+              f"{whole.ms['transition']!r} ms; " + ", ".join(
+                  f"{k}: host {v!r} ms over {by_phase.calls[k]} calls"
+                  for k, v in by_phase.ms.items())
+              + f"; other host {whole.ms['transition'] - sum(by_phase.ms.values())!r} ms",
+              flush=True)
+
+        # the step with the tracker and telemetry against the plain step, on
+        # one state and batch: plain; the step with its sketch count and
+        # telemetry alone; that and the tracker's observe and the pump
+        # (the loop's step); in turns, forth and back
+        batch = clean._to_device(raw[-1])
+
+        def loss_fn(p, b, mb):
+            return dlrm.bce_loss(p, b, cfg, mb), {}
+
+        plain_step = loop.make_train_step(loss_fn, sgd(momentum=0.9), lambda s: TRAIN_LR,
+                                          clip_norm=1.0)
+        pump = MetricsPump(lag=8)
+
+        def plain():
+            clean.state, _ = plain_step(clean.state, batch)
+
+        def hooks():
+            clean.state, _ = clean.train_step(clean.state, batch)
+
+        def full():
+            clean.state, m = clean.train_step(clean.state, batch)
+            tracker.observe(raw[-1], delta=m.pop("sketch_delta"))
+            pump.push(clean.state.step, m)
+
+        def drain():
+            # the loop step's folds run on the fold thread after it returns:
+            # no variant is timed while an earlier one's backlog drains
+            tracker.flush()
+            pump.flush()
+
+        def host_ms(fn, n=8):
+            ts = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t) * 1e3)
+            drain()
+            return statistics.median(ts)
+
+        variants = {"plain": plain, "step with hooks": hooks, "loop step": full}
+        order = list(variants) + list(variants)[::-1]
+        host = collections.defaultdict(list)
+        for name in order:
+            host[name].append(host_ms(variants[name]))
+        busy = {}
+        for name, fn in variants.items():
+            busy[name] = device_busy_ms(fn)
+            drain()
+        print(f"[{card}] loop step vs the plain step, batch {TRAIN_BATCH}, synchronised "
+              f"({', '.join(order)}; medians of 8, the fold drained after each block): "
+              + "; ".join(f"{name}: host {host[name]!r} ms, device busy {busy[name]!r} ms"
+                          for name in variants), flush=True)
+
+        # the Trainer's own loop, unsynchronised, dispatch to dispatch: the
+        # fold on its thread (as the loop runs it), on the step's thread
+        # (after each step), and no tracker.  If the fold and the step's
+        # dispatch serialise on the host, the first two are alike and near
+        # the third plus a fold; if they overlap, the first is near the
+        # larger of the third and a fold
+        clean.ckpt = None  # no saves in these runs
+        folder = tracker._folder
+
+        def run_loop(mode):
+            clean.id_tracker = None if mode == "no tracker" else tracker
+            tracker._folder = None if mode == "fold on the step's thread" else folder
+            clean.data_iter = iter(raw[:LOOP_TIMED_STEPS])
+            clean._last_dispatch = None
+            start, n_folds, n_observes = clean.state.step, len(folder.fold_ms), len(observe_ms)
+            clean.run(LOOP_TIMED_STEPS)
+            tracker._folder = folder
+            clean.id_tracker = tracker
+            drain()
+            # a fold's ms: on its thread, or inside observe on the step's
+            folds = list(folder.fold_ms)[n_folds:] or observe_ms[n_observes:]
+            return (statistics.median(h["dt"] * 1e3 for h in clean.history
+                                      if h["step"] >= start and h.get("dt") is not None),
+                    statistics.median(folds) if folds else None)
+
+        modes = ("fold on its thread", "fold on the step's thread", "no tracker")
+        order = list(modes) + list(modes)[::-1]
+        d2d, fold = collections.defaultdict(list), collections.defaultdict(list)
+        for mode in order:
+            dt, fold_ms = run_loop(mode)
+            d2d[mode].append(dt)
+            fold[mode].append(fold_ms)
+        print(f"[{card}] loop dispatch to dispatch, the Trainer unsynchronised ({', '.join(order)}; "
+              f"medians of {LOOP_TIMED_STEPS - 1} steps): " + "; ".join(
+                  f"{mode}: {d2d[mode]!r} ms (a fold {fold[mode]!r} ms)" for mode in modes),
+              flush=True)
+        return {"loop": dict(launches)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def serve_phase(card: str, cfg, n_batches: int, device="cuda") -> int:
@@ -1605,7 +1992,7 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call it replaces)
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:97"),
 }
-PHASES = ("lookup", "bwd", "kmeans", "train", "serve", "flash", "lm_serve")
+PHASES = ("lookup", "bwd", "kmeans", "train", "loop", "serve", "flash", "lm_serve")
 
 
 def main(argv=None) -> int:
@@ -1658,6 +2045,7 @@ def main(argv=None) -> int:
     bwd = phase("bwd", bwd_kernel_phase, card, CONFIG)
     assign = phase("kmeans", kmeans_phase, card, CONFIG)
     launches = phase("train", train_phase, card, CONFIG) or {}
+    launches.update(phase("loop", loop_phase, card, CONFIG) or {})
     serve = phase("serve", serve_phase, card, CONFIG, SERVE_BATCHES)
     if serve is not None:
         launches["serve"] = {"cce_lookup_fwd": serve}
@@ -1681,13 +2069,13 @@ def main(argv=None) -> int:
                 "launches": sum(launches[p].get(name, 0) for p in main_paths),
                 "launches_by_path": by_path(name), "max_abs_err": err, **at, **extra}
 
-    steps = ("train", "train_after_transition")
+    steps = ("train", "train_after_transition", "loop")
     S = FLASH_TIMED[-1]
     kernels = [
         entry("cce_lookup_fwd", steps, fwd_err, fwd_at[TRAIN_BATCH], batch=TRAIN_BATCH,
               at_serve_batch=fwd_at[SERVE_BATCH], at_lm_shape=lm_lookup),
         entry("cce_lookup_bwd", steps, bwd_err, bwd_at, batch=TRAIN_BATCH),
-        entry("kmeans_assign", ("transition",), assign_err, assign_at),
+        entry("kmeans_assign", ("transition", "loop"), assign_err, assign_at),
         entry("flash_attention", ("lm_serve",), flash_err["bfloat16"], flash_at[S],
               max_abs_err_float32=flash_err["float32"],
               shape=dict(B=1, S=S, H=FLASH_HEADS[0][0], KVH=FLASH_HEADS[0][1], D=FLASH_DIMS[-1],

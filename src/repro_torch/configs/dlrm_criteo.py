@@ -6,6 +6,7 @@ become CCE tables (k = 250) and the 9 small ones stay full; all 26 fuse
 into one universal supertable of 104 columns, T=2, k_pad=305, dsub=4.
 """
 from repro_torch.models.dlrm import DLRMConfig
+from repro_torch.stream.tracker import StreamConfig
 
 # Criteo Kaggle vocab sizes (the published counts)
 CRITEO_KAGGLE_VOCABS = (
@@ -25,6 +26,17 @@ CONFIG = DLRMConfig(
 )
 
 
+# The deployment's streaming frequency statistics: a sketch per CCE feature
+# (count-min 2^14 x 4, an exact head of 4096 heavy hitters, a ring of 2^14
+# recent ids; ~13 MB over the 17 CCE features whatever the vocabulary),
+# windows of 256 batches decayed by 0.95, the cell count in the train step
+# and the host fold on a background thread.
+STREAM = StreamConfig(
+    width=1 << 14, depth=4, heavy=4096, ring=1 << 14,
+    decay=0.95, window=256, async_fold=True,
+)
+
+
 def reduced(emb_method: str = "cce", cap: int = 512, k_multiple: int = 1) -> DLRMConfig:
     """Small synthetic-Criteo configuration for CPU runs."""
     return DLRMConfig(
@@ -36,4 +48,12 @@ def reduced(emb_method: str = "cce", cap: int = 512, k_multiple: int = 1) -> DLR
         emb_method=emb_method,
         emb_param_cap=cap,
         emb_k_multiple=k_multiple,
+    )
+
+
+def reduced_stream(window: int = 8, *, async_fold: bool = False) -> StreamConfig:
+    """Sketch-tracker shape matched to ``reduced()``'s vocabularies."""
+    return StreamConfig(
+        width=1 << 11, depth=4, heavy=128, ring=2048,
+        decay=0.9, window=window, async_fold=async_fold,
     )

@@ -17,6 +17,11 @@ mirror params), the embedding buffers and the error feedback.
 ``lm_to_torch`` carries the JAX LM's ``(params, buffers)``: the stacked
 ``(L, ...)`` block leaves as they are, the CCE ``ptr``/``hs``/``epoch``
 buffers, and a ``FullTable`` head.
+
+``HostCopy(tree)`` starts the host copy of a tree of tensors without a
+synchronisation, for the metrics pump and the sketch fold: each CUDA leaf
+copies into pinned memory with ``non_blocking=True`` and one CUDA event is
+recorded after the copies; ``get()`` waits on that event only.
 """
 from __future__ import annotations
 
@@ -52,6 +57,10 @@ def _is_leaf(x) -> bool:
     return isinstance(x, (np.ndarray, np.generic)) or hasattr(x, "__array__")
 
 
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def to_torch(tree, device="cuda"):
     """JAX-package pytree (numpy or JAX arrays) -> the port's tensors."""
     if isinstance(tree, dict):
@@ -65,6 +74,8 @@ def to_torch(tree, device="cuda"):
 
 def to_numpy(tree, *, _uint32: bool = False):
     """The port's tensors -> numpy arrays in the JAX package's dtypes."""
+    if _is_namedtuple(tree):
+        return type(tree)(*(to_numpy(v, _uint32=_uint32) for v in tree))
     if isinstance(tree, dict):
         return {k: to_numpy(v, _uint32=k in UINT32_KEYS) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -93,3 +104,49 @@ def lm_to_torch(params, buffers, device="cuda"):
     port's ``(params, buffers)`` for ``repro_torch.models.lm``: the two
     packages share the layout, so this is a leaf-wise conversion."""
     return to_torch(params, device), to_torch(buffers, device)
+
+
+class HostCopy:
+    """The host copy of a tree (dicts, lists, tuples; tensor, numpy or
+    python leaves), started at construction and read by ``get()``.
+
+    CUDA leaves copy into pinned host tensors with ``non_blocking=True``
+    and one event is recorded on the current stream after them, so
+    neither the constructor nor ``get()`` waits for work enqueued later
+    (a blocking ``.cpu()`` waits for everything enqueued so far).  CPU
+    tensors are held as they are: a CPU op has finished when it
+    returns.  ``get()`` returns the tree with numpy leaves."""
+
+    def __init__(self, tree):
+        self._event = None
+        self._tree = self._start(tree)
+        if self._event is not None:
+            self._event.record()  # after every copy of the tree
+
+    def _start(self, x):
+        if isinstance(x, dict):
+            return {k: self._start(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(self._start(v) for v in x)
+        if not isinstance(x, torch.Tensor):
+            return x
+        x = x.detach()
+        if x.device.type == "cpu":
+            return x
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+        if self._event is None:
+            self._event = torch.cuda.Event()
+        return host
+
+    def get(self):
+        if self._event is not None:
+            self._event.synchronize()
+        return self._numpy(self._tree)
+
+    def _numpy(self, x):
+        if isinstance(x, dict):
+            return {k: self._numpy(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(self._numpy(v) for v in x)
+        return x.numpy() if isinstance(x, torch.Tensor) else x

@@ -157,7 +157,9 @@ def cluster_tables(key, params, buffers, cfg: DLRMConfig, opt=None, *, id_counts
     third return; without it, returns (params, buffers).  ``id_counts``
     (per-feature dense histograms) runs each table's k-means
     count-weighted on the observed ids and weights the moment remap the
-    same way.  Returns new trees; the inputs are left as they were."""
+    same way; an entry may also be a sketch provider (``points`` /
+    ``id_weights``, e.g. ``make_id_tracker(cfg, stream).counts``).
+    Returns new trees; the inputs are left as they were."""
     policy = policy or cfg.emb_opt_policy
     if chunk_size is None:
         chunk_size = cfg.emb_cluster_chunk or None
@@ -175,3 +177,22 @@ def cluster_tables(key, params, buffers, cfg: DLRMConfig, opt=None, *, id_counts
         return dict(moments, emb=update_emb(moments["emb"]))
 
     return new_params, new_buffers, remap_opt_state(opt, update_moments, policy=policy)
+
+
+def make_id_tracker(cfg: DLRMConfig, stream=None, *, key: str = "sparse", device="cuda"):
+    """The frequency tracker the Trainer/transition pair consumes.
+
+    ``stream=None`` returns the DENSE reference tracker (one int64 per
+    vocab row).  A ``stream.tracker.StreamConfig`` returns the
+    sketch-backed tracker at vocab-independent memory, with sketches only
+    on the features that transition (the CCE tables); ``device`` is where
+    its own cell counter runs when ``async_fold`` is on and the step does
+    not count."""
+    from repro_torch.core.cce import CCE
+    from repro_torch.stream.tracker import IdFrequencyTracker, SketchFrequencyTracker
+
+    if stream is None:
+        return IdFrequencyTracker(cfg.vocab_sizes, key=key)
+    tracked = tuple(i for i, t in enumerate(cfg.collection.tables) if isinstance(t, CCE))
+    return SketchFrequencyTracker(cfg.vocab_sizes, stream, tracked=tracked, key=key,
+                                  device=device)

@@ -8,12 +8,14 @@ run's identifying facts.  Every other line is a typed event.  Adding
 fields or event types keeps ``SCHEMA_VERSION``; renaming or re-typing a
 field bumps it.  Re-opening an existing log APPENDS, and a replayed
 (event, step) pair already in the file is dropped; events that recur at
-one step legitimately opt out with ``dedupe=False``.
+one step legitimately opt out with ``dedupe=False``.  ``default_manifest``
+gives the manifest the JAX package's keys, probed from torch and git.
 """
 from __future__ import annotations
 
 import json
 import os
+import subprocess
 import time
 
 import numpy as np
@@ -27,6 +29,32 @@ def _json_default(x):
     if isinstance(x, np.generic):
         return x.item()
     raise TypeError(f"not JSON-serializable: {type(x).__name__}")
+
+
+def default_manifest(config: str | None = None, **extra) -> dict:
+    """Best-effort run-identifying facts with the JAX package's keys:
+    ``backend`` ("cuda" or "cpu") and ``n_devices`` from torch, the git sha
+    of the checkout (None outside one), then ``extra``."""
+    man: dict = {"config": config}
+    try:
+        import torch
+
+        cuda = torch.cuda.is_available()
+        man["backend"] = "cuda" if cuda else "cpu"
+        man["n_devices"] = torch.cuda.device_count() if cuda else 1
+    except ImportError:
+        man["backend"] = None
+        man["n_devices"] = None
+    try:
+        man["git_sha"] = subprocess.run(
+            ["git", "rev-parse", "--short", "HEAD"],
+            capture_output=True, text=True, timeout=5,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        ).stdout.strip() or None
+    except (OSError, subprocess.SubprocessError):
+        man["git_sha"] = None
+    man.update(extra)
+    return man
 
 
 class RunLog:

@@ -220,10 +220,11 @@ def _pick_bucket(n: int, buckets: tuple[int, ...]) -> int:
 class DLRMServeEngine:
     """Batched DLRM inference over the fused supertable + hot-id cache.
 
-    ``tracker`` is any object with ``export_heads(n)`` (feature -> hot
-    ids), ``observe(batch)`` and ``key``; its heads name the cached ids of
-    the features it tracks, and small full tables (``d1 <=
-    full_cache_max``) are cached whole.  ``cache=False`` sends every
+    ``tracker`` is the training run's ``stream.tracker.SketchFrequencyTracker``
+    (``dlrm.make_id_tracker``), or any object with ``export_heads(n)``
+    (feature -> hot ids), ``observe(batch)`` and ``key``; its heads name
+    the cached ids of the features it tracks, and small full tables
+    (``d1 <= full_cache_max``) are cached whole.  ``cache=False`` sends every
     batch down the cold path.  ``batch_buckets``/``cold_buckets`` default
     to ``(max_batch,)``: every batch runs at one of two fixed shapes.
     The engine runs on the device of ``params``."""

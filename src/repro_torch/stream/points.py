@@ -16,6 +16,18 @@ from __future__ import annotations
 import numpy as np
 
 
+def sample_from_counts(counts: np.ndarray, n: int, seed: int) -> np.ndarray | None:
+    """Draw ``n`` ids ~ ``counts`` (with replacement: duplicates are the
+    frequency weighting).  None when nothing has been counted yet.  Counts
+    may be float (decayed histograms)."""
+    counts = np.asarray(counts)
+    total = float(counts.sum())
+    if total <= 0.0:
+        return None
+    rng = np.random.default_rng(seed)
+    return rng.choice(counts.shape[0], size=n, replace=True, p=counts / total)
+
+
 def stratified_points(
     ids: np.ndarray, counts: np.ndarray, n: int, seed: int
 ) -> tuple[np.ndarray, np.ndarray]:

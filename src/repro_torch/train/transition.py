@@ -24,27 +24,45 @@ from repro_torch.optim.remap import collection_moment_updater, zeros_like_moment
 from repro_torch.stream.points import points_from_counts
 
 
+def _draw_points(counts, n: int, seed: int):
+    """(ids, weights) from a per-feature count source: a DENSE histogram
+    array, or a sketch provider (``stream.sketch.FeatureSketch``) with
+    ``points(n, seed)``: exact head + unbiased tail at vocab-independent
+    tracker memory."""
+    if hasattr(counts, "points"):
+        return counts.points(n, seed)
+    return points_from_counts(counts, n, seed)
+
+
+def _dense_weights(counts, d1: int) -> np.ndarray:
+    """Per-id weights for the count-weighted moment remap: a dense
+    histogram verbatim; a sketch provider streams an O(d1) transient
+    estimate on the host (``FeatureSketch.id_weights``)."""
+    if hasattr(counts, "id_weights"):
+        return counts.id_weights(d1)
+    return np.asarray(counts)
+
+
 def transition_table(table, key, params, buffers, *, counts=None, policy: str = "remap",
                      chunk_size: int | None = None, use_kernel: bool | None = None,
                      max_points_per_centroid: int = 256):
     """Returns ``(new_params, new_buffers, update_moments)`` for one CCE
-    table.  ``counts`` is the table's observed id histogram (a dense (d1,)
-    array); when it holds any count the k-means runs count-weighted on the
-    observed ids and the moment remap averages with the same weights.
-    None or all-zero falls back to uniform subsampling.
+    table.  ``counts`` is the table's observed id histogram: a dense (d1,)
+    array or a sketch provider with ``points``/``id_weights``.  When it
+    holds any count the k-means runs count-weighted on the observed ids
+    and the moment remap averages with the same weights.  None or all-zero falls back to uniform subsampling.
     ``update_moments(moment_subtree)`` remaps / resets / keeps that
     table's per-row optimizer moments per ``policy``."""
     device = params["tables"].device
     sample_ids = sample_weights = id_weights = None
     if counts is not None:
         seed = int(jr.randint(jr.fold_in(key, 10_007), (), 0, 2**31 - 1))
-        drawn = points_from_counts(
-            counts, min(table.d1, max_points_per_centroid * table.k), seed
-        )
+        drawn = _draw_points(counts, min(table.d1, max_points_per_centroid * table.k), seed)
         if drawn is not None:
             sample_ids = torch.from_numpy(np.asarray(drawn[0], np.int64)).to(device)
             sample_weights = torch.from_numpy(drawn[1].astype(np.float32)).to(device)
-            id_weights = torch.from_numpy(np.asarray(counts, np.float32)).to(device)
+            id_weights = torch.from_numpy(
+                np.asarray(_dense_weights(counts, table.d1), np.float32)).to(device)
     new_params, new_buffers = table.cluster(
         key, params, buffers, sample_ids=sample_ids, sample_weights=sample_weights,
         chunk_size=chunk_size, use_kernel=use_kernel,
