@@ -33,11 +33,19 @@
    on its thread, on the step's thread and without a tracker.
 5. Serves freshly initialised weights through ``DLRMServeEngine``
    (submit/step/drain), the serving path of the first slice.
-6. Holds the flash-attention kernel against its plain version (float32
+6. Trains the paper's comparison methods (full, hashing trick, CE, hash
+   embeddings, ROBE, DHE, TT-Rec) at that width, 8 steps each, the first
+   against the same step on CPU copies; holds the lookup kernels at the
+   hashing trick's and CE's supertable shapes against their plain
+   versions and times them; serves both through ``DLRMServeEngine``;
+   product-quantises the full run's largest table through the assignment
+   kernel; runs least-squares CCE (Algorithms 1 and 2) at Figure 1b's
+   scale against Theorem 3.1's bound.
+7. Holds the flash-attention kernel against its plain version (float32
    and bfloat16 at both CTA heights, GQA and plain heads, D 64 and 128,
    ragged lengths, causal and not) and times it beside
    ``scaled_dot_product_attention`` at the LM's prefill buckets.
-7. Serves full-width qwen2-1.5b (28 layers, CCE token table and factored
+8. Serves full-width qwen2-1.5b (28 layers, CCE token table and factored
    CCE head, random weights from a seed) through the LM ``ServeEngine``:
    16 requests of 16-1900 prompt tokens over 8 slots, 16 greedy tokens
    each; holds a 2-layer cut's prefill logits against CPU copies.
@@ -48,7 +56,7 @@ after.  Prints the kernels' JSON line, the card line and, last,
     python3 chip_smoke.py --phases flash,lm_serve
 
 runs only the named phases (of lookup, bwd, kmeans, train, loop, serve,
-flash, lm_serve) and prints neither result line.
+methods, flash, lm_serve) and prints neither result line.
 
 Exits non-zero, with no result line, when there is no CUDA device, when the
 port is missing, or when any phase fails.  Imports nothing of JAX.
@@ -582,14 +590,17 @@ def hottest_share(idx, k: int) -> float:
     return torch.bincount(key).max().item() / B if key.numel() else 0.0
 
 
-def bwd_check(card: str, label: str, idx, dout, k: int, ks=None, *, timed=True):
+def bwd_check(card: str, label: str, idx, dout, k: int, ks=None, *, timed=True,
+              plain_busy=True):
     """The backward kernel on one input against its plain version: equal
     bit for bit (both sum each row in float32 in increasing b and round
     once), equal to itself across calls, exactly zero on rows no index
     names and on padding rows past a column's real k (``ks``).  With
     ``timed``, prints and returns its numbers beside its bound, its plain
-    version's and (float32) ``zeros``+``index_add_``'s.  Returns (max
-    error, numbers or None)."""
+    version's and (float32) ``zeros``+``index_add_``'s; ``plain_busy=False``
+    leaves out the plain version's device busy (a trace of tens of
+    thousands of records, ~15 s to read).  Returns (max error, numbers or
+    None)."""
     import torch
 
     from repro_torch.kernels import cce_lookup as cl
@@ -622,7 +633,7 @@ def bwd_check(card: str, label: str, idx, dout, k: int, ks=None, *, timed=True):
     plain = time_ms(lambda: ref.cce_lookup_bwd_ref(idx, dout, k), iters=3, reps=3, warmup=1)
     dev = device_ms(lambda: cl.cce_lookup_bwd(idx, dout, k),
                     lookup_kernel("cce_lookup_bwd", dout))
-    plain_dev = device_busy_ms(lambda: ref.cce_lookup_bwd_ref(idx, dout, k))
+    plain_dev = device_busy_ms(lambda: ref.cce_lookup_bwd_ref(idx, dout, k)) if plain_busy else None
     bound, bound_by = bwd_bound(idx, dout, k)
     line = (f"[{card}] cce_lookup_bwd {label}: max_abs_err={err!r} repeatable=True "
             f"zero_unnamed_rows=True hottest_row_share={hot!r} ms={ms!r} device_ms={dev!r} "
@@ -1627,6 +1638,352 @@ def serve_phase(card: str, cfg, n_batches: int, device="cuda") -> int:
     return launches
 
 
+METHODS = ("full", "hash", "ce", "hemb", "robe", "dhe", "tt")  # the paper's comparisons
+METHOD_STEPS = 8  # timed steps a method, after the first step's check
+METHOD_KERNEL_SHAPES = ("hash", "ce")  # the methods whose supertable takes the lookup kernels
+PQ_FEATURE = 2  # Criteo's largest table (10,131,227 ids), from the full run
+PQ_C, PQ_K, PQ_SAMPLE, PQ_NITER = 4, 250, 1 << 18, 50
+LS_SHAPE = (10_000, 1000, 10)  # (n, d1, d2): Figure 1b's scale
+LS_K, LS_ITERS = 100, 25
+# Card vs CPU, final loss, relative.  Dense CCE has no discrete step: the two
+# differ by float sums alone.  Sparse CCE's k-means picks may part on the card
+# and the CPU, after which the two are runs of Algorithm 2 that share a key and
+# no more: its limit sits above the spread of the final loss over LS_KEYS.
+LS_RTOL = {"dense": 1e-4, "sparse": 4e-3}
+LS_KEYS = (2, 3, 4, 5)  # further keys of sparse CCE on the card: the spread of its final loss
+
+
+def top_kernels(fn, n: int = 4) -> list[tuple[str, float]]:
+    """The ``n`` CUDA kernels with the most device time a call of ``fn``
+    (torch.profiler over 4 calls after one warm-up): (name cut to 60
+    characters, ms a call)."""
+    events = [e for e in _profile(fn, 4) if _device_us(e)]
+    events.sort(key=lambda e: _device_us(e), reverse=True)
+    return [(e.key[:60], _device_us(e) / 1e3 / 4) for e in events[:n]]
+
+
+def method_kernel_numbers(card: str, m: str, mcfg, params, buffers, raw, device="cuda"):
+    """The lookup and its backward at the shape ``m``'s supertable gives
+    them (the rows ``group_rows`` makes from train batches): forward bit
+    for bit against the plain version at the serve and the train batch,
+    backward through ``bwd_check``, each timed at the train batch beside
+    its bound and ``embedding_bag`` / ``zeros``+``index_add_``.  Returns
+    (max error, {"fwd": numbers, "bwd": numbers})."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cce_lookup as cl
+    from repro_torch.kernels import ref
+
+    coll = mcfg.collection
+    (g,) = coll.univ_groups
+    grp = coll.groups[g]
+    tables = params["emb"][g]["tables"].detach()
+    c, T, k, dsub = tables.shape
+    shape = dict(c=c, T=T, k=k, dsub=dsub, layout=cl_path(tables))
+    want_layout = {16: "wide_vector", 4: "vec4"}.get(dsub)
+    check(want_layout is None or shape["layout"] == want_layout,
+          f"{m}: dsub={dsub} takes {shape['layout']}, not {want_layout}")
+    max_err = 0.0
+    for B in (SERVE_BATCH, TRAIN_BATCH):
+        ids = torch.from_numpy(raw[1]["sparse"][:B]).to(device)[:, list(grp.features)]
+        idx = coll.group_rows(grp, buffers["emb"][g], ids)  # (c, B, 1)
+        got = cl.cce_lookup_fwd(idx, tables)
+        want = ref.cce_lookup_ref(idx, tables)
+        err = (got - want).abs().max().item()
+        check(torch.equal(got, want), f"{m}: lookup kernel != plain at B={B} (max err {err})")
+        max_err = max(max_err, err)
+    ms = time_ms(lambda: cl.cce_lookup_fwd(idx, tables))
+    dev = device_ms(lambda: cl.cce_lookup_fwd(idx, tables), lookup_kernel("cce_lookup_fwd", tables))
+    plain = time_ms(lambda: ref.cce_lookup_ref(idx, tables))
+    plain_dev = device_busy_ms(lambda: ref.cce_lookup_ref(idx, tables), iters=20)
+    bound, bound_by = lookup_bound(idx, tables)
+    bag, weight, offsets = embedding_bag_args(idx, tables)
+    lib_out = F.embedding_bag(bag, weight, offsets, mode="sum")
+    check(torch.allclose(lib_out.reshape(TRAIN_BATCH, -1), got, rtol=1e-6, atol=1e-6),
+          f"{m}: embedding_bag yardstick computes another function")
+    lib = time_ms(lambda: F.embedding_bag(bag, weight, offsets, mode="sum"))
+    lib_dev = device_busy_ms(lambda: F.embedding_bag(bag, weight, offsets, mode="sum"), iters=20)
+    fwd = dict(ms=ms, device_ms=dev, plain_ms=plain, plain_device_ms=plain_dev, bound_ms=bound,
+               bound_by=bound_by, library_ms=lib, library_device_ms=lib_dev, batch=TRAIN_BATCH,
+               **shape)
+    print(f"[{card}] cce_lookup_fwd at the {m} shape c={c} T={T} k={k} dsub={dsub} "
+          f"{shape['layout']} B={TRAIN_BATCH}: equal to plain at B={SERVE_BATCH} and "
+          f"{TRAIN_BATCH}; ms={ms!r} device_ms={dev!r} plain_ms={plain!r} "
+          f"plain_device_ms={plain_dev!r} bound_ms={bound!r} ({bound_by}) "
+          f"library_ms(embedding_bag)={lib!r} library_device_ms={lib_dev!r}", flush=True)
+    gen = torch.Generator(device=device).manual_seed(len(m))
+    dout = torch.randn((TRAIN_BATCH, c, dsub), generator=gen, device=device)
+    ks = torch.tensor(column_ks(coll), device=device)
+    err, bwd = bwd_check(card, f"at the {m} shape c={c} T={T} k={k} dsub={dsub} "
+                         f"{cl_path(dout)} B={TRAIN_BATCH}", idx, dout, k, ks, plain_busy=False)
+    return max(max_err, err), {"fwd": fwd, "bwd": dict(bwd, batch=TRAIN_BATCH, **shape)}
+
+
+def pq_numbers(card: str, table, device="cuda") -> dict:
+    """Post-training PQ of one trained full table (Figure 4a's baseline):
+    k-means of each of PQ_C blocks on PQ_SAMPLE rows, then every row
+    assigned by the assignment kernel, one launch a chunk of 2^18 rows for
+    all blocks; each chunk's picks held to ``assign_excess``.  Returns
+    {"launches": counts, numbers}."""
+    import torch
+
+    from repro_torch import random as jr
+    from repro_torch.core import pq
+    from repro_torch.kernels import ops
+
+    d1 = table.shape[0]
+    ops.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pq.product_quantize(jr.PRNGKey(9), table, PQ_K, PQ_C, niter=PQ_NITER, sample=PQ_SAMPLE)
+    torch.cuda.synchronize()
+    pq_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(ops.LAUNCHES)
+    chunks = -(-d1 // pq.CHUNK)
+    check(launches.get("kmeans_assign") == chunks,
+          f"PQ assignment launches {launches} != {chunks} chunks")
+    t0 = time.perf_counter()
+    again = pq.assign_rows(table, res.codebooks)
+    torch.cuda.synchronize()
+    assign_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(again, res.assignments), "PQ assignment not repeatable")
+    blocks = table.reshape(d1, PQ_C, -1)
+    excess = 0.0
+    for s in range(0, d1, pq.CHUNK):
+        for i in range(PQ_C):
+            excess = max(excess, assign_excess(res.assignments[i, s: s + pq.CHUNK],
+                                               blocks[s: s + pq.CHUNK, i], res.codebooks[i]))
+    recon = pq.pq_lookup(res, torch.arange(min(d1, 4096), device=device))
+    check(recon.shape == (min(d1, 4096), table.shape[1]) and bool(torch.isfinite(recon).all()),
+          "PQ reconstruction not finite")
+    print(f"[{card}] pq: feature {PQ_FEATURE}'s trained table ({d1} x {table.shape[1]}), c={PQ_C} "
+          f"k={PQ_K} sample={PQ_SAMPLE} niter={PQ_NITER}: mse={res.mse!r}, {pq_ms!r} ms "
+          f"(assignment alone {assign_ms!r} ms host), kmeans_assign launches {launches}; "
+          f"picks within the assign_excess rule of the plain distances (max excess {excess!r})",
+          flush=True)
+    return {"launches": launches, "mse": res.mse, "ms": pq_ms, "assign_ms": assign_ms,
+            "max_excess": excess}
+
+
+def least_squares_numbers(card: str, device="cuda") -> dict:
+    """Algorithms 1 and 2 at Figure 1b's scale on the card beside the same
+    runs on the CPU (the same Gaussian draws: they come from the key on
+    the host).  Dense CCE must lie under Theorem 3.1's bound at every
+    iteration after the first (where both equal ||Y||^2); sparse CCE,
+    which the theorem does not cover, must lower its loss and is printed
+    beside it, with the spread of its final loss over LS_KEYS on the card
+    (``tests/test_torch_least_squares.py`` holds it to JAX's Algorithm 2 at
+    this scale, which lies above the bound too)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import random as jr
+    from repro_torch.core import least_squares as ls
+
+    n, d1, d2 = LS_SHAPE
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(rng.normal(size=(n, d1)).astype(np.float32))
+    Y = torch.from_numpy(rng.normal(size=(n, d2)).astype(np.float32))
+    out = {}
+    for dev in (device, "cpu"):
+        x, y = X.to(dev), Y.to(dev)
+        t0 = time.perf_counter()
+        bound = ls.theorem_bound(x, y, LS_K, LS_ITERS)
+        opt, _ = ls.optimal_loss(x, y)
+        dense = ls.dense_cce(jr.PRNGKey(1), x, y, LS_K, LS_ITERS)
+        sparse = ls.sparse_cce(jr.PRNGKey(1), x, y, LS_K, LS_ITERS)
+        losses = [t.cpu().numpy() for t in (bound, dense.losses, sparse.losses)]
+        out[dev] = dict(ms=(time.perf_counter() - t0) * 1e3, opt=float(opt), bound=losses[0],
+                        dense=losses[1], sparse=losses[2])
+    card_, cpu = out[device], out["cpu"]
+    x, y = X.to(device), Y.to(device)
+    finals = [float(card_["sparse"][-1])] + [
+        float(ls.sparse_cce(jr.PRNGKey(key), x, y, LS_K, LS_ITERS).losses[-1]) for key in LS_KEYS]
+    spread = (max(finals) - min(finals)) / float(np.median(finals))
+    gaps = {}
+    for name in ("dense", "sparse"):
+        check(bool(np.isfinite(card_[name]).all()), f"least squares: non-finite {name} losses")
+        gaps[name] = float(abs(card_[name][-1] - cpu[name][-1]) / cpu[name][-1])
+        check(gaps[name] <= LS_RTOL[name], f"least squares: {name} final loss card "
+              f"{card_[name][-1]} vs CPU {cpu[name][-1]} (relative {gaps[name]})")
+    over = card_["dense"][1:] - card_["bound"][1:]
+    check(bool((over <= 0).all()),
+          f"dense CCE above Theorem 3.1's bound at iterations {np.nonzero(over > 0)[0] + 1}")
+    check(card_["sparse"][-1] < card_["sparse"][0], "sparse CCE did not lower the loss")
+    s_over = card_["sparse"] - card_["bound"]
+    print(f"[{card}] least squares n={n} d1={d1} d2={d2} k={LS_K} {LS_ITERS} iterations: "
+          f"opt {card_['opt']!r}; dense CCE final {float(card_['dense'][-1])!r} under the "
+          f"bound {float(card_['bound'][-1])!r} at every iteration (smallest margin "
+          f"{float(-over.max())!r}); sparse CCE final {float(card_['sparse'][-1])!r}, above the "
+          f"bound at {int((s_over[1:] > 0).sum())} of {LS_ITERS} iterations (the theorem "
+          f"bounds dense CCE); the CPU's final losses dense {float(cpu['dense'][-1])!r}, sparse "
+          f"{float(cpu['sparse'][-1])!r}, relative gaps card vs CPU dense {gaps['dense']!r} "
+          f"(limit {LS_RTOL['dense']}), sparse {gaps['sparse']!r} (limit {LS_RTOL['sparse']}); "
+          f"sparse CCE's final loss over keys {(1, *LS_KEYS)} on the card {finals}, spread "
+          f"(max - min) / median {spread!r}; {card_['ms']!r} ms on the card, {cpu['ms']!r} ms "
+          f"on the CPU", flush=True)
+    return dict(card_ms=card_["ms"], cpu_ms=cpu["ms"], dense=float(card_["dense"][-1]),
+                sparse=float(card_["sparse"][-1]), bound=float(card_["bound"][-1]),
+                gaps=gaps, sparse_spread=spread)
+
+
+def methods_phase(card: str, cfg, device="cuda"):
+    """The paper's comparison methods on DLRM at full Criteo width: for
+    each of METHODS, ``replace(cfg, emb_method=m)`` trained from a seed at
+    batch TRAIN_BATCH (sgd momentum 0.9, lr TRAIN_LR, clip 1.0): the first
+    step's loss and every gradient and updated parameter against the same
+    step on CPU copies, then METHOD_STEPS timed steps (host ms, device
+    busy, launches, allocated GB).  At the hash and CE shapes the lookup
+    kernels against their plain versions and timed, and 4 cold batches
+    served through DLRMServeEngine against the forward.  Then PQ of the
+    full run's feature-2 table and least squares on the card.  Returns
+    (launches on the path, max kernel error, {method: kernel numbers},
+    per-method numbers)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import ClickstreamConfig, clickstream_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import dlrm
+    from repro_torch.optim import sgd
+    from repro_torch.serve.dlrm import DLRMServeEngine
+    from repro_torch.train import loop
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    stream = clickstream_batches(ClickstreamConfig(vocab_sizes=cfg.vocab_sizes, seed=5),
+                                 TRAIN_BATCH)
+    raw = [next(stream) for _ in range(METHOD_STEPS)]
+    print(f"methods data: {len(raw)} batches of {TRAIN_BATCH} in {time.perf_counter() - t0:.3f} s")
+
+    def on(batch, dev):  # one microbatch: leaves (1, B, ...)
+        return {k: torch.from_numpy(batch[k][None]).to(dev) for k in ("dense", "sparse", "label")}
+
+    opt = sgd(momentum=0.9)
+    total = collections.Counter()
+    max_err, at, numbers, pq_table = 0.0, {}, {}, None
+    for m in METHODS:
+        t_m = time.perf_counter()
+        mcfg = dataclasses.replace(cfg, emb_method=m)
+        coll = mcfg.collection
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, buffers = dlrm.init(mcfg, torch.Generator(device=device).manual_seed(1), device)
+
+        def loss_fn(p, b, mb, mcfg=mcfg):
+            return dlrm.bce_loss(p, b, mcfg, mb), {}
+
+        step = loop.make_train_step(loss_fn, opt, lambda s: TRAIN_LR, clip_norm=1.0)
+        state = loop.init_state(params, opt, buffers)
+        batches = [on(b, device) for b in raw]
+
+        # the first step on CPU copies of the state (the python-int hash
+        # coefficients as they are), with the plain versions
+        def to_cpu(t):
+            return t.detach().to("cpu", copy=True) if isinstance(t, torch.Tensor) else t
+
+        cpu_state = loop.TrainState(*(tree_map(to_cpu, x)
+                                      for x in (state.params, state.opt, state.ebuf)), step=0)
+        cpu_mb = on(raw[0], "cpu")
+        loss_dev, g_dev = loop.value_and_grad(loss_fn, state.params, state.ebuf,
+                                              tree_map(lambda x: x[0], batches[0]))
+        loss_cpu, g_cpu = loop.value_and_grad(loss_fn, cpu_state.params, cpu_state.ebuf,
+                                              tree_map(lambda x: x[0], cpu_mb))
+        check(abs(loss_dev.item() - loss_cpu.item()) <= STEP_RTOL * abs(loss_cpu.item()),
+              f"{m}: first-step loss card {loss_dev.item()} vs CPU {loss_cpu.item()}")
+        grad_rel = _check_close(_leaf_errors(g_dev, g_cpu), f"{m}: first-step gradients")
+        del g_dev, g_cpu
+
+        t_check = time.perf_counter() - t_m
+        ops.LAUNCHES.clear()
+        losses, step_ms = [], []
+        for i, mb in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, mb)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(met["loss"].item())
+            if i == 0:
+                first_params = tree_map(torch.clone, state.params)
+        launches = dict(ops.LAUNCHES)
+        total.update(launches)
+        want = METHOD_STEPS if m in METHOD_KERNEL_SHAPES else 0
+        check(launches.get("cce_lookup_fwd", 0) == want and launches.get("cce_lookup_bwd", 0) == want,
+              f"{m}: {METHOD_STEPS} steps launched {launches}, expected {want} + {want}")
+        check(all(math.isfinite(x) for x in losses), f"{m}: non-finite loss {losses}")
+        cpu_state, cpu_met = step(cpu_state, cpu_mb)
+        check(abs(cpu_met["loss"].item() - losses[0]) <= STEP_RTOL * abs(losses[0]),
+              f"{m}: first step loss card {losses[0]} vs CPU {cpu_met['loss'].item()}")
+        param_rel = _check_close(_leaf_errors(first_params, cpu_state.params),
+                                 f"{m}: first-step params")
+        del cpu_state, first_params
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        held_gb = torch.cuda.memory_allocated() / 2**30
+        host_ms = statistics.median(step_ms[1:])
+        busy_ms = device_busy_ms(lambda: step(state, batches[-1]))
+        top = top_kernels(lambda: step(state, batches[-1]))
+        numbers[m] = dict(host_ms=host_ms, first_ms=step_ms[0], device_busy_ms=busy_ms,
+                          idle_share=1 - busy_ms / host_ms, peak_gb=peak_gb, held_gb=held_gb,
+                          launches=launches, groups=coll.n_groups,
+                          lookups=coll.n_lookup_launches, emb_params=mcfg.n_emb_params(),
+                          losses=losses, top_kernels=top)
+        print(f"[{card}] methods {m}: {coll.n_groups} groups, {coll.n_lookup_launches} lookups a "
+              f"forward, {mcfg.n_emb_params()} embedding params (compression "
+              f"{mcfg.compression()!r}); {METHOD_STEPS} steps at batch {TRAIN_BATCH}, losses "
+              f"{losses!r}; launches {launches}; first step vs CPU: loss {loss_cpu.item()!r} vs "
+              f"{loss_dev.item()!r}, gradients max rel err {grad_rel!r}, params max rel err "
+              f"{param_rel!r}; step host {host_ms!r} ms (median of steps 2-{METHOD_STEPS}; "
+              f"first {step_ms[0]!r} ms), device busy {busy_ms!r} ms (idle share "
+              f"{1 - busy_ms / host_ms!r}); allocated {held_gb!r} GB, peak {peak_gb!r} GB; "
+              f"top device time a step: " + "; ".join(f"{k} {v!r} ms" for k, v in top),
+              flush=True)
+        t_steps = time.perf_counter() - t_m
+
+        if m in METHOD_KERNEL_SHAPES:
+            err, at[m] = method_kernel_numbers(card, m, mcfg, state.params, state.ebuf, raw,
+                                               device)
+            max_err = max(max_err, err)
+            engine = DLRMServeEngine(state.params, state.ebuf, mcfg, max_batch=SERVE_BATCH,
+                                     cache=False)
+            parts = [{k: raw[-1][k][j * SERVE_BATCH:(j + 1) * SERVE_BATCH]
+                      for k in ("dense", "sparse")} for j in range(SERVE_BATCHES)]
+            ops.LAUNCHES.clear()
+            served = [engine.predict(b["dense"], b["sparse"]) for b in parts]
+            served_launches = dict(ops.LAUNCHES)
+            diffs = []
+            with torch.no_grad():
+                for b, logits in zip(parts, served):
+                    fwd = dlrm.forward(state.params, state.ebuf, mcfg, {
+                        "dense": torch.from_numpy(b["dense"]).to(device),
+                        "sparse": torch.from_numpy(b["sparse"]).to(device)}).cpu().numpy()
+                    diffs.append(float(np.abs(fwd - logits).max()))
+            total.update(served_launches)
+            check(served_launches.get("cce_lookup_fwd") == SERVE_BATCHES,
+                  f"{m}: {SERVE_BATCHES} cold batches launched {served_launches}")
+            check(max(diffs) <= 1e-5, f"{m}: served logits differ from forward by {max(diffs)}")
+            print(f"[{card}] methods {m} serve: {SERVE_BATCHES} cold batches of {SERVE_BATCH} "
+                  f"through DLRMServeEngine, launches {served_launches}, logits vs forward "
+                  f"max_abs_diff={max(diffs)!r}", flush=True)
+            del engine
+        if m == "full":
+            pq_table = coll.feature_params(state.params["emb"], PQ_FEATURE)["table"].clone()
+        del state, params, buffers, batches
+        print(f"[{card}] methods {m}: {time.perf_counter() - t_m:.1f} s (init and the first-step "
+              f"check {t_check:.1f} s, then the steps' timing to {t_steps:.1f} s, then kernels, "
+              f"serving and clean-up)", flush=True)
+    torch.cuda.empty_cache()
+
+    pq_out = pq_numbers(card, pq_table, device)
+    total.update(pq_out.pop("launches"))
+    del pq_table
+    ls_out = least_squares_numbers(card, device)
+    return dict(total), max_err, at, dict(numbers, pq=pq_out, least_squares=ls_out)
+
+
 def flash_flops(B: int, Sq: int, S: int, H: int, D: int, causal: bool) -> int:
     """The two products' operations over the (query, key) pairs the mask
     keeps: 4*D a pair and head."""
@@ -1992,7 +2349,7 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call it replaces)
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:97"),
 }
-PHASES = ("lookup", "bwd", "kmeans", "train", "loop", "serve", "flash", "lm_serve")
+PHASES = ("lookup", "bwd", "kmeans", "train", "loop", "serve", "methods", "flash", "lm_serve")
 
 
 def main(argv=None) -> int:
@@ -2049,6 +2406,9 @@ def main(argv=None) -> int:
     serve = phase("serve", serve_phase, card, CONFIG, SERVE_BATCHES)
     if serve is not None:
         launches["serve"] = {"cce_lookup_fwd": serve}
+    methods = phase("methods", methods_phase, card, CONFIG)
+    if methods is not None:
+        launches["methods"] = methods[0]
     flash = phase("flash", flash_phase, card)
     lm_out = phase("lm_serve", lm_serve_phase, card, configs.get(LM_ARCH))
     if lm_out is not None:
@@ -2059,6 +2419,7 @@ def main(argv=None) -> int:
         return 0
     (fwd_err, fwd_at), (bwd_err, bwd_at), (assign_err, assign_at) = fwd, bwd, assign
     (flash_err, flash_at), lm_lookup = flash, lm_out[1]
+    _, methods_err, methods_at, _ = methods
 
     def by_path(name):
         return {path: counts.get(name, 0) for path, counts in launches.items()}
@@ -2069,13 +2430,15 @@ def main(argv=None) -> int:
                 "launches": sum(launches[p].get(name, 0) for p in main_paths),
                 "launches_by_path": by_path(name), "max_abs_err": err, **at, **extra}
 
-    steps = ("train", "train_after_transition", "loop")
+    steps = ("train", "train_after_transition", "loop", "methods")
     S = FLASH_TIMED[-1]
     kernels = [
-        entry("cce_lookup_fwd", steps, fwd_err, fwd_at[TRAIN_BATCH], batch=TRAIN_BATCH,
-              at_serve_batch=fwd_at[SERVE_BATCH], at_lm_shape=lm_lookup),
-        entry("cce_lookup_bwd", steps, bwd_err, bwd_at, batch=TRAIN_BATCH),
-        entry("kmeans_assign", ("transition", "loop"), assign_err, assign_at),
+        entry("cce_lookup_fwd", steps, max(fwd_err, methods_err), fwd_at[TRAIN_BATCH],
+              batch=TRAIN_BATCH, at_serve_batch=fwd_at[SERVE_BATCH], at_lm_shape=lm_lookup,
+              **{f"at_{m}_shape": methods_at[m]["fwd"] for m in METHOD_KERNEL_SHAPES}),
+        entry("cce_lookup_bwd", steps, max(bwd_err, methods_err), bwd_at, batch=TRAIN_BATCH,
+              **{f"at_{m}_shape": methods_at[m]["bwd"] for m in METHOD_KERNEL_SHAPES}),
+        entry("kmeans_assign", ("transition", "loop", "methods"), assign_err, assign_at),
         entry("flash_attention", ("lm_serve",), flash_err["bfloat16"], flash_at[S],
               max_abs_err_float32=flash_err["float32"],
               shape=dict(B=1, S=S, H=FLASH_HEADS[0][0], KVH=FLASH_HEADS[0][1], D=FLASH_DIMS[-1],

@@ -15,7 +15,11 @@ A python int leaf (the port's ``TrainState.step``) is stored as the
 callers pass it: the Trainer passes ``np.int32``, the JAX step's dtype.
 A restore rebuilds the template's structure and gives each leaf the
 template leaf's type: a tensor of its dtype on its device, a python int,
-or a numpy array as stored.
+or a numpy array as stored.  The python-int hash coefficients of the
+non-transitioning tables are static in the JAX package's train state and
+no leaves of its checkpoints: a caller stores its buffers through
+``tree.drop_static`` (None there) and restores with ``tree.fill_static``,
+as the Trainer does.
 
   * atomicity — the _COMMITTED marker is written after all data + fsync,
     so a job killed mid-save restarts from the previous step.

@@ -11,7 +11,10 @@ conversion is a tree map plus dtype and device handling:
   go back to uint32, bfloat16 to ``ml_dtypes.bfloat16``.
 
 Tuples and lists keep their type; other leaves (python ints, strings,
-None) pass through unchanged.  ``train_state_to_torch`` carries a JAX
+None) pass through unchanged: the hash coefficients of the hashing trick,
+CE, hash embeddings and ROBE stay python-int pairs (``"h"``, and ``"hs"``
+tuples, which share CCE's key but are no arrays), and DHE's int32 ``a``/``b``
+arrays (``a`` negative where numpy's int32 wrapped) stay int32.  ``train_state_to_torch`` carries a JAX
 ``TrainState`` across whole: params, the optimizer state (its moments
 mirror params), the embedding buffers and the error feedback.
 ``lm_to_torch`` carries the JAX LM's ``(params, buffers)``: the stacked

@@ -175,6 +175,18 @@ class CCE:
             out = out + scores[..., self.k + rows[i, :, 1]]
         return out
 
+    def sketch_matrix(self, buffers) -> np.ndarray:
+        """Dense H (d1, c*2k) for tests: one 1 per (column, table) block."""
+        rows = self._rows(buffers, torch.arange(self.d1, device=buffers["ptr"].device))
+        rows = rows.cpu().numpy()  # (c, d1, 2)
+        H = np.zeros((self.d1, self.c * 2 * self.k), np.float32)
+        ids = np.arange(self.d1)
+        for i in range(self.c):
+            base = i * 2 * self.k
+            H[ids, base + rows[i, :, 0]] = 1.0
+            H[ids, base + self.k + rows[i, :, 1]] += 1.0
+        return H
+
     # --- the clustering transition (Alg. 3 lines 10-17) ------------------
 
     def materialize(self, params, buffers, ids):
@@ -198,25 +210,14 @@ class CCE:
         """Single-pass full-vocab nearest-centroid assignment.
 
         ``centroids`` (c, k, dsub) -> (c, d1) int32.  The vocabulary is
-        materialized once, in ``chunk_size`` id slices.  When ``use_kernel``
-        (default: on a CUDA device, as the JAX package takes its kernel on
-        the TPU) each chunk is ONE ``kops.kmeans_assign_batched`` call for
-        all c columns, written straight into the chunk's slice of the
-        result; else each column goes through ``km.assign``.  Chunking
-        cannot change an argmin: each point's distances are its own."""
+        materialized once, in ``chunk_size`` id slices, each assigned for
+        all c columns by ``km.assign_chunks`` (through the kernel when
+        ``use_kernel``, by default on a CUDA device)."""
         device = centroids.device
-        if use_kernel is None:
-            use_kernel = device.type == "cuda"
         out = torch.empty((self.c, self.d1), dtype=torch.int32, device=device)
-        for s, ids in self._id_chunks(chunk_size, device):
-            emb = self.materialize(params, buffers, ids)  # (c, n, dsub)
-            block = out[:, s: s + ids.shape[0]]
-            if use_kernel:
-                kops.kmeans_assign_batched(emb, centroids, out=block)
-            else:
-                for i in range(self.c):
-                    block[i] = km.assign(emb[i], centroids[i])
-        return out
+        chunks = ((s, self.materialize(params, buffers, ids))  # (c, n, dsub)
+                  for s, ids in self._id_chunks(chunk_size, device))
+        return km.assign_chunks(chunks, centroids, out, use_kernel=use_kernel)
 
     def _finish_transition(self, key, centroids, assignments, buffers):
         """Install centroids as the main tables, zero the helper tables

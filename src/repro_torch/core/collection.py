@@ -1,14 +1,16 @@
 """EmbeddingCollection -- grouped supertables for multi-feature models,
 single-device.
 
-Every table whose lookup is a per-column gather-sum (``fuse_spec``: CCE
-and small full tables) stacks into ONE universal supertable
-(total cols, T, max k_f, dsub) per dtype, looked up by ONE fused
-``kops.cce_lookup`` launch.  Tables with different natural column widths
-split into sub-columns of the group gcd; tables with fewer than T
+Every table whose lookup is a per-column gather-sum (``fuse_spec``: CCE,
+CE, the hashing trick and small full tables) stacks into ONE universal
+supertable (total cols, T, max k_f, dsub) per dtype, looked up by ONE
+fused ``kops.cce_lookup`` launch.  Tables with different natural column
+widths split into sub-columns of the group gcd; tables with fewer than T
 sub-tables pad their row tensor with the ``-1`` sentinel, which
 contributes exactly zero.  Big full tables, which the waste bound keeps
 out of the supertable, batch into one padded (F, max d1, d2) gather.
+Tables without a ``fuse_spec`` (hash embeddings, ROBE, DHE, TT-Rec) take
+one "loop" group each: their own lookup, feature by feature.
 
 State layout (the JAX package's "grouped layout"):
 
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import embeddings as emb_lib
+from repro_torch.core.cce import CCE
 from repro_torch.kernels import ops as kops
 
 #: Sub-partition a "full" group when padding every table to the group max
@@ -43,7 +46,7 @@ UNIV_PAD_SLACK_ELEMS = 1 << 20
 
 @dataclasses.dataclass(frozen=True)
 class TableGroup:
-    kind: str  # "univ" | "full"
+    kind: str  # "univ" | "full" | "loop"
     features: tuple[int, ...]  # global feature indices, ascending
     tables: tuple[Any, ...]  # the features' method objects, same order
     # universal groups only: the shared sub-column width (gcd of member
@@ -138,45 +141,71 @@ class EmbeddingCollection:
     # --- construction ----------------------------------------------------
 
     @classmethod
-    def build(cls, tables: Sequence[Any], k_multiple: int = 1) -> "EmbeddingCollection":
-        """Universal fusion (the JAX package's ``mode="univ"``): every
-        gather-sum table joins one waste-bounded supertable per dtype;
-        full-only buckets keep the padded gather."""
+    def build(cls, tables: Sequence[Any], mode: str = "univ",
+              k_multiple: int = 1) -> "EmbeddingCollection":
+        """``mode``:
+        * "univ" (default): universal fusion, every gather-sum table
+          (``fuse_spec``) joins one waste-bounded supertable per dtype;
+          full-only buckets keep the padded gather; the rest loop.
+        * "group": the JAX package's pre-universal grouping (one
+          supertable per CCE signature, padded full-gather buckets, a
+          loop group for every other table), in its historical order.
+        * "loop": one loop group per feature.
+
+        ``k_multiple`` rounds every universal group's ``k_pad`` up; the
+        "group" and "loop" layouts ignore it, as the JAX package does."""
         tables = tuple(tables)
-        legacy: list[int] = []
+        if mode == "loop":
+            return cls(tables, tuple(TableGroup("loop", (i,), (t,)) for i, t in enumerate(tables)))
+        if mode not in ("univ", "group"):
+            raise ValueError(f"unknown collection mode {mode!r}")
+        legacy: list[int] = []  # features grouped by the pre-universal rules
         groups: list[TableGroup] = []
-        fusable: dict[str, list[int]] = {}
-        for i, t in enumerate(tables):
-            if not hasattr(t, "fuse_spec"):
-                raise ValueError(f"table {i} ({type(t).__name__}) has no fuse_spec")
-            fusable.setdefault(str(t.dtype), []).append(i)
-        for feats in fusable.values():
-            for bucket in cls._partition_univ(feats, tables):
-                if all(isinstance(tables[i], emb_lib.FullTable) for i in bucket):
-                    legacy.extend(bucket)
-                    continue
-                members = sorted(bucket)
-                specs = [tables[i].fuse_spec for i in members]
-                groups.append(
-                    TableGroup(
-                        "univ",
-                        tuple(members),
-                        tuple(tables[i] for i in members),
-                        dsub=_gcd_all(s.dsub for s in specs),
-                        n_tables=max(s.n_tables for s in specs),
-                        k_multiple=k_multiple,
-                    )
-                )
+        if mode == "univ":
+            fusable: dict[str, list[int]] = {}
+            for i, t in enumerate(tables):
+                if hasattr(t, "fuse_spec"):
+                    fusable.setdefault(str(t.dtype), []).append(i)
+                else:
+                    legacy.append(i)
+            for feats in fusable.values():
+                for bucket in cls._partition_univ(feats, tables):
+                    if all(isinstance(tables[i], emb_lib.FullTable) for i in bucket):
+                        legacy.extend(bucket)
+                        continue
+                    groups.append(cls._univ_group(sorted(bucket), tables, k_multiple))
+        else:
+            legacy = list(range(len(tables)))
         by_sig: dict[Any, list[int]] = {}
         for i in legacy:
-            by_sig.setdefault(tables[i].group_signature(), []).append(i)
-        for feats in by_sig.values():
-            for bucket in cls._partition_full(feats, tables):
-                groups.append(
-                    TableGroup("full", tuple(bucket), tuple(tables[i] for i in bucket))
-                )
-        groups.sort(key=lambda g: g.features[0])
+            t = tables[i]
+            if mode == "group" and isinstance(t, CCE):
+                sig = ("cce", t.c, t.dsub, str(t.dtype))
+            elif isinstance(t, emb_lib.FullTable):
+                sig = t.group_signature()
+            else:
+                sig = ("loop", i)
+            by_sig.setdefault(sig, []).append(i)
+        for sig, feats in by_sig.items():  # insertion order: first feature
+            if sig[0] == "cce":
+                groups.append(cls._univ_group(feats, tables, 1))
+                continue
+            kind = "full" if sig[0] == "full" else "loop"
+            for bucket in cls._partition(kind, feats, tables):
+                groups.append(TableGroup(kind, tuple(bucket), tuple(tables[i] for i in bucket)))
+        if mode == "univ":
+            groups.sort(key=lambda g: g.features[0])
         return cls(tables, tuple(groups))
+
+    @staticmethod
+    def _univ_group(members, tables, k_multiple: int) -> TableGroup:
+        specs = [tables[i].fuse_spec for i in members]
+        return TableGroup(
+            "univ", tuple(members), tuple(tables[i] for i in members),
+            dsub=_gcd_all(s.dsub for s in specs),
+            n_tables=max(s.n_tables for s in specs),
+            k_multiple=k_multiple,
+        )
 
     @staticmethod
     def _partition_univ(feats, tables):
@@ -211,8 +240,11 @@ class EmbeddingCollection:
         return buckets
 
     @staticmethod
-    def _partition_full(feats, tables):
-        """Split a full-table bucket by d1 ratio (``FULL_PAD_RATIO``)."""
+    def _partition(kind, feats, tables):
+        """Split a full-table bucket by d1 ratio (``FULL_PAD_RATIO``); other
+        kinds stay whole."""
+        if kind != "full" or len(feats) <= 1:
+            return [feats]
         feats = sorted(feats, key=lambda i: tables[i].d1)
         buckets, cur = [], [feats[0]]
         for i in feats[1:]:
@@ -229,6 +261,16 @@ class EmbeddingCollection:
     @property
     def n_features(self) -> int:
         return len(self.tables)
+
+    @property
+    def n_groups(self) -> int:
+        return len(self.groups)
+
+    @property
+    def n_lookup_launches(self) -> int:
+        """Heavy table lookups a forward: one per universal or full group,
+        one per feature of a loop group."""
+        return sum(len(g.features) if g.kind == "loop" else 1 for g in self.groups)
 
     @functools.cached_property
     def _locate(self) -> dict[int, tuple[int, int]]:
@@ -284,7 +326,9 @@ class EmbeddingCollection:
                 for t, p in zip(grp.tables, params_seq)
             ]
             return {"tables": kops.pad_stack_tables(slabs, k_pad=grp.k_pad)}
-        return emb_lib.FullTable.stack_many(grp.tables, params_seq)
+        if grp.kind == "full":
+            return emb_lib.FullTable.stack_many(grp.tables, params_seq)
+        return list(params_seq)
 
     def unstack_group_params(self, grp: TableGroup, group_params):
         if grp.kind == "univ":
@@ -295,7 +339,9 @@ class EmbeddingCollection:
                 out.append(t.unfuse_slab(_merge_slab(slab, spec, grp.dsub)))
                 off += n
             return out
-        return emb_lib.FullTable.unstack_many(grp.tables, group_params)
+        if grp.kind == "full":
+            return emb_lib.FullTable.unstack_many(grp.tables, group_params)
+        return list(group_params)
 
     def stack_params(self, per_feature):
         """Per-feature params list -> grouped layout."""
@@ -383,7 +429,9 @@ class EmbeddingCollection:
                     off += n
                 continue
             ids = sparse[:, list(grp.features)]
-            vecs = emb_lib.FullTable.lookup_many(grp.tables, emb_params[g], emb_buffers[g], ids)
+            lookup_many = (emb_lib.FullTable.lookup_many if grp.kind == "full"
+                           else emb_lib.lookup_many_loop)
+            vecs = lookup_many(grp.tables, emb_params[g], emb_buffers[g], ids)
             for f_local, i in enumerate(grp.features):
                 outs[i] = vecs[:, f_local]
         return torch.stack(outs, dim=1)

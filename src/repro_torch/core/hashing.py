@@ -1,5 +1,5 @@
-"""Multiply-shift hashing (Appendix D of the paper), as torch ops plus a
-numpy copy of the host-side helpers.
+"""Multiply-shift hashing and count-sketch (Appendix D of the paper), as
+torch ops plus a numpy copy of the host-side helpers.
 
 h(x) = mix(a*x + b) mod m in uint32 wraparound arithmetic.  Torch has no
 usable uint32 arithmetic, so the torch pipeline emulates it in int64 and
@@ -14,6 +14,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch import random as jr
 
 _MERSENNE = 2654435761  # Knuth's multiplicative constant
 _MASK32 = 0xFFFFFFFF
@@ -91,3 +93,52 @@ def _seed_of(key) -> int:
     """The int seed the JAX package derives from a PRNG key
     (``repro_torch.random``): the sum of its uint32 words."""
     return int(np.asarray(key, np.uint32).astype(np.uint64).sum())
+
+
+# --- count-sketch as an explicit (sparse) linear map --------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SignHash:
+    """s : [d1] -> {-1, +1} for count-sketch."""
+
+    a: int
+    b: int
+
+    def __call__(self, ids: torch.Tensor) -> torch.Tensor:
+        x = ids.to(torch.int64) & _MASK32
+        h = (_mul32(x, int(self.a) & _MASK32) + (int(self.b) & _MASK32)) & _MASK32
+        h = _mul32(h ^ (h >> 16), _MERSENNE)
+        return torch.where((h >> 31) > 0, 1, -1).to(torch.int32)
+
+
+def make_sign_hash(key) -> SignHash:
+    """A sign hash from an int seed or a ``repro_torch.random`` key."""
+    seed = key if isinstance(key, int) else _seed_of(key)
+    rng = np.random.default_rng(seed ^ 0xABCDEF)
+    a = (int(rng.integers(0, 2**31 - 1)) * 2 + 1) & 0x7FFFFFFF
+    b = int(rng.integers(0, 2**31 - 1)) & 0x7FFFFFFF
+    return SignHash(a=a, b=b)
+
+
+def countsketch_matrix(key, d1: int, k: int, signed: bool = True) -> np.ndarray:
+    """The d1 x k count-sketch matrix H (tests, tiny d1): H[j, h(j)] = s(j),
+    one nonzero a row (Charikar et al. 2002).  ``key`` is a
+    ``repro_torch.random`` key; the hashes are the JAX package's."""
+    kh, ks = jr.split(key)
+    h = make_hash(_seed_of(kh), k)
+    ids = torch.arange(d1)
+    rows = h(ids).numpy()
+    signs = make_sign_hash(ks)(ids).numpy() if signed else np.ones(d1, np.int32)
+    H = np.zeros((d1, k), np.float32)
+    H[np.arange(d1), rows] = signs
+    return H
+
+
+def apply_countsketch(x: torch.Tensor, hs: tuple[int, int, int, int], k: int) -> torch.Tensor:
+    """The dense k-vector sketch of the basis vectors e_i, i in ``x``: each
+    id adds its sign at its row.  ``hs`` is (a, b, sign a, sign b)."""
+    a, b, sa, sb = hs
+    rows = MultiplyShiftHash(a, b, k)(x).to(torch.int64)
+    signs = SignHash(sa, sb)(x).to(torch.float32)
+    return torch.zeros(k, dtype=torch.float32, device=x.device).index_add_(0, rows, signs)

@@ -48,6 +48,28 @@ def assign(x: torch.Tensor, c: torch.Tensor, *, use_kernel: bool = False) -> tor
     return torch.argmin(_sq_dists(x, c), dim=-1).to(torch.int32)
 
 
+def assign_chunks(chunks, centroids: torch.Tensor, out: torch.Tensor, *,
+                  use_kernel: bool | None = None) -> torch.Tensor:
+    """Nearest centroid of every column's points, streamed: ``chunks``
+    yields (first row, (c, n, d) points), ``centroids`` is (c, k, d), and
+    each chunk's picks land in ``out[:, first: first + n]`` ((c, d1)
+    int32).  When ``use_kernel`` (default: on a CUDA device, as the JAX
+    package takes its kernel on the TPU) a chunk is ONE
+    ``kops.kmeans_assign_batched`` call for all columns, written straight
+    into its slice; else each column goes through ``assign``.  Chunking
+    cannot change an argmin: each point's distances are its own."""
+    if use_kernel is None:
+        use_kernel = centroids.device.type == "cuda"
+    for s, x in chunks:
+        block = out[:, s: s + x.shape[1]]
+        if use_kernel:
+            kops.kmeans_assign_batched(x, centroids, out=block)
+        else:
+            for i in range(x.shape[0]):
+                block[i] = assign(x[i], centroids[i])
+    return out
+
+
 @contextlib.contextmanager
 def deterministic():
     """Deterministic algorithms on for the block only.  On CUDA, a float

@@ -1,8 +1,10 @@
-"""Training launcher: DLRM with CCE tables, the paper's loop.
+"""Training launcher: DLRM with CCE tables (or any of the paper's
+comparison methods), the paper's loop.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm --steps 40
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm --device cpu \
         --steps 40 --cluster-every 20 --ckpt-dir /tmp/ckpt --ckpt-every 10 --fail-at 30
+    PYTHONPATH=src python -m repro_torch.launch.train --emb hash --device cpu --steps 40
 
 Trains the reduced Criteo DLRM configuration on the synthetic clickstream
 with the sketch frequency tracker (cell count in the step, host fold on a
@@ -13,6 +15,9 @@ which it restores the latest checkpoint and resumes.  Runs on the card
 unless ``--device`` names another; on the CPU every kernel's plain version
 runs instead.  ``--obs RUN.jsonl`` writes a run log and turns on the
 in-step telemetry (``python -m repro_torch.obs summarize RUN.jsonl``).
+``--emb`` takes "cce" or any key of ``core.embeddings.METHODS`` (full,
+hash, hemb, ce, robe, dhe, tt); the tracker, the transition and the
+trigger run with "cce" only, as in the JAX package.
 
 ``build_dlrm_trainer`` takes the configuration as an argument, so a
 caller can train the full ``configs/dlrm_criteo.py::CONFIG``.  LM
@@ -25,6 +30,7 @@ import time
 
 import torch
 
+from repro_torch.core.embeddings import METHODS
 from repro_torch.data.synthetic import ClickstreamConfig, clickstream_batches
 from repro_torch.models import dlrm
 from repro_torch.obs.runlog import RunLog, default_manifest
@@ -139,7 +145,7 @@ def main(argv=None):
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--momentum", type=float, default=0.9)
-    ap.add_argument("--emb", default="cce")
+    ap.add_argument("--emb", default="cce", choices=["cce", *METHODS])
     ap.add_argument("--emb-cap", type=int, default=512)
     ap.add_argument("--window", type=int, default=8,
                     help="sketch tracker window in batches (0: no windows)")
@@ -166,7 +172,7 @@ def main(argv=None):
     cfg = dlrm_criteo.reduced(emb_method=args.emb, cap=args.emb_cap)
     stream = dlrm_criteo.reduced_stream(window=args.window, async_fold=True)
     trigger = (ClusterTrigger(entropy_drop=0.1, drift_threshold=0.25, warmup=2)
-               if args.trigger else None)
+               if args.trigger and args.emb == "cce" else None)
     data_from = dlrm_data(cfg, args)
     trainer = build_dlrm_trainer(cfg, args, stream=stream, trigger=trigger,
                                  data_from=data_from)

@@ -1,8 +1,9 @@
 """DLRM (Naumov et al. 2019), the paper's recommendation model.
 
 13 dense features -> bottom MLP; 26 categorical features -> one embedding
-table each, behind an ``EmbeddingCollection`` (one fused supertable
-lookup for the compressed Criteo configuration); pairwise dot-product
+table each (``emb_method``: any key of ``core.embeddings.METHODS`` or
+"cce"), behind an ``EmbeddingCollection`` (one fused supertable lookup for
+the CCE, CE and hashing-trick Criteo configurations); pairwise dot-product
 interaction; top MLP -> 1 logit; binary cross-entropy loss.  The CCE
 clustering transition runs group-wise through the collection
 (``cluster_tables``).
@@ -10,8 +11,9 @@ clustering transition runs group-wise through the collection
 Parameters are the JAX package's pytree layout as plain dicts and lists
 of tensors: ``{"bottom": [{"w", "b"}, ...], "emb": [group, ...],
 "top": [...]}`` and buffers ``{"emb": [[feature buffers, ...], ...]}``,
-so ``convert.py`` carries them across unchanged.  A CUDA tensor always
-goes through the lookup kernel; there is no gather fallback.
+so ``convert.py`` carries them across unchanged.  A universal group's
+CUDA tensors always go through the lookup kernel; there is no gather
+fallback.
 """
 from __future__ import annotations
 
@@ -45,6 +47,10 @@ class DLRMConfig:
     # assignment pass (0 = unchunked)
     emb_opt_policy: str = "remap"
     emb_cluster_chunk: int = 1 << 18
+    # collection grouping mode: "univ" (universal fusion, ONE heavy launch
+    # for the compressed Criteo configuration), "group" (the JAX package's
+    # pre-universal grouping) or "loop" (per-feature lookups)
+    emb_fuse: str = "univ"
     # codebook rows round up to a multiple of this (model-shard count)
     emb_k_multiple: int = 1
     dtype: Any = torch.float32
@@ -69,17 +75,27 @@ class DLRMConfig:
     def collection(self) -> EmbeddingCollection:
         return EmbeddingCollection.build(
             tuple(self._build_table(i) for i in range(self.n_sparse)),
+            mode=self.emb_fuse,
             k_multiple=self.emb_k_multiple,
         )
 
+    def table(self, i: int):
+        return self.collection.tables[i]
+
     def n_emb_params(self) -> int:
-        return sum(t.n_params for t in self.collection.tables)
+        return sum(self.table(i).n_params for i in range(self.n_sparse))
+
+    def compression(self) -> float:
+        """Uncompressed embedding parameters over this configuration's."""
+        full = sum(v * self.emb_dim for v in self.vocab_sizes)
+        return full / max(1, self.n_emb_params())
 
 
 def _init_mlp(generator, sizes: Sequence[int], dtype, device):
     return [
         {
-            "w": (torch.randn((a, b), generator=generator) / math.sqrt(a)).to(
+            "w": (torch.randn((a, b), generator=generator, device=generator.device)
+                  / math.sqrt(a)).to(
                 device=device, dtype=dtype
             ),
             "b": torch.zeros((b,), dtype=dtype, device=device),

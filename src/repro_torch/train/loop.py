@@ -18,8 +18,10 @@ Pieces:
 
 The JAX package's ``split_buffers``/``merge_buffers`` exist only to keep
 static python leaves out of ``jit``; an eager step takes the buffers
-whole, so ``TrainState.ebuf`` holds all of them (the DLRM buffers have no
-static leaves, so its checkpoints have the JAX package's layout).
+whole, so ``TrainState.ebuf`` holds all of them.  Checkpoints store the
+JAX package's layout: the python-int hash coefficients of the
+non-transitioning tables are None there (``tree.drop_static``) and come
+back from the live state on restore.
 ``state_shardings`` and ``reshard_restore`` wait for the sharded port.
 """
 from __future__ import annotations
@@ -41,7 +43,7 @@ from repro_torch.obs.pump import MetricsPump
 from repro_torch.obs.trace import ProfileWindow, span
 from repro_torch.optim import Optimizer, clip_by_global_norm
 from repro_torch.optim.compression import compressed_grad_transform, init_error_feedback
-from repro_torch.tree import jax_leaves, tree_leaves, tree_map
+from repro_torch.tree import drop_static, fill_static, jax_leaves, tree_leaves, tree_map
 
 Pytree = Any
 
@@ -54,7 +56,7 @@ HISTORY_MAX = 10_000
 class TrainState(NamedTuple):
     params: Pytree
     opt: Pytree
-    ebuf: Pytree  # the embedding buffers (ptr, hs, epoch per feature)
+    ebuf: Pytree  # the embedding buffers (ptr, hs, epoch, hash coefficients)
     step: int  # a host counter (an int32 array in the JAX package)
     err: Pytree | None = None  # int8-compression error feedback
 
@@ -451,13 +453,18 @@ class Trainer:
         # that a restart neither re-runs nor skips transitions and the
         # k-means sample resumes exactly; the step is stored as the JAX
         # package's int32
-        tree = {"state": self.state._replace(step=np.int32(self.state.step)),
+        tree = {"state": self._stored_state()._replace(step=np.int32(self.state.step)),
                 "clusters_done": np.int32(self.clusters_done)}
         if self.id_tracker is not None:
             tree["id_counts"] = self.id_tracker.state_tree()
         if self.trigger is not None:
             tree["trigger"] = self.trigger.state_tree()
         return tree
+
+    def _stored_state(self):
+        """The state in the JAX package's checkpoint layout: python-int
+        buffer leaves None."""
+        return self.state._replace(ebuf=drop_static(self.state.ebuf))
 
     def _stored_n_leaves(self):
         """Leaf count of the latest committed checkpoint (None if none)."""
@@ -487,7 +494,8 @@ class Trainer:
         have produced.  Templates hold FRESH tracker/trigger state: a
         sectioned checkpoint missing a section restores the template's
         value."""
-        cur = {"state": self.state, "clusters_done": np.int32(self.clusters_done)}
+        state = self._stored_state()
+        cur = {"state": state, "clusters_done": np.int32(self.clusters_done)}
         if self.id_tracker is not None:
             tmpl = getattr(self.id_tracker, "state_template", None)
             cur["id_counts"] = tmpl() if tmpl else self.id_tracker.state_tree()
@@ -496,14 +504,14 @@ class Trainer:
         templates = [cur]
         if self.trigger is not None:  # the writer predates the trigger
             templates.append({k: v for k, v in cur.items() if k != "trigger"})
-        base = {"state": self.state, "clusters_done": np.int32(0)}
+        base = {"state": state, "clusters_done": np.int32(0)}
         if self.id_tracker is not None:
             templates.append(base)  # writer had no tracker
         else:
             with_counts = self._with_id_counts_placeholder(base)
             if with_counts is not None:  # writer-side id_counts, dropped
                 templates.append(with_counts)
-        templates.append({"state": self.state})  # pre-transition layout
+        templates.append({"state": state})  # pre-transition layout
         return templates
 
     def restore_latest(self):
@@ -516,7 +524,8 @@ class Trainer:
             candidates += [(to_old(t), to_new) for t in templates]
         step, tree, _ = load_checkpoint(self.ckpt.directory, migrations=candidates)
         state = tree["state"]
-        self.state = state._replace(step=int(state.step))
+        self.state = state._replace(step=int(state.step),
+                                    ebuf=fill_static(state.ebuf, self.state.ebuf))
         self.clusters_done = int(tree.get("clusters_done", 0))
         if self.id_tracker is not None:
             if "id_counts" in tree:

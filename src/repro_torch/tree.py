@@ -1,7 +1,9 @@
 """Maps over the port's state trees: nested dicts, lists and tuples of
 tensors (the JAX package's pytree layout).  Dicts keep their key order; a
 None leaf stays None.  ``jax_leaves`` and ``jax_unflatten`` list and
-place leaves in the order ``jax.tree`` does."""
+place leaves in the order ``jax.tree`` does.  ``drop_static`` and
+``fill_static`` split off and put back the python-scalar leaves (hash
+coefficients), which the JAX package's train state holds as None."""
 from __future__ import annotations
 
 from typing import Any, Callable
@@ -19,6 +21,22 @@ def tree_map(fn: Callable, tree, *rest):
     if tree is None:
         return None
     return fn(tree, *rest)
+
+
+def _is_static(x) -> bool:
+    return isinstance(x, (int, float))  # bool is an int
+
+
+def drop_static(tree):
+    """``tree`` with None at every python-scalar leaf: the dynamic part of
+    the JAX package's ``split_buffers``, as its checkpoints store it."""
+    return tree_map(lambda x: None if _is_static(x) else x, tree)
+
+
+def fill_static(dynamic, like):
+    """Inverse of ``drop_static``: ``dynamic`` with the python-scalar
+    leaves of ``like`` (a tree of the same structure) put back."""
+    return tree_map(lambda s, d: s if _is_static(s) else d, like, dynamic)
 
 
 def tree_leaves(tree) -> list[Any]:

@@ -23,6 +23,8 @@ from repro.train import loop as jloop
 from repro_torch import convert
 from repro_torch.checkpoint import store
 from repro_torch.configs import dlrm_criteo as tcfg
+from repro_torch.data.synthetic import ClickstreamConfig as TClick
+from repro_torch.data.synthetic import clickstream_batches as tdata
 from repro_torch.models import dlrm as tdlrm
 from repro_torch.optim import sgd
 from repro_torch.train import loop as tloop
@@ -201,3 +203,87 @@ def test_jax_checkpoint_loads_in_port(tmp_path):
     for g in got["state"].ebuf["emb"]:
         for f in g:
             assert f["hs"].dtype == torch.int64
+
+
+# --- the comparison methods: python-int hash coefficients are static leaves ----------
+
+
+def _method_trainer(method, ckpt_dir, seed=0):
+    """A port Trainer of ``reduced(emb_method=method)`` on CPU, its
+    momenta randomised."""
+    tc = tcfg.reduced(emb_method=method)
+    p, b = tdlrm.init(tc, torch.Generator().manual_seed(seed), device="cpu")
+    opt = sgd(momentum=0.9)
+    step = tloop.make_train_step(lambda pp, bb, mb: (tdlrm.bce_loss(pp, bb, tc, mb), {}), opt,
+                                 lambda s: 0.05)
+    state = tloop.init_state(p, opt, b)
+    g = torch.Generator().manual_seed(seed + 1)
+    for m in jax_leaves(state.opt):
+        m.copy_(torch.randn(m.shape, generator=g))
+    return tloop.Trainer(step, state, iter(()), ckpt_dir=str(ckpt_dir), ckpt_every=1)
+
+
+def _jax_method_tree(method, step, seed=3):
+    """JAX's checkpoint tree of ``reduced(emb_method=method)``: the dynamic
+    buffers (None at python-int leaves) in the state, the ints static."""
+    import dataclasses
+
+    jc = dataclasses.replace(jcfg.reduced(emb_method=method), emb_use_kernel=False)
+    opt = jsgd(momentum=0.9)
+    tc = tcfg.reduced(emb_method=method)  # JAX's own init of TT-like tables is slow: numpy
+    p, _ = tdlrm.init(tc, torch.Generator().manual_seed(seed), device="cpu")
+    b = jc.collection.stack_buffers([t.init_buffers() for t in jc.collection.tables])
+    dyn, static = jloop.split_buffers(b)
+    state = jloop.init_state(convert.to_numpy(p), opt, dyn)._replace(step=np.int32(step))
+    return {"state": state, "clusters_done": np.int32(0)}, static
+
+
+def _static_leaves(tree):
+    return [x for x in jax.tree.leaves(tree) if isinstance(x, int)]
+
+
+@pytest.mark.parametrize("method", ["hash", "ce", "dhe"])
+def test_method_checkpoint_port_to_jax(tmp_path, method):
+    trainer = _method_trainer(method, tmp_path)
+    trainer.state = trainer.state._replace(step=5)
+    trainer.ckpt.save_async(5, trainer._ckpt_tree())
+    trainer.ckpt.wait()
+    tmpl, static = _jax_method_tree(method, 0)
+    step, got, _ = jstore.load_checkpoint(str(tmp_path), template=tmpl)
+    assert step == 5 and int(got["state"].step) == 5
+    want = convert.to_numpy(trainer.state)
+    for part in ("params", "opt"):
+        for a, w in zip(jax.tree.leaves(getattr(got["state"], part)),
+                        jax.tree.leaves(getattr(want, part))):
+            np.testing.assert_array_equal(np.asarray(a), w)
+    # the stored buffers are JAX's dynamic part; its static ints are the port's
+    buffers = jloop.merge_buffers(got["state"].ebuf, static)
+    assert _static_leaves(buffers) == _static_leaves(want.ebuf)
+    if method != "dhe":
+        assert _static_leaves(buffers) and not jax.tree.leaves(got["state"].ebuf)
+    for a, w in zip(jax.tree.leaves(buffers), jax.tree.leaves(want.ebuf)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(w))
+
+
+@pytest.mark.parametrize("method", ["hash", "ce", "dhe"])
+def test_method_checkpoint_jax_to_port(tmp_path, method):
+    tree, _ = _jax_method_tree(method, 9, seed=4)
+    jstore.save_checkpoint(str(tmp_path), 9, tree)
+    trainer = _method_trainer(method, tmp_path, seed=8)
+    live = trainer.state.ebuf
+    assert trainer.restore_latest() == 9 and trainer.state.step == 9
+    st = trainer.state
+    for a, w in zip(jax_leaves(convert.to_numpy(st.params)), jax.tree.leaves(tree["state"].params)):
+        np.testing.assert_array_equal(a, np.asarray(w))
+    for a, w in zip(jax_leaves(convert.to_numpy(st.opt)), jax.tree.leaves(tree["state"].opt)):
+        np.testing.assert_array_equal(a, np.asarray(w))
+    # python ints back in place, arrays restored as tensors
+    assert _static_leaves(st.ebuf) == _static_leaves(live)
+    for x in jax_leaves(st.ebuf):
+        assert isinstance(x, int) or (isinstance(x, torch.Tensor) and x.dtype == torch.int32)
+    # and the restored state trains
+    tc = tcfg.reduced(emb_method=method)
+    batch = {k: torch.from_numpy(np.asarray(v))
+             for k, v in next(tdata(TClick(vocab_sizes=tc.vocab_sizes), 8)).items()}
+    loss = tdlrm.bce_loss(st.params, st.ebuf, tc, batch)
+    assert torch.isfinite(loss)

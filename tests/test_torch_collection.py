@@ -146,3 +146,125 @@ def test_stack_unstack_matches_jax(name):
     for a, c in zip(restacked, pt["emb"]):
         for key in a:
             assert torch.equal(a[key], c[key])
+
+
+# --- the comparison methods (hash, CE, hash embeddings, ROBE, DHE, TT-Rec) ---------
+
+METHODS = ("full", "hash", "hemb", "ce", "robe", "dhe", "tt", "cce")
+# heavy lookups a forward of the full Criteo configuration in "univ" mode
+CONFIG_LAUNCHES = dict(full=6, hash=1, ce=1, cce=1, hemb=20, robe=20, dhe=20, tt=20)
+
+
+def _method_configs(base, method, mode):
+    import dataclasses
+
+    jc = jcfg.CONFIG if base == "CONFIG" else jcfg.reduced()
+    tc = tcfg.CONFIG if base == "CONFIG" else tcfg.reduced()
+    kw = dict(emb_method=method, emb_fuse=mode)
+    return (dataclasses.replace(jc, emb_use_kernel=False, **kw),
+            dataclasses.replace(tc, **kw))
+
+
+def _layout(coll):
+    return [(g.kind, g.features, g.n_tables, g.dsub,
+             g.col_counts if g.kind == "univ" else None,
+             g.k_pad if g.kind == "univ" else None) for g in coll.groups]
+
+
+@pytest.mark.parametrize("mode", ["univ", "group", "loop"])
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("base", ["reduced", "CONFIG"])
+def test_method_layouts_equal_jax(base, method, mode):
+    """Built only (no table is allocated): groups, kinds, launch counts and
+    the rows tensor's shape."""
+    jc, tc = _method_configs(base, method, mode)
+    a, b = jc.collection, tc.collection
+    assert _layout(b) == _layout(a)
+    assert (b.n_groups, b.n_lookup_launches) == (a.n_groups, a.n_lookup_launches)
+    assert (b.rows_n_cols, b.rows_n_tables) == (a.rows_n_cols, a.rows_n_tables)
+    assert tc.n_emb_params() == jc.n_emb_params() and tc.compression() == jc.compression()
+    assert [type(tc.table(i)).__name__ for i in range(tc.n_sparse)] == \
+        [type(jc.table(i)).__name__ for i in range(jc.n_sparse)]
+    if base == "CONFIG" and mode == "univ":
+        assert b.n_lookup_launches == CONFIG_LAUNCHES[method]
+    if mode == "loop":
+        assert b.n_lookup_launches == tc.n_sparse
+
+
+def _method_state(method, mode="univ", seed=0):
+    """Both configurations and one state: the port's init (JAX's own init
+    of some methods costs seconds of eager dispatch), its params carried
+    to numpy for the JAX side and its buffers, which equal JAX's
+    (``test_method_buffers_equal_jax``); ``jb`` holds them as JAX arrays
+    and python ints, for closing over."""
+    jc, tc = _method_configs("reduced", method, mode)
+    pt, bt = tdlrm.init(tc, torch.Generator().manual_seed(seed), device="cpu")
+    p, b = convert.to_numpy(pt), convert.to_numpy(bt)
+    jb = jax.tree.map(lambda x: jnp.asarray(x) if hasattr(x, "shape") else x, b)
+    return jc, tc, p, b, jb, pt, bt
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_method_buffers_equal_jax(method):
+    jc, tc = _method_configs("reduced", method, "univ")
+    want = jc.collection.stack_buffers([t.init_buffers() for t in jc.collection.tables])
+    _, got = tc.collection.init(torch.Generator().manual_seed(0), "cpu")
+    got = convert.to_numpy(got)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for a, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert type(a) is type(w) if isinstance(w, int) else np.asarray(a).dtype == w.dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(w))
+
+
+@pytest.mark.parametrize("method,mode", [(m, "univ") for m in METHODS]
+                         + [("cce", "group"), ("cce", "loop"), ("hash", "group")])
+def test_lookup_all_methods_match_jax(method, mode):
+    """Exact for the gather methods, within 1e-5 for DHE and TT-Rec."""
+    jc, tc, p, _, jb, pt, bt = _method_state(method, mode, seed=6)
+    sparse = _sparse(jc.vocab_sizes, 13, seed=7)
+    want = np.asarray(jax.jit(
+        lambda pe, s: jc.collection.lookup_all(pe, jb["emb"], s, use_kernel=False)
+    )(p["emb"], sparse))
+    got = tc.collection.lookup_all(pt["emb"], bt["emb"], torch.from_numpy(sparse))
+    assert got.shape == (13, jc.n_sparse, jc.emb_dim)
+    if method in ("dhe", "tt"):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("method", ["hash", "ce"])
+def test_host_translator_methods_bit_exact(method):
+    jc, tc, _, b, _, _, bt = _method_state(method, seed=8)
+    sparse = _sparse(jc.vocab_sizes, 17, seed=9, edges=True)
+    jtr, ttr = JTranslator(jc.collection, b["emb"]), TTranslator(tc.collection, bt["emb"])
+    rows = ttr.rows(sparse)
+    assert rows.shape == (17, tc.collection.rows_n_cols, 1)
+    np.testing.assert_array_equal(rows, jtr.rows(sparse))
+    coll = tc.collection
+    (g,) = coll.univ_groups
+    dev = coll.group_rows(coll.groups[g], bt["emb"][g], torch.from_numpy(sparse).long())
+    np.testing.assert_array_equal(dev.movedim(0, 1).numpy(), rows)
+    assert "sparse" not in ttr({"sparse": sparse}, drop_sparse=True)
+
+
+@pytest.mark.parametrize("method", ["hemb", "full"])
+def test_drop_sparse_refuses_loop_and_full_groups(method):
+    _, tc, _, _, _, _, bt = _method_state(method)
+    with pytest.raises(ValueError, match="universally fused"):
+        TTranslator(tc.collection, bt["emb"])({"sparse": np.zeros((2, 5), np.int64)},
+                                               drop_sparse=True)
+
+
+@pytest.mark.parametrize("method", ["dhe", "robe"])
+def test_loop_group_stack_unstack(method):
+    jc, tc, p, _, _, pt, _ = _method_state(method, seed=10)
+    assert all(g.kind == "loop" for g in tc.collection.groups)
+    want = jc.collection.unstack_params(p["emb"])
+    got = tc.collection.unstack_params(pt["emb"])
+    for w, g in zip(want, got):
+        assert w.keys() == g.keys()
+        for key in w:
+            np.testing.assert_array_equal(g[key].numpy(), np.asarray(w[key]))
+    for a, c in zip(tc.collection.stack_params(got), pt["emb"]):
+        assert all(torch.equal(a[0][k], c[0][k]) for k in a[0])

@@ -184,3 +184,40 @@ def test_head_churn_matches_jax():
     cases = [([1, 2, 3], [3, 2, 1]), ([1, 2], [3, 4]), ([1, 2, -1], [2, 3]), ([], []), ([], [1])]
     for a, b in cases:
         assert head_churn(np.array(a), np.array(b)) == jhead_churn(np.array(a), np.array(b))
+
+
+@pytest.mark.parametrize("method", ["hash", "ce"])
+def test_hash_and_ce_serve_like_jax(method):
+    """The universally fused comparison methods serve, cold and from a
+    cache of their hot ids, equal to the JAX engine within 1e-5 and to
+    the port's forward exactly."""
+    cfg = dict(MIXED, emb_method=method)
+    jc, tc = jdlrm.DLRMConfig(**cfg, emb_use_kernel=False), tdlrm.DLRMConfig(**cfg)
+    pt, bt = tdlrm.init(tc, torch.Generator().manual_seed(3), device="cpu")
+    p, b = convert.to_numpy(pt), convert.to_numpy(bt)
+    rng = np.random.default_rng(4)
+    tracker = StubTracker({f: rng.choice(v, 16, replace=False).astype(np.int32)
+                           for f, v in enumerate(jc.vocab_sizes) if f not in (0, 3)})
+    sparse = np.stack([rng.integers(0, v, B) for v in jc.vocab_sizes], axis=1).astype(np.int32)
+    sparse[:3] = np.stack([tracker.heads[f][:3] if f in tracker.heads else np.arange(3)
+                           for f in range(5)], axis=1)  # three fully cached requests
+    dense = rng.normal(size=(B, 13)).astype(np.float32)
+    for cache in (False, True):
+        je = jserve.DLRMServeEngine(jax.tree.map(jax.numpy.asarray, p), b, jc, tracker=tracker,
+                                    cache=cache, max_batch=B, use_kernel=False)
+        te = tserve.DLRMServeEngine(pt, bt, tc, tracker=tracker, cache=cache, max_batch=B)
+        got = te.predict(dense, sparse)
+        np.testing.assert_allclose(got, je.predict(dense, sparse), rtol=1e-5, atol=1e-5)
+        with torch.no_grad():
+            fwd = tdlrm.forward(pt, bt, tc, {"dense": torch.from_numpy(dense),
+                                             "sparse": torch.from_numpy(sparse)})
+        np.testing.assert_allclose(got, fwd.numpy(), rtol=0, atol=1e-6)
+        assert te.counters["n_launches"] == je.counters["n_launches"]
+
+
+@pytest.mark.parametrize("method", ["hemb", "dhe"])
+def test_engine_refuses_loop_groups(method):
+    tc = tdlrm.DLRMConfig(**dict(MIXED, emb_method=method))
+    pt, bt = tdlrm.init(tc, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="universal groups only"):
+        tserve.DLRMServeEngine(pt, bt, tc, max_batch=B)

@@ -201,3 +201,72 @@ def test_train_state_carries_across(setup):
                                   toptim.adamw(), lambda s: 1e-3, compress_grads=True)
     ts, tm = tstep(ts, _tbatch({k: v[None] for k, v in batches[1].items()}))
     assert ts.step == 2 and int(ts.opt["t"]) == 2 and torch.isfinite(tm["loss"])
+
+
+# --- the comparison methods on reduced() ------------------------------------------
+
+METHODS = ("full", "hash", "hemb", "ce", "robe", "dhe", "tt")
+
+
+@pytest.fixture(scope="module", params=METHODS)
+def method_setup(request):
+    """``reduced(emb_method=m)`` on both sides (the JAX side on its jnp
+    lookup path), one state (the port's init: its buffers equal JAX's, see
+    test_torch_collection.py; its params carried to numpy) and 4 batches.
+    ``jb`` holds the buffers as JAX arrays and python ints, closed over as
+    JAX's train step holds its static leaves."""
+    import dataclasses
+
+    m = request.param
+    jc = dataclasses.replace(jcfg.reduced(emb_method=m), emb_use_kernel=False)
+    tc = tcfg.reduced(emb_method=m)
+    pt, bt = tdlrm.init(tc, torch.Generator().manual_seed(11), device="cpu")
+    p, b = convert.to_numpy(pt), convert.to_numpy(bt)
+    jb = jax.tree.map(lambda x: jnp.asarray(x) if hasattr(x, "shape") else x, b)
+    stream = clickstream_batches(ClickstreamConfig(vocab_sizes=jc.vocab_sizes), 32, start_step=5)
+    batches = [{k: v for k, v in next(stream).items() if k != "step"} for _ in range(4)]
+    return m, jc, tc, p, b, jb, batches
+
+
+def test_method_forward_and_loss_match_jax(method_setup):
+    _, jc, tc, p, b, jb, batches = method_setup
+    batch = batches[0]
+    fwd, loss = jax.jit(lambda pp, x: (jdlrm.forward(pp, jb, jc, x),
+                                       jdlrm.bce_loss(pp, jb, jc, x)))(p, batch)
+    tp, tb = convert.to_torch(p, "cpu"), convert.to_torch(b, "cpu")
+    np.testing.assert_allclose(tdlrm.forward(tp, tb, tc, _tbatch(batch)).detach().numpy(),
+                               np.asarray(fwd), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(float(tdlrm.bce_loss(tp, tb, tc, _tbatch(batch))), float(loss),
+                               rtol=0, atol=1e-6)
+
+
+def test_method_grads_of_every_leaf_match_jax(method_setup):
+    _, jc, tc, p, b, jb, batches = method_setup
+    batch = batches[1]
+    want = jax.jit(jax.grad(lambda pp, x: jdlrm.bce_loss(pp, jb, jc, x)))(p, batch)
+    _, got = tloop.value_and_grad(lambda pp, bb, mb: (tdlrm.bce_loss(pp, bb, tc, mb), {}),
+                                  convert.to_torch(p, "cpu"), convert.to_torch(b, "cpu"),
+                                  _tbatch(batch))
+    assert all(g.abs().sum() > 0 for g in tree_leaves(got["emb"]))
+    _assert_tree_close(got, want, **GRAD_TOL)
+
+
+def test_method_three_train_steps_track_jax(method_setup):
+    """sgd momentum 0.9, lr 0.05, clip 1.0: the JAX step jitted with the
+    python-int buffer leaves static (``split_buffers``)."""
+    _, jc, tc, p, b, jb, batches = method_setup
+    opt_j, opt_t = joptim.sgd(momentum=0.9), toptim.sgd(momentum=0.9)
+    dyn, static = jloop.split_buffers(jb)
+    jstep = _jax_step(jc, opt_j, lambda s: 0.05, static, 1)
+    tstep = tloop.make_train_step(lambda pp, bb, mb: (tdlrm.bce_loss(pp, bb, tc, mb), {}), opt_t,
+                                  lambda s: 0.05, clip_norm=1.0)
+    js = jloop.init_state(p, opt_j, dyn)
+    ts = tloop.init_state(convert.to_torch(p, "cpu"), opt_t, convert.to_torch(b, "cpu"))
+    for i in range(3):
+        batch = {k: v[None] for k, v in batches[i].items()}
+        js, jm = jstep(js, batch)
+        ts, tm = tstep(ts, _tbatch(batch))
+        for key in ("loss", "gnorm"):
+            np.testing.assert_allclose(float(tm[key]), float(jm[key]), rtol=1e-5, atol=1e-6)
+    _assert_tree_close(ts.params, js.params, **STEP_TOL)
+    _assert_tree_close(ts.opt, js.opt, **STEP_TOL)
