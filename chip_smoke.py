@@ -49,6 +49,14 @@
    CCE head, random weights from a seed) through the LM ``ServeEngine``:
    16 requests of 16-1900 prompt tokens over 8 slots, 16 greedy tokens
    each; holds a 2-layer cut's prefill logits against CPU copies.
+9. Trains full-width qwen2-1.5b through ``launch.train.build_lm_trainer``
+   (adamw, cosine schedule, remat, a dense token tracker): 6 steps of 2 x
+   4096 tokens, the CCE token table's transition (the assignment kernel
+   over all 151,936 ids at d=384), 2 steps; holds the lookup backward at a
+   step's token rows and the assignment at the transition's inputs
+   against their plain versions; holds a 2-layer cut's first loss and
+   gradients against CPU copies, and its runs (one crashed and resumed)
+   against each other bit for bit.
 Each path runs with the launch counts reset just before it and read just
 after.  Prints the kernels' JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -56,7 +64,7 @@ after.  Prints the kernels' JSON line, the card line and, last,
     python3 chip_smoke.py --phases flash,lm_serve
 
 runs only the named phases (of lookup, bwd, kmeans, train, loop, serve,
-methods, flash, lm_serve) and prints neither result line.
+methods, flash, lm_serve, lm_train) and prints neither result line.
 
 Exits non-zero, with no result line, when there is no CUDA device, when the
 port is missing, or when any phase fails.  Imports nothing of JAX.
@@ -64,8 +72,11 @@ port is missing, or when any phase fails.  Imports nothing of JAX.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import json
 import math
+import multiprocessing
+import os
 import pathlib
 import statistics
 import subprocess
@@ -135,6 +146,24 @@ LM_CHECK_PROMPT = 256
 # card vs CPU prefill logits, relative to the largest logit: float32 sums
 # in other orders; bfloat16 also rounds every activation (8 mantissa bits)
 LM_LOGIT_RTOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# LM training (launch.train.build_lm_trainer): train_4k's 256 sequences of
+# 4096 tokens in microbatches of 32 (src/repro/launch/shapes.py) cut to one
+# microbatch of 2: at 32 the float32 logits alone take 80 GB
+LM_TRAIN_BATCH = 2
+LM_TRAIN_SEQ = 4096
+LM_TRAIN_STEPS = 6  # then the token table's transition
+LM_TRAIN_POST = 2  # steps after it
+LM_TRAIN_LR = 1e-3  # adamw's peak under the cosine schedule (the launcher's default)
+LM_TRAIN_WARMUP = 2
+LM_CUT_SEQ = 256  # the LM_CHECK_LAYERS cut's sequences: card vs CPU, repeats
+LM_CUT_STEPS = 4  # the cut's runs: 4 steps, a transition, 2 steps
+# card vs CPU loss of the cut's first step, relative, and every gradient
+# leaf, relative to the leaf's largest magnitude: float32 sums in other
+# orders; bfloat16 rounds every activation.  The bfloat16 limits stand
+# above an H100's readings (PERF.md): the loss 6.2e-6, the worst leaf
+# 8.6e-3, about one bfloat16 rounding (2^-7)
+LM_LOSS_RTOL = {"float32": STEP_RTOL, "bfloat16": 1e-3}
+LM_GRAD_RTOL = {"float32": STEP_RTOL, "bfloat16": 3e-2}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -963,12 +992,12 @@ def _leaf_errors(got, want) -> list[tuple[float, float]]:
     return out
 
 
-def _check_close(errs, what: str) -> float:
-    """Every leaf within STEP_RTOL of its largest magnitude; returns the
+def _check_close(errs, what: str, rtol: float = STEP_RTOL) -> float:
+    """Every leaf within ``rtol`` of its largest magnitude; returns the
     largest relative error."""
     rel = max(e / max(m, 1e-30) for e, m in errs)
-    check(all(e <= STEP_RTOL * m + 1e-7 for e, m in errs),
-          f"{what}: card vs CPU beyond {STEP_RTOL} relative (largest {rel})")
+    check(all(e <= rtol * m + 1e-7 for e, m in errs),
+          f"{what}: card vs CPU beyond {rtol} relative (largest {rel})")
     return rel
 
 
@@ -2131,19 +2160,59 @@ def _lm_prompts(cfg):
     return [rng.integers(0, cfg.vocab, int(n)).astype(np.int32) for n in lens]
 
 
-def lm_lookup_numbers(card: str, cfg, params, buffers, prompts) -> dict:
+def lm_fwd_numbers(card: str, label: str, idx, tables) -> dict:
     """The lookup kernel at the LM's token-table shape (c=emb_c, T=2, the
-    table's k and dsub): a 2048-token prefill and an 8-slot decode,
-    against its plain version (bit for bit in float32), with its times.
-    Device times of kernel and ``embedding_bag`` are taken with the L2
-    flushed before each call, as serving finds the table (the layers'
-    weights stream through the L2 between two lookups), and warm beside."""
-    import numpy as np
+    table's k and dsub) on rows ``idx``, against its plain version (bit for
+    bit in float32), with its times.  Device times of kernel and
+    ``embedding_bag`` are taken with the L2 flushed before each call, as
+    serving finds the table (the layers' weights stream through the L2
+    between two lookups), and warm beside."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import cce_lookup as cl
     from repro_torch.kernels import ref
+
+    c, n, T = idx.shape
+    got = cl.cce_lookup_fwd(idx, tables)
+    want = ref.cce_lookup_ref(idx, tables)
+    err = (got - want).abs().max().item()
+    check(torch.equal(got, want), f"LM-shape lookup kernel != plain at B={n} ({label})")
+    bag, weight, offsets = embedding_bag_args(idx, tables)
+    check(torch.allclose(F.embedding_bag(bag, weight, offsets, mode="sum").reshape(n, -1),
+                         got, rtol=1e-6, atol=1e-6),
+          f"embedding_bag yardstick computes another function at B={n} ({label})")
+    ms = time_ms(lambda: cl.cce_lookup_fwd(idx, tables))
+    kernel = lookup_kernel("cce_lookup_fwd", tables)
+    dev = device_ms(lambda: cl.cce_lookup_fwd(idx, tables), kernel, cold=True)
+    dev_warm = device_ms(lambda: cl.cce_lookup_fwd(idx, tables), kernel)
+    plain = time_ms(lambda: ref.cce_lookup_ref(idx, tables))
+    plain_dev = device_busy_ms(lambda: ref.cce_lookup_ref(idx, tables), iters=20)
+
+    def library():
+        return F.embedding_bag(bag, weight, offsets, mode="sum")
+
+    lib = time_ms(library)
+    lib_dev = device_busy_ms(library, iters=20, cold=True)
+    lib_dev_warm = device_busy_ms(library, iters=20)
+    bound, bound_by = lookup_bound(idx, tables)
+    print(f"[{card}] cce_lookup_fwd LM shape c={c} T={T} k={tables.shape[2]} "
+          f"dsub={tables.shape[3]} f32 B={n} ({label}): equal to plain, ms={ms!r} "
+          f"device_ms(L2 flushed)={dev!r} device_ms(warm)={dev_warm!r} plain_ms={plain!r} "
+          f"plain_device_ms={plain_dev!r} "
+          f"bound_ms={bound!r} ({bound_by}) library_ms(embedding_bag)={lib!r} "
+          f"library_device_ms(L2 flushed)={lib_dev!r} library_device_ms(warm)="
+          f"{lib_dev_warm!r}", flush=True)
+    return dict(B=n, max_abs_err=err, ms=ms, device_ms=dev, device_ms_warm=dev_warm, plain_ms=plain,
+                plain_device_ms=plain_dev, bound_ms=bound, bound_by=bound_by,
+                library_ms=lib, library_device_ms=lib_dev, library_device_ms_warm=lib_dev_warm)
+
+
+def lm_lookup_numbers(card: str, cfg, params, buffers, prompts) -> dict:
+    """``lm_fwd_numbers`` at a 2048-token prefill and an 8-slot decode."""
+    import numpy as np
+    import torch
+
     from repro_torch.models import lm
 
     table = lm.make_emb(cfg)
@@ -2153,38 +2222,7 @@ def lm_lookup_numbers(card: str, cfg, params, buffers, prompts) -> dict:
     for name, n in (("prefill", LM_MAX_SEQ), ("decode", LM_MAX_BATCH)):
         ids = torch.from_numpy(np.resize(toks, n).astype(np.int64)).to(tables.device)
         idx = table._rows(buffers["emb"], ids).reshape(table.c, -1, 2)
-        got = cl.cce_lookup_fwd(idx, tables)
-        want = ref.cce_lookup_ref(idx, tables)
-        check(torch.equal(got, want), f"LM-shape lookup kernel != plain at B={n}")
-        bag, weight, offsets = embedding_bag_args(idx, tables)
-        check(torch.allclose(F.embedding_bag(bag, weight, offsets, mode="sum").reshape(n, -1),
-                             got, rtol=1e-6, atol=1e-6),
-              f"embedding_bag yardstick computes another function at B={n}")
-        ms = time_ms(lambda: cl.cce_lookup_fwd(idx, tables))
-        kernel = lookup_kernel("cce_lookup_fwd", tables)
-        dev = device_ms(lambda: cl.cce_lookup_fwd(idx, tables), kernel, cold=True)
-        dev_warm = device_ms(lambda: cl.cce_lookup_fwd(idx, tables), kernel)
-        plain = time_ms(lambda: ref.cce_lookup_ref(idx, tables))
-        plain_dev = device_busy_ms(lambda: ref.cce_lookup_ref(idx, tables), iters=20)
-
-        def library():
-            return F.embedding_bag(bag, weight, offsets, mode="sum")
-
-        lib = time_ms(library)
-        lib_dev = device_busy_ms(library, iters=20, cold=True)
-        lib_dev_warm = device_busy_ms(library, iters=20)
-        bound, bound_by = lookup_bound(idx, tables)
-        out[name] = dict(B=n, ms=ms, device_ms=dev, device_ms_warm=dev_warm, plain_ms=plain,
-                         plain_device_ms=plain_dev, bound_ms=bound, bound_by=bound_by,
-                         library_ms=lib, library_device_ms=lib_dev,
-                         library_device_ms_warm=lib_dev_warm)
-        print(f"[{card}] cce_lookup_fwd LM shape c={table.c} T=2 k={table.k} "
-              f"dsub={table.dsub} f32 B={n} ({name}): equal to plain, ms={ms!r} "
-              f"device_ms(L2 flushed)={dev!r} device_ms(warm)={dev_warm!r} plain_ms={plain!r} "
-              f"plain_device_ms={plain_dev!r} "
-              f"bound_ms={bound!r} ({bound_by}) library_ms(embedding_bag)={lib!r} "
-              f"library_device_ms(L2 flushed)={lib_dev!r} library_device_ms(warm)="
-              f"{lib_dev_warm!r}", flush=True)
+        out[name] = lm_fwd_numbers(card, name, idx, tables)
     return out
 
 
@@ -2339,6 +2377,405 @@ def lm_serve_phase(card: str, cfg, device="cuda"):
     return launches, lookup
 
 
+def long_kernel_call(fn, kernel_name: str):
+    """One call of ``fn``, which launches the kernel whose name holds
+    ``kernel_name`` once and runs for a second or so (device_ms's 400 calls
+    would take minutes): (its output, CUDA-event ms of the call, the
+    kernel's device ms from a trace of the same call, or None where the
+    trace lost its record)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+    hits = [e for e in prof.key_averages() if kernel_name in e.key and e.count]
+    n = sum(e.count for e in hits)
+    check(n <= 1, f"{n} launches of *{kernel_name}* in one call")
+    if not n:
+        print(f"chip_smoke: the trace lost the launch of *{kernel_name}*", flush=True)
+    return out, start.elapsed_time(end), sum(_device_us(e) for e in hits) / 1e3 if n else None
+
+
+def lm_table_assign_numbers(card: str, x, cent, ptr) -> tuple[float, dict]:
+    """The assignment kernel at the LM token table's transition: x the
+    materialised vocabulary (c, d1, dsub) and cent the centroids (c, k,
+    dsub) that ``assign_all`` took, ptr the pointers it wrote.  The kernel
+    gives ptr again bit for bit, repeats, and each pick lies within
+    ASSIGN_RTOL of the plain minimum (``assign_excess``); timed beside its
+    plain version, ``cdist``+``argmin`` and its bound.  Returns (max excess,
+    numbers)."""
+    import torch
+
+    from repro_torch.kernels import kmeans_assign as ka
+    from repro_torch.kernels import ref
+
+    c, n, d = x.shape
+    k = cent.shape[1]
+    name = "kmeans_assign_general_kernel"
+    got, ms1, dev1 = long_kernel_call(lambda: ka.kmeans_assign(x, cent), name)
+    check(torch.equal(got, ptr), "the assignment kernel on the transition's inputs != its ptr")
+    again, ms2, dev2 = long_kernel_call(lambda: ka.kmeans_assign(x, cent), name)
+    check(torch.equal(again, got), "the LM-table assignment does not repeat")
+    ms = (ms1 + ms2) / 2
+    devs = [t for t in (dev1, dev2) if t is not None]
+    dev = sum(devs) / len(devs) if devs else None
+    excess = max(assign_excess(got[i], x[i], cent[i]) for i in range(c))
+    agree = (got == ref.kmeans_assign_batched_ref(x, cent)).float().mean().item()
+
+    def plain():
+        return ref.kmeans_assign_batched_ref(x, cent)
+
+    def library():
+        return torch.cdist(x, cent).argmin(-1)
+
+    lib_agree = (library() == got.long()).float().mean().item()
+    plain_ms = time_ms(plain, iters=1, reps=3, warmup=1)
+    plain_dev = device_busy_ms(plain)
+    lib = time_ms(library, iters=1, reps=3, warmup=1)
+    lib_dev = device_busy_ms(library)
+    bound, bound_by = assign_bound(n, k, d, c)
+    print(f"[{card}] kmeans_assign LM token table c={c} n={n} k={k} d={d} (general kernel, "
+          f"the transition's own inputs): equal to the transition's ptr, repeats bit for bit, "
+          f"2 calls of {ms1!r} and {ms2!r} ms, "
+          f"max_excess={excess!r} agree_with_plain={agree!r} agree_with_cdist={lib_agree!r}; "
+          f"ms={ms!r} device_ms={dev!r} plain_ms={plain_ms!r} plain_device_ms={plain_dev!r} "
+          f"library_ms(cdist+argmin)={lib!r} library_device_ms={lib_dev!r} "
+          f"bound_ms={bound!r} ({bound_by}), {ms / bound!r} x the bound", flush=True)
+    return excess, dict(c=c, n=n, k=k, d=d, kernel=name,
+                        agree_with_plain=agree, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                        plain_device_ms=plain_dev, bound_ms=bound, bound_by=bound_by,
+                        library_ms=lib, library_device_ms=lib_dev)
+
+
+def _lm_batch(vocab: int, batch: int, seq: int, seed: int, step: int):
+    """Batch ``step`` of ``lm_token_batches`` and the host ms it took: one
+    worker's job (each batch depends only on the seed and its step)."""
+    from repro_torch.data.synthetic import lm_token_batches
+
+    t0 = time.perf_counter()
+    out = next(lm_token_batches(vocab, batch, seq, seed=seed, start_step=step))
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def lm_train_phase(card: str, cfg, device="cuda"):
+    """Full-width LM training through ``launch.train.build_lm_trainer``:
+    LM_TRAIN_STEPS steps of LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens, the CCE
+    token table's transition from the dense token counts (moments
+    remapped), LM_TRAIN_POST more steps, with the launch counts reset just
+    before and read just after; the transition's invariants, its by-phase
+    host ms and device busy (a second run from the same inputs, bitwise
+    equal), the step's host ms, device busy and top kernels, the peak
+    memory, and one more step as a user runs it (the token generator
+    inline).  Then the lookup backward at a step's own token rows and the
+    assignment at the transition's own inputs against their plain
+    versions, timed, and the lookup forward at the same rows on the
+    tables before the transition; and on a LM_CHECK_LAYERS cut of the
+    configuration:
+    the first loss and gradients on the card against CPU copies (float32
+    and bfloat16), two runs of LM_CUT_STEPS steps, a
+    transition and 2 steps from one seed equal bit for bit, and a run
+    crashed after its checkpoint at LM_CUT_STEPS and resumed equal to
+    them.  Returns ({path: launches}, the lookup forward's numbers, max
+    lookup-backward error, its numbers, max assignment excess, its
+    numbers)."""
+    import argparse
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import random as jr
+    from repro_torch.core import cce as cce_lib
+    from repro_torch.core import hashing
+    from repro_torch.core import kmeans as km
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_lm_trainer, lm_data, run_with_restart
+    from repro_torch.models import lm
+    from repro_torch.train import loop
+    from repro_torch.tree import jax_leaves, jax_leaves_with_paths, tree_leaves, tree_map
+
+    n_steps = LM_TRAIN_STEPS + LM_TRAIN_POST
+    print(f"[{card}] lm train: {cfg.name} {cfg.n_layers}L d={cfg.d_model} vocab={cfg.vocab} "
+          f"emb={cfg.emb_method} remat={cfg.remat} attn={cfg.attn_impl}; train_4k's 256 x "
+          f"4096 tokens in microbatches of {cfg.train_microbatch} cut to one microbatch of "
+          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} (accum 1), {LM_TRAIN_STEPS} steps, the token "
+          f"table's transition, {LM_TRAIN_POST} steps", flush=True)
+
+    def make_args(seq, steps, cluster_every, **kw):
+        return argparse.Namespace(**dict(dict(
+            device=device, seed=LM_SEED, lr=LM_TRAIN_LR, warmup=LM_TRAIN_WARMUP, steps=steps,
+            batch=LM_TRAIN_BATCH, seq=seq, accum=1, emb="cce", ckpt_dir=None, ckpt_every=0,
+            cluster_every=cluster_every, fail_at=[]), **kw))
+
+    def cut_batches(n):  # 2 x LM_CUT_SEQ tokens take milliseconds
+        return [_lm_batch(cfg.vocab, LM_TRAIN_BATCH, LM_CUT_SEQ, LM_SEED, st)[0]
+                for st in range(n)]
+
+    # batches 0..n_steps-1 of the run's token stream, made in parallel: a
+    # full-width batch takes seconds of numpy
+    args = make_args(LM_TRAIN_SEQ, n_steps, LM_TRAIN_STEPS)
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(n_steps, os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        made = list(pool.map(_lm_batch, *zip(*[
+            (cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_SEED, st) for st in range(n_steps)])))
+    data_wall = (time.perf_counter() - t0) * 1e3
+    raw, data_ms = [b for b, _ in made], statistics.mean(ms for _, ms in made)
+    check([b["step"] for b in raw] == list(range(n_steps)), "token batches out of order")
+    print(f"[{card}] lm train data: {n_steps} batches of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} "
+          f"tokens (lm_token_batches, host numpy), {data_ms!r} ms a batch in its process "
+          f"({data_wall!r} ms for all, in parallel)", flush=True)
+    t0 = time.perf_counter()
+    trainer = build_lm_trainer(cfg, args, data_from=lambda s: iter(raw[s:]))
+    n_params = sum(t.numel() for t in tree_leaves(trainer.state.params))
+    print(f"[{card}] lm train init: {n_params} params, "
+          f"{torch.cuda.memory_allocated() / 1e9!r} GB allocated with the adamw moments, "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    table = lm.make_emb(cfg)
+
+    # the first loss and gradients of a LM_CHECK_LAYERS cut, card vs CPU copies
+    toks = torch.from_numpy(cut_batches(1)[0]["tokens"]).to(torch.int64)
+    params, buffers = trainer.state.params, trainer.state.ebuf
+    cut_p = dict(params, blocks=tree_map(lambda t: t[:LM_CHECK_LAYERS], params["blocks"]))
+    cpu_p = tree_map(lambda t: t.detach().to("cpu", copy=True), cut_p)
+    cpu_b = tree_map(lambda t: t.detach().to("cpu", copy=True), buffers)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        cut = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS, dtype=dtype)
+
+        def loss_fn(p, b, mb, cut=cut):
+            return lm.next_token_loss(p, b, cut, mb)
+
+        l_dev, g_dev = loop.value_and_grad(loss_fn, cut_p, buffers, {"tokens": toks.to(device)})
+        t0 = time.perf_counter()
+        l_cpu, g_cpu = loop.value_and_grad(loss_fn, cpu_p, cpu_b, {"tokens": toks})
+        cpu_s = time.perf_counter() - t0
+        rel = abs(l_dev.item() - l_cpu.item()) / abs(l_cpu.item())
+        paths = [path for path, _ in jax_leaves_with_paths(g_cpu)]
+        errs = _leaf_errors(jax_leaves(g_dev), jax_leaves(g_cpu))
+        worst = sorted(zip((e / max(m, 1e-30) for e, m in errs), paths), reverse=True)[:3]
+        print(f"[{card}] lm train, {LM_CHECK_LAYERS}-layer cut, {LM_TRAIN_BATCH} x "
+              f"{LM_CUT_SEQ} tokens, {dn}: first loss card {l_dev.item()!r} vs CPU "
+              f"{l_cpu.item()!r} (relative {rel!r}, tolerance {LM_LOSS_RTOL[dn]}; CPU "
+              f"{cpu_s:.1f} s); gradient leaves, card vs CPU relative to the leaf's largest "
+              f"magnitude (tolerance {LM_GRAD_RTOL[dn]}), worst: "
+              + ", ".join(f"{path} {r!r}" for r, path in worst), flush=True)
+        check(math.isfinite(l_dev.item()) and rel <= LM_LOSS_RTOL[dn],
+              f"{LM_CHECK_LAYERS}-layer cut's loss card {l_dev.item()} vs CPU {l_cpu.item()} "
+              f"({dn})")
+        _check_close(errs, f"{dn} cut gradients", LM_GRAD_RTOL[dn])
+        del g_dev, g_cpu
+    del cut_p, cpu_p, cpu_b, params, buffers
+
+    # the main run: steps timed between synchronisations, the transition by phase
+    step_ms, seen = [], {}
+    orig_step, orig_cluster = trainer.train_step, trainer.cluster_fn
+    phases = [(cce_lib.CCE, "materialize", "sample materialize"),
+              (km, "kmeans", "kmeans++/Lloyd"),
+              (cce_lib.CCE, "assign_all", "assign_all"),
+              (cce_lib.CCE, "remap_moments", "moment remap")]
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def cluster(key, p, b, opt):
+        distinct = int(np.count_nonzero(trainer.id_tracker.counts[0]))
+        check(distinct > table.k, f"{distinct} distinct tokens observed, not over k={table.k}")
+        orig_kmeans = km.kmeans
+
+        def kmeans(key, x, k, **kw):  # keeps the first column's sample
+            seen.setdefault("sample", (key, x, kw.get("weights"), kw.get("niter", 50)))
+            return orig_kmeans(key, x, k, **kw)
+
+        km.kmeans = kmeans
+        try:
+            with PhaseClock(phases) as clock:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = orig_cluster(key, p, b, opt)
+                torch.cuda.synchronize()
+                total = (time.perf_counter() - t) * 1e3
+        finally:
+            km.kmeans = orig_kmeans
+        launched = dict(ops.LAUNCHES)
+        # a second run from the same inputs, each call of a phase but the
+        # k-means profiled (a trace of its ~6e4 kernels a column takes minutes
+        # to read: its busy is measured on the first column's sample below)
+        with PhaseBusy([ph for ph in phases if ph[0] is not km]) as busy:
+            again = orig_cluster(key, p, b, opt)
+        ops.LAUNCHES.clear()  # the second run is not the main path's
+        ops.LAUNCHES.update(launched)
+        check(all(torch.equal(x, y) for x, y in zip(tree_leaves(out), tree_leaves(again))),
+              "a second transition from the same inputs differs")
+        # the steps after it update the new tables and moments in place
+        new_p, new_b, new_opt = out
+        seen.update(key=key, old_p=p["emb"], old_b=b["emb"], new_b=new_b, total=total,
+                    new=tree_map(torch.clone, (new_p["emb"]["tables"], new_opt["m"]["emb"],
+                                               new_opt["v"]["emb"])),
+                    clock=dict(clock.ms), busy=dict(busy.ms), distinct=distinct)
+        return out
+
+    trainer.train_step, trainer.cluster_fn = timed_step, cluster
+    ops.LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.run(n_steps)
+    launches = {"lm_train": dict(ops.LAUNCHES)}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in trainer.history]
+    check(len(losses) == n_steps and all(math.isfinite(x) for x in losses),
+          f"lm train losses {losses}")
+    check(trainer.clusters_done == 1, f"{trainer.clusters_done} transitions, not 1")
+    want = {"cce_lookup_fwd": n_steps, "cce_lookup_bwd": n_steps,
+            "kmeans_assign": -(-table.d1 // (1 << 18))}
+    check(launches["lm_train"] == want, f"lm train launches {launches['lm_train']} != {want}")
+    print(f"[{card}] lm train: {n_steps} steps of {LM_TRAIN_BATCH * LM_TRAIN_SEQ} tokens, "
+          f"losses {losses!r}; launches {launches['lm_train']}; peak "
+          f"{peak!r} GB allocated (torch.cuda.max_memory_allocated)", flush=True)
+
+    # the transition's invariants
+    new_tables, new_m, new_v = seen["new"]
+    new_b = seen["new_b"]
+    old_b, nb = seen["old_b"], new_b["emb"]
+    epoch = int(old_b["epoch"])
+    _, k2 = jr.split(jr.fold_in(seen["key"], epoch))
+    hs = hashing.pack_hashes(hashing.make_hashes(hashing._seed_of(jr.fold_in(k2, 777)),
+                                                 table.c, table.k)).astype(np.int64)
+    ptr = nb["ptr"]
+    check(int(nb["epoch"]) == epoch + 1, f"token table epoch {int(nb['epoch'])}")
+    check(np.array_equal(nb["hs"].cpu().numpy(), hs), "token table hs off the key schedule")
+    check(ptr.dtype == torch.int32 and tuple(ptr.shape) == (table.c, table.d1)
+          and int(ptr.min()) >= 0 and int(ptr.max()) < table.k,
+          f"token table ptr {ptr.dtype} {tuple(ptr.shape)} outside [0, {table.k})")
+    check(not new_tables[:, 1].any(), "token table helper not zero")
+    for slot, moments in (("m", new_m), ("v", new_v)):
+        mt = moments["tables"]
+        check(mt.shape == new_tables.shape and bool(torch.isfinite(mt).all())
+              and not mt[:, 1].any(), f"remapped adamw {slot}: {tuple(mt.shape)}, not finite "
+              f"or helper not zero")
+    check(int(new_b["head"]["epoch"]) == 0, "the head's table was transitioned")
+    # kmeans++/Lloyd's device busy: c x ((k - 1) kmeans++ iterations + niter
+    # Lloyd steps), each measured on the first column's sample (every
+    # iteration does the same work over the sample)
+    key0, x0, w0, niter = seen.pop("sample")
+    pp_iter = device_busy_ms(lambda: km.kmeans_plus_plus(key0, x0, 65, w0)) / 64
+    cent0 = new_tables[0, 0].contiguous()
+    lloyd = device_busy_ms(lambda: km._lloyd_step(x0, cent0, table.k, False, w0))
+    seen["busy"]["kmeans++/Lloyd"] = table.c * ((table.k - 1) * pp_iter + niter * lloyd)
+    phase_ms = seen["clock"]
+    print(f"[{card}] lm transition: {seen['distinct']} distinct tokens observed (k={table.k}), "
+          f"epoch {epoch} -> {epoch + 1}, ptr in [0, k) for all {table.d1} ids, hs on the key "
+          f"schedule, helper table and its m/v zero, m/v finite of the table's shape; a second "
+          f"run from the same inputs is bitwise equal; {seen['total']!r} ms host", flush=True)
+    print(f"[{card}] lm transition by phase: " + ", ".join(
+        f"{k}: host {v!r} ms, device busy {seen['busy'].get(k, 0.0)!r} ms"
+        for k, v in phase_ms.items()) + f"; other host {seen['total'] - sum(phase_ms.values())!r}"
+        f" ms (host: the first run; device busy: the second, each call profiled, but "
+        f"kmeans++/Lloyd's: {table.c} columns x ({table.k - 1} kmeans++ iterations of "
+        f"{pp_iter!r} ms + {niter} Lloyd steps of {lloyd!r} ms), on {x0.shape[0]} sample "
+        f"points)", flush=True)
+
+    # the step: host ms, device busy, top kernels
+    mb = trainer._to_device(raw[-1])
+
+    def one_step():
+        orig_step(trainer.state, mb)
+
+    # one trace of 2 steps (after a warm-up step) gives the busy and the top
+    # kernels: a step launches thousands of kernels, and reading a trace
+    # costs about a second a few thousand records
+    events = [e for e in _profile(one_step, 2) if _device_us(e)]
+    busy = sum(_device_us(e) for e in events) / 1e3 / 2
+    top = sorted(events, key=_device_us, reverse=True)[:4]
+    host = statistics.median(step_ms[1:])
+    print(f"[{card}] lm train step, {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens: host {host!r} ms "
+          f"(synchronised, median of steps 2-{n_steps}; first {step_ms[0]!r}), device busy "
+          f"{busy!r} ms (idle share {1 - busy / host!r}; one trace of 2 steps, "
+          f"{sum(e.count for e in events)} kernel records); top kernels: "
+          + "; ".join(f"{e.key[:60]} {_device_us(e) / 1e3 / 2!r} ms x{e.count / 2:g}"
+                      for e in top), flush=True)
+
+    # a step as a user of build_lm_trainer runs it: the default lm_data
+    # generator inline on the host, not overlapped with the step
+    trainer.train_step, trainer.cluster_every = orig_step, 0
+    trainer.data_iter = lm_data(cfg, args)(int(trainer.state.step))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trainer.run(1)
+    torch.cuda.synchronize()
+    user_ms = (time.perf_counter() - t) * 1e3
+    check(math.isfinite(trainer.history[-1]["loss"]), "the user's step gave a non-finite loss")
+    print(f"[{card}] lm train step as users run it (lm_data's generator inline, then the step, "
+          f"synchronised): {user_ms!r} ms host (the step alone {host!r} ms, a batch alone "
+          f"{data_ms!r} ms in its process)", flush=True)
+
+    # the kernels at this slice's shapes, on the path's own inputs
+    toks = torch.from_numpy(raw[0]["tokens"]).to(device).reshape(-1)
+    idx = table._rows(seen["old_b"], toks).reshape(table.c, -1, 2)
+    g = torch.Generator(device=device).manual_seed(LM_SEED)
+    dout = torch.randn((idx.shape[1], table.c, table.dsub), generator=g, device=device)
+    bwd_err, bwd_at = bwd_check(
+        card, f"float32 LM train B={idx.shape[1]} c={table.c} T=2 k={table.k} "
+        f"dsub={table.dsub} (a step's token rows)", idx, dout, table.k, plain_busy=False)
+    old_p, cent = seen["old_p"], new_tables[:, 0].contiguous()
+    fwd_at = lm_fwd_numbers(card, "LM train, a step's token rows", idx,
+                            old_p["tables"].contiguous())
+    del trainer, mb, seen, dout, new_tables, new_m, new_v
+    x = table.materialize(old_p, old_b, torch.arange(table.d1, device=device))
+    assign_err, assign_at = lm_table_assign_numbers(card, x, cent, ptr)
+    del x, cent, old_p, old_b
+
+    # repeats on the cut: runs A and B from one seed, and C crashed after its
+    # checkpoint at LM_CUT_STEPS and resumed, all equal bit for bit
+    cut = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
+    cut_steps = LM_CUT_STEPS + 2
+    cut_raw = cut_batches(cut_steps)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_lm_"))
+    runs = {}
+    try:
+        for tag, fail_at in (("A", []), ("B", []), ("C", [LM_CUT_STEPS + 1])):
+            a = make_args(LM_CUT_SEQ, cut_steps, LM_CUT_STEPS, ckpt_dir=str(tmp / tag),
+                          ckpt_every=LM_CUT_STEPS, fail_at=fail_at)
+            tr = build_lm_trainer(cut, a, data_from=lambda st: iter(cut_raw[st:]))
+            restored = run_with_restart(tr, cut_steps, lambda st: iter(cut_raw[st:]))
+            check(restored == ([LM_CUT_STEPS] if fail_at else []), f"run {tag} restored "
+                  f"at {restored}")
+            check(tr.clusters_done == 1 and tr.state.step == cut_steps,
+                  f"run {tag}: {tr.clusters_done} transitions, step {tr.state.step}")
+            runs[tag] = (tr.state, {h["step"]: h["loss"] for h in tr.history},
+                         tr.id_tracker.counts[0])
+            del tr
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ref_state, ref_loss, ref_counts = runs["A"]
+    for tag in ("B", "C"):
+        state, loss, counts = runs[tag]
+        for part in ("params", "opt", "ebuf"):
+            check(all(torch.equal(a, b) for a, b in zip(tree_leaves(getattr(state, part)),
+                                                        tree_leaves(getattr(ref_state, part)))),
+                  f"lm cut run {tag} differs from run A in {part}")
+        check(loss == ref_loss and np.array_equal(counts, ref_counts),
+              f"lm cut run {tag}: losses or token counts differ from run A")
+    print(f"[{card}] lm train, {LM_CHECK_LAYERS}-layer cut, {LM_TRAIN_BATCH} x {LM_CUT_SEQ} "
+          f"tokens: runs A and B ({LM_CUT_STEPS} steps, a transition, 2 steps) equal bit for "
+          f"bit; run C crashed at step {LM_CUT_STEPS + 1} after its checkpoint at "
+          f"{LM_CUT_STEPS}, resumed, equals them (params, adamw state, ptr/hs/epoch, losses, "
+          f"token counts)", flush=True)
+    return launches, fwd_at, bwd_err, bwd_at, assign_err, assign_at
+
+
 KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call it replaces)
     "cce_lookup_fwd": ("src/repro_torch/kernels/csrc/cce_lookup.cu",
                        "src/repro/kernels/cce_lookup.py:106"),
@@ -2349,7 +2786,8 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call it replaces)
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:97"),
 }
-PHASES = ("lookup", "bwd", "kmeans", "train", "loop", "serve", "methods", "flash", "lm_serve")
+PHASES = ("lookup", "bwd", "kmeans", "train", "loop", "serve", "methods", "flash", "lm_serve",
+          "lm_train")
 
 
 def main(argv=None) -> int:
@@ -2413,6 +2851,9 @@ def main(argv=None) -> int:
     lm_out = phase("lm_serve", lm_serve_phase, card, configs.get(LM_ARCH))
     if lm_out is not None:
         launches["lm_serve"] = lm_out[0]
+    lm_train = phase("lm_train", lm_train_phase, card, configs.get(LM_ARCH))
+    if lm_train is not None:
+        launches.update(lm_train[0])
     if set(phases) != set(PHASES):
         print(f"chip_smoke: phases {phases} passed in {time.perf_counter() - t_run:.1f} s "
               f"(a partial run: no result line)")
@@ -2420,6 +2861,7 @@ def main(argv=None) -> int:
     (fwd_err, fwd_at), (bwd_err, bwd_at), (assign_err, assign_at) = fwd, bwd, assign
     (flash_err, flash_at), lm_lookup = flash, lm_out[1]
     _, methods_err, methods_at, _ = methods
+    _, lm_fwd_at, lm_bwd_err, lm_bwd_at, lm_assign_err, lm_assign_at = lm_train
 
     def by_path(name):
         return {path: counts.get(name, 0) for path, counts in launches.items()}
@@ -2430,15 +2872,18 @@ def main(argv=None) -> int:
                 "launches": sum(launches[p].get(name, 0) for p in main_paths),
                 "launches_by_path": by_path(name), "max_abs_err": err, **at, **extra}
 
-    steps = ("train", "train_after_transition", "loop", "methods")
+    steps = ("train", "train_after_transition", "loop", "methods", "lm_train")
     S = FLASH_TIMED[-1]
     kernels = [
-        entry("cce_lookup_fwd", steps, max(fwd_err, methods_err), fwd_at[TRAIN_BATCH],
-              batch=TRAIN_BATCH, at_serve_batch=fwd_at[SERVE_BATCH], at_lm_shape=lm_lookup,
+        entry("cce_lookup_fwd", steps, max(fwd_err, methods_err, lm_fwd_at["max_abs_err"]),
+              fwd_at[TRAIN_BATCH], batch=TRAIN_BATCH, at_serve_batch=fwd_at[SERVE_BATCH],
+              at_lm_shape=lm_lookup, at_lm_train_shape=lm_fwd_at,
               **{f"at_{m}_shape": methods_at[m]["fwd"] for m in METHOD_KERNEL_SHAPES}),
-        entry("cce_lookup_bwd", steps, max(bwd_err, methods_err), bwd_at, batch=TRAIN_BATCH,
+        entry("cce_lookup_bwd", steps, max(bwd_err, methods_err, lm_bwd_err), bwd_at,
+              batch=TRAIN_BATCH, at_lm_train_shape=lm_bwd_at,
               **{f"at_{m}_shape": methods_at[m]["bwd"] for m in METHOD_KERNEL_SHAPES}),
-        entry("kmeans_assign", ("transition", "loop", "methods"), assign_err, assign_at),
+        entry("kmeans_assign", ("transition", "loop", "methods", "lm_train"),
+              max(assign_err, lm_assign_err), assign_at, at_lm_table_shape=lm_assign_at),
         entry("flash_attention", ("lm_serve",), flash_err["bfloat16"], flash_at[S],
               max_abs_err_float32=flash_err["float32"],
               shape=dict(B=1, S=S, H=FLASH_HEADS[0][0], KVH=FLASH_HEADS[0][1], D=FLASH_DIMS[-1],

@@ -3,10 +3,11 @@
 ``clickstream_batches`` is a Criteo-like CTR stream for DLRM: 13 dense +
 N categorical features, Zipf id frequencies like real click logs, and a
 planted cluster structure (each id belongs to one of ``n_latent``
-concepts, and the click probability depends on the concepts).  A batch
-is fully determined by (seed, step, host), so any host can regenerate
-any shard.  Same generator as the JAX package's, so both sides see the
-same batches.
+concepts, and the click probability depends on the concepts).
+``lm_token_batches`` is a power-law Markov token stream for the LM.  A
+batch is fully determined by (seed, step, host), so any host can
+regenerate any shard.  Same generators as the JAX package's, so both
+sides see the same batches.
 """
 from __future__ import annotations
 
@@ -62,4 +63,31 @@ def clickstream_batches(
         logit = logit + rng.normal(0, cfg.noise, size=batch)
         label = (rng.uniform(size=batch) < 1 / (1 + np.exp(-logit))).astype(np.float32)
         yield {"dense": dense, "sparse": sparse, "label": label, "step": step}
+        step += 1
+
+
+def lm_token_batches(
+    vocab: int, batch: int, seq: int, *, seed: int = 0, start_step: int = 0,
+    host_id: int = 0, n_hosts: int = 1, n_codebooks: int = 0,
+) -> Iterator[dict]:
+    """Yields {"tokens": (batch, seq) int32, "step"}: token t+1 follows a
+    fixed random successor map with probability 0.7, else a fresh draw
+    from a Zipf(1.2) prior.  The audio family's codebook axis
+    (``n_codebooks``) is not ported."""
+    if n_codebooks:
+        raise NotImplementedError("lm_token_batches: codebook streams (the audio family) "
+                                  "are not ported")
+    rng0 = np.random.default_rng(seed)
+    succ = rng0.integers(0, vocab, size=vocab)
+    prior = _zipf_probs(vocab, 1.2)
+    step = start_step
+    while True:
+        rng = np.random.default_rng((seed * 9_999_991 + step) * 257 + host_id * n_hosts)
+        toks = np.empty((batch, seq), np.int32)
+        toks[:, 0] = rng.choice(vocab, size=batch, p=prior)
+        for t in range(1, seq):
+            follow = rng.uniform(size=batch) < 0.7
+            rand = rng.choice(vocab, size=batch, p=prior)
+            toks[:, t] = np.where(follow, succ[toks[:, t - 1]], rand)
+        yield {"tokens": toks, "step": step}
         step += 1

@@ -1,27 +1,35 @@
 """Training launcher: DLRM with CCE tables (or any of the paper's
-comparison methods), the paper's loop.
+comparison methods), the paper's loop, and the dense LMs.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm --steps 40
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm --device cpu \
         --steps 40 --cluster-every 20 --ckpt-dir /tmp/ckpt --ckpt-every 10 --fail-at 30
     PYTHONPATH=src python -m repro_torch.launch.train --emb hash --device cpu --steps 40
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --device cpu \
+        --steps 12 --cluster-every 6
 
-Trains the reduced Criteo DLRM configuration on the synthetic clickstream
-with the sketch frequency tracker (cell count in the step, host fold on a
-background thread), the CCE transition every ``--cluster-every`` steps
-(and, with ``--trigger``, when the entropy/drift trigger fires), async
-checkpoints, and an injected failure at each ``--fail-at`` step, after
-which it restores the latest checkpoint and resumes.  Runs on the card
-unless ``--device`` names another; on the CPU every kernel's plain version
-runs instead.  ``--obs RUN.jsonl`` writes a run log and turns on the
-in-step telemetry (``python -m repro_torch.obs summarize RUN.jsonl``).
-``--emb`` takes "cce" or any key of ``core.embeddings.METHODS`` (full,
-hash, hemb, ce, robe, dhe, tt); the tracker, the transition and the
-trigger run with "cce" only, as in the JAX package.
+``--arch dlrm`` trains the reduced Criteo DLRM configuration on the
+synthetic clickstream with the sketch frequency tracker (cell count in
+the step, host fold on a background thread), the CCE transition every
+``--cluster-every`` steps (and, with ``--trigger``, when the
+entropy/drift trigger fires), async checkpoints, and an injected failure
+at each ``--fail-at`` step, after which it restores the latest
+checkpoint and resumes.  ``--arch <lm>`` (a key of
+``repro_torch.configs.ARCHS``) trains that LM's reduced configuration on
+the synthetic token stream (``--batch`` sequences of ``--seq`` tokens)
+with adamw and a cosine schedule (``--warmup``); with a CCE token table a
+dense token-frequency tracker feeds the transition of the token table.
+Runs on the card unless ``--device`` names another; on the CPU every
+kernel's plain version runs instead.  ``--obs RUN.jsonl`` writes a run
+log and turns on the in-step telemetry (``python -m repro_torch.obs
+summarize RUN.jsonl``).  ``--emb`` takes "cce" or any key of
+``core.embeddings.METHODS`` (full, hash, hemb, ce, robe, dhe, tt); the
+tracker, the transition and the trigger run with "cce" only, as in the
+JAX package.  The options both packages' launchers share have the JAX
+package's defaults.
 
-``build_dlrm_trainer`` takes the configuration as an argument, so a
-caller can train the full ``configs/dlrm_criteo.py::CONFIG``.  LM
-training is not ported (ROADMAP Queue 1 #3).
+``build_dlrm_trainer`` and ``build_lm_trainer`` take the configuration
+as an argument, so a caller can train the full ``CONFIG``s.
 """
 from __future__ import annotations
 
@@ -31,12 +39,14 @@ import time
 import torch
 
 from repro_torch.core.embeddings import METHODS
-from repro_torch.data.synthetic import ClickstreamConfig, clickstream_batches
-from repro_torch.models import dlrm
+from repro_torch.data.synthetic import ClickstreamConfig, clickstream_batches, lm_token_batches
+from repro_torch.models import dlrm, lm
 from repro_torch.obs.runlog import RunLog, default_manifest
 from repro_torch.obs.telemetry import TelemetryConfig
-from repro_torch.optim import sgd
+from repro_torch.optim import adamw, cosine_schedule, sgd
+from repro_torch.optim.remap import remap_opt_state
 from repro_torch.stream.device import make_step_cell_counter
+from repro_torch.stream.tracker import IdFrequencyTracker
 from repro_torch.stream.trigger import ClusterTrigger
 from repro_torch.train.loop import (
     FailureInjector,
@@ -45,6 +55,7 @@ from repro_torch.train.loop import (
     init_state,
     make_train_step,
 )
+from repro_torch.train.transition import transition_table
 
 
 def _obs_kit(args, config_name: str):
@@ -117,6 +128,65 @@ def build_dlrm_trainer(cfg, args, *, stream=None, trigger=None, data_from=None):
     )
 
 
+def lm_data(cfg, args):
+    """``start_step -> batch iterator``: the synthetic token stream over
+    ``cfg.vocab``, ``args.batch`` sequences of ``args.seq`` tokens, seeded
+    by ``args.seed``."""
+
+    def data_from(start_step: int):
+        return lm_token_batches(cfg.vocab, args.batch, args.seq, seed=args.seed,
+                                start_step=start_step, n_codebooks=cfg.n_codebooks)
+
+    return data_from
+
+
+def build_lm_trainer(cfg, args, *, data_from=None):
+    """The LM ``Trainer`` on ``args.device``, as the JAX package builds it:
+    ``next_token_loss``, adamw (weight decay 0.1) under a cosine schedule
+    (``args.lr``, ``args.warmup`` steps of warm-up, ``args.steps`` in
+    all), clip 1.0.  With a CCE token table, a dense tracker counts the
+    tokens and the transition re-clusters the token table (the head's
+    table is not transitioned) from those counts, streaming the
+    vocabulary in chunks of 2^18 ids, with the adamw moments remapped.
+    Weights are drawn by a generator on the device.  ``data_from(start_step)``
+    gives the batches (default ``lm_data``)."""
+    device = getattr(args, "device", "cuda")
+    params, buffers = lm.init(cfg, torch.Generator(device=device).manual_seed(args.seed),
+                              device=device)
+    optimizer = adamw(weight_decay=0.1)
+
+    def loss_fn(p, b, mb):
+        return lm.next_token_loss(p, b, cfg, mb)
+
+    telemetry, obs_kw = _obs_kit(args, cfg.name)
+    step = make_train_step(loss_fn, optimizer, cosine_schedule(args.lr, args.warmup, args.steps),
+                           accum=args.accum, telemetry=telemetry)
+    tracker = cluster_fn = None
+    if cfg.emb_method == "cce":
+        emb = lm.make_emb(cfg)
+        tracker = IdFrequencyTracker((emb.d1,), key="tokens")
+
+        def cluster_fn(key, p, b, opt):
+            ep, eb, update = transition_table(emb, key, p["emb"], b["emb"],
+                                              counts=tracker.counts[0], chunk_size=1 << 18)
+
+            def upd(moments, _slot):
+                return dict(moments, emb=update(moments["emb"]))
+
+            return dict(p, emb=ep), dict(b, emb=eb), remap_opt_state(opt, upd)
+
+    data_from = data_from or lm_data(cfg, args)
+    return Trainer(
+        step, init_state(params, optimizer, buffers), data_from(0),
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        cluster_fn=cluster_fn, cluster_every=args.cluster_every,
+        cluster_max=getattr(args, "cluster_max", 0), id_tracker=tracker, accum=args.accum,
+        failures=FailureInjector(tuple(args.fail_at)),
+        seed=args.seed,
+        **obs_kw,
+    )
+
+
 def run_with_restart(trainer: Trainer, n_steps: int, data_from) -> list[int]:
     """Train to step ``n_steps``; after each injected failure restore the
     latest checkpoint, restart the data at its step and go on.  Returns
@@ -136,21 +206,26 @@ def run_with_restart(trainer: Trainer, n_steps: int, data_from) -> list[int]:
             trainer.data_iter = data_from(start)
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
+    """The launcher's options; those the JAX package's launcher has too
+    take its defaults."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="dlrm")
+    ap.add_argument("--arch", default="dlrm",
+                    help="dlrm or a key of repro_torch.configs.ARCHS")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--seq", type=int, default=64, help="LM sequence length")
     ap.add_argument("--accum", type=int, default=1)
-    ap.add_argument("--lr", type=float, default=0.05)
-    ap.add_argument("--momentum", type=float, default=0.9)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--momentum", type=float, default=0.0, help="DLRM's sgd momentum")
+    ap.add_argument("--warmup", type=int, default=10, help="LM warm-up steps")
     ap.add_argument("--emb", default="cce", choices=["cce", *METHODS])
     ap.add_argument("--emb-cap", type=int, default=512)
     ap.add_argument("--window", type=int, default=8,
-                    help="sketch tracker window in batches (0: no windows)")
+                    help="DLRM's sketch tracker window in batches (0: no windows)")
     ap.add_argument("--trigger", action="store_true",
-                    help="also cluster when the entropy/drift trigger fires")
+                    help="DLRM: also cluster when the entropy/drift trigger fires")
     ap.add_argument("--cluster-every", type=int, default=0)
     ap.add_argument("--cluster-max", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
@@ -160,33 +235,44 @@ def main(argv=None):
     ap.add_argument("--obs", default=None, metavar="RUN.jsonl")
     ap.add_argument("--profile-steps", type=int, nargs=2, default=None)
     ap.add_argument("--profile-dir", default="profile")
-    args = ap.parse_args(argv)
+    return ap
 
-    if args.arch != "dlrm":
-        raise NotImplementedError(
-            f"--arch {args.arch}: LM training is not ported yet (ROADMAP Queue 1 #3)")
+
+def main(argv=None):
+    ap = parser()
+    args = ap.parse_args(argv)
     if args.fail_at and not (args.ckpt_dir and args.ckpt_every):
         ap.error("--fail-at needs --ckpt-dir and --ckpt-every to resume from")
-    from repro_torch.configs import dlrm_criteo
+    if args.arch == "dlrm":
+        from repro_torch.configs import dlrm_criteo
 
-    cfg = dlrm_criteo.reduced(emb_method=args.emb, cap=args.emb_cap)
-    stream = dlrm_criteo.reduced_stream(window=args.window, async_fold=True)
-    trigger = (ClusterTrigger(entropy_drop=0.1, drift_threshold=0.25, warmup=2)
-               if args.trigger and args.emb == "cce" else None)
-    data_from = dlrm_data(cfg, args)
-    trainer = build_dlrm_trainer(cfg, args, stream=stream, trigger=trigger,
-                                 data_from=data_from)
+        cfg = dlrm_criteo.reduced(emb_method=args.emb, cap=args.emb_cap)
+        stream = dlrm_criteo.reduced_stream(window=args.window, async_fold=True)
+        trigger = (ClusterTrigger(entropy_drop=0.1, drift_threshold=0.25, warmup=2)
+                   if args.trigger and args.emb == "cce" else None)
+        data_from = dlrm_data(cfg, args)
+        trainer = build_dlrm_trainer(cfg, args, stream=stream, trigger=trigger,
+                                     data_from=data_from)
+    else:
+        from repro_torch import configs
+
+        if args.trigger:
+            ap.error("--trigger needs a windowed tracker: DLRM only")
+        cfg = configs.get_reduced(args.arch, emb_method=args.emb)
+        data_from = lm_data(cfg, args)
+        trainer = build_lm_trainer(cfg, args, data_from=data_from)
     t0 = time.time()
     restored = run_with_restart(trainer, args.steps, data_from)
     dt = time.time() - t0
     losses = [h["loss"] for h in trainer.history]
-    print(f"dlrm on {args.device}: step {trainer.state.step} in {dt:.1f}s, "
+    print(f"{args.arch} on {args.device}: step {trainer.state.step} in {dt:.1f}s, "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, clusterings {trainer.clusters_done}, "
           f"restored at {restored}, stragglers={len(trainer.monitor.flagged)}")
     if args.obs:
         trainer.runlog.close()
         print(f"run log: {args.obs}  "
               f"(summarize: python -m repro_torch.obs summarize {args.obs})")
+    return trainer
 
 
 if __name__ == "__main__":

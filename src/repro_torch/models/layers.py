@@ -6,15 +6,15 @@ Conventions (the JAX package's):
   * activations are (B, S, d) in ``cfg.dtype``; params kept in
     ``cfg.param_dtype`` and cast at use (mixed precision).
 
-Full-sequence causal attention (``attention_train``, and the LM's
-prefill) goes through ``kernels.ops.flash_attention``: the hand-written
-kernel on CUDA tensors, its plain version on CPU tensors.  Decode
-attention over the cache stays plain torch (``_sdpa``), as the JAX
-package computes it outside any kernel.  Not ported: the sharding hints,
-sinusoidal positions and the ``lax.scan`` form of chunked attention
-(``attn_impl="chunked"`` computes the same function and takes the flash
-route); ``attn_impl="dense_bf16p"``, sliding windows and logit soft-caps
-raise ``NotImplementedError``.
+Training attention (``attention_train``) takes the JAX package's route:
+the dense ``_sdpa`` under a causal mask, or, for ``attn_impl="chunked"``
+past ``attn_chunk`` tokens, ``_sdpa_chunked``'s online softmax over KV
+chunks; both are plain torch, as the JAX package computes them outside
+any kernel, and both take a gradient.  The LM's prefill calls the flash
+kernel itself (``models/lm.py``), which has no backward.  Decode
+attention over the cache is ``_sdpa`` too.  Not ported: the sharding
+hints and sinusoidal positions; ``attn_impl="dense_bf16p"``, sliding
+windows and logit soft-caps raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,8 +23,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 
 Params = Any
@@ -143,8 +143,8 @@ def _project_qkv(p, cfg: ModelConfig, x):
 
 
 def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
-    """Grouped-query scaled dot-product attention, plain torch (the
-    decode path).
+    """Grouped-query scaled dot-product attention, plain torch (training
+    and decode).
 
     q (B, Sq, H, D); k/v (B, Sk, KVH, D); mask broadcastable to
     (B, 1, Sq, Sk), True where a key is seen.  Returns (B, Sq, H, D).
@@ -172,15 +172,69 @@ def causal_mask(Sq: int, Sk: int, offset: int = 0, device="cuda"):
     return qi >= kj
 
 
+def _chunk_step(qf, kj, vj, kpos, acc, m, ell):
+    """One KV chunk of ``_sdpa_chunked``'s online softmax: qf (B, H, S, D)
+    float32 and pre-scaled, kj/vj (B, H, C, D) float32, kpos (C,) key
+    positions; carries acc (B, H, S, D), the running max m and
+    denominator ell (B, H, S)."""
+    qpos = torch.arange(qf.shape[2], device=qf.device)
+    valid = qpos[:, None] >= kpos[None, :]
+    s = torch.einsum("bhqd,bhcd->bhqc", qf, kj)
+    s = torch.where(valid, s, float("-inf"))
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))  # stays -inf if all masked
+    safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    alpha = torch.where(torch.isfinite(m), torch.exp(m - safe_m), 0.0)
+    pexp = torch.where(valid, torch.exp(s - safe_m[..., None]), 0.0)
+    ell = ell * alpha + pexp.sum(dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum("bhqc,bhcd->bhqd", pexp, vj)
+    return acc, m_new, ell
+
+
+def _sdpa_chunked(cfg: ModelConfig, q, k, v) -> torch.Tensor:
+    """Causal attention as a loop over KV chunks of ``cfg.attn_chunk``
+    keys with an online softmax (running max, denominator and output
+    accumulator in float32): the (S, S) scores never exist at once.  Each
+    chunk's step is checkpointed (recomputed in the backward, nothing
+    saved), as the JAX package remats its scan body, so the backward's
+    working set stays (B, H, S, chunk).  q (B, S, H, D); k/v (B, S, KVH,
+    D).  Returns (B, S, H, D) in q's dtype."""
+    B, Sq, H, D = q.shape
+    G = H // k.shape[2]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    C = min(cfg.attn_chunk, Sq)
+    if Sq % C:
+        raise ValueError(f"_sdpa_chunked needs S % attn_chunk == 0, got S={Sq} chunk={C}")
+    qf = (q.to(torch.float32) * (1.0 / math.sqrt(D))).transpose(1, 2)  # (B, H, S, D)
+    kf = k.to(torch.float32).transpose(1, 2)
+    vf = v.to(torch.float32).transpose(1, 2)
+    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, Sq), float("-inf"), dtype=torch.float32, device=q.device)
+    ell = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    for j in range(Sq // C):
+        kpos = torch.arange(j * C, (j + 1) * C, device=q.device)
+        acc, m, ell = checkpoint(_chunk_step, qf, kf[:, :, j * C:(j + 1) * C],
+                                 vf[:, :, j * C:(j + 1) * C], kpos, acc, m, ell,
+                                 use_reentrant=False)
+    out = acc / torch.clamp(ell, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
 def attention_train(p, cfg: ModelConfig, x, positions, freqs) -> torch.Tensor:
-    """Full-sequence causal attention (training / prefill) through the
-    flash route."""
+    """Full-sequence causal attention for training: the dense ``_sdpa``,
+    or ``_sdpa_chunked`` for ``attn_impl="chunked"`` past ``attn_chunk``
+    tokens, as the JAX package routes it."""
     check_attention(cfg)
     q, k, v = _project_qkv(p, cfg, x)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, freqs)
         k = apply_rope(k, positions, freqs)
-    out = kops.flash_attention(q, k, v, causal=True)
+    S = x.shape[1]
+    if cfg.attn_impl == "chunked" and S > cfg.attn_chunk:
+        out = _sdpa_chunked(cfg, q, k, v)
+    else:
+        out = _sdpa(cfg, q, k, v, causal_mask(S, S, device=x.device))
     return out.reshape(*x.shape[:2], cfg.q_dim) @ p["wo"].to(x.dtype)
 
 

@@ -11,9 +11,14 @@ Params are stacked ``(L, ...)`` per leaf, as the JAX package stacks them
 for ``lax.scan``, so ``convert`` carries a JAX state across leaf by leaf;
 Python loops over the layers replace the scans.  The KV cache is written
 in place (``prefill`` into the slice it is given, ``decode_step`` at each
-row's position), where the JAX functions return a new cache.  Not ported:
-the MoE, hybrid, xLSTM, VLM and audio families, sinusoidal positions, and
-the loss (training is a later slice).
+row's position), where the JAX functions return a new cache.  ``forward``
+takes each layer's params through one ``unbind`` a leaf, whose backward
+stacks the layers' gradients once, and checkpoints each block under
+``cfg.remat="full"`` (the JAX package's ``nothing_saveable``): the
+backward recomputes the block, so the forward keeps only each block's
+input.  ``next_token_loss`` is the training loss.  Not ported: the MoE,
+hybrid, xLSTM, VLM and audio families, sinusoidal positions and
+``remat="dots"``.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import embeddings as emb_lib
 from repro_torch.kernels import ops as kops
@@ -116,6 +122,16 @@ def layer_params(blocks, i: int):
     return blocks[i]
 
 
+def _unstack(blocks, n: int) -> list:
+    """The ``n`` layers' params, one ``unbind`` a stacked leaf.  Indexing
+    each layer instead would give every layer's backward an (L, ...)
+    zero gradient of each leaf to add up."""
+    if isinstance(blocks, dict):
+        per = {k: _unstack(v, n) for k, v in blocks.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return torch.unbind(blocks, 0)
+
+
 # --- embedding lookup / logits -----------------------------------------------
 
 
@@ -169,11 +185,32 @@ def forward(params, buffers, cfg: ModelConfig, batch):
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     freqs = L.rope_freqs(cfg, device=x.device)
-    for i in range(cfg.n_layers):
-        x = _block_train(layer_params(params["blocks"], i), cfg, x, positions, freqs)
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(f"remat={cfg.remat!r} is not ported (none, full)")
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    for lp in _unstack(params["blocks"], cfg.n_layers):
+        if remat:
+            x = checkpoint(_block_train, lp, cfg, x, positions, freqs, use_reentrant=False)
+        else:
+            x = _block_train(lp, cfg, x, positions, freqs)
     x = L.apply_norm(params["ln_f"], x)
     return logits_fn(params, buffers, cfg, x), torch.zeros((), dtype=torch.float32,
                                                            device=x.device)
+
+
+def next_token_loss(params, buffers, cfg: ModelConfig, batch):
+    """Causal LM loss with next-token targets: the mean over (B, S - 1) of
+    the float32 ``logsumexp`` of the logits minus the target's logit, plus
+    0.01 x the auxiliary loss.  The target's logit is gathered, where the
+    JAX package sums a one-hot product over the vocabulary: the same
+    number, since x·1 plus zeros is exact.  Returns (loss, {"ce", "aux"})."""
+    logits, aux = forward(params, buffers, cfg, batch)
+    lg = logits[:, :-1].to(torch.float32)
+    tg = batch["tokens"][:, 1:].to(torch.int64)
+    logz = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, tg[..., None])[..., 0]
+    ce = (logz - picked).mean()
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 # --- decode --------------------------------------------------------------------
