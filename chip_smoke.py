@@ -42,14 +42,22 @@
    kernel; runs least-squares CCE (Algorithms 1 and 2) at Figure 1b's
    scale against Theorem 3.1's bound.
 7. Holds the flash-attention kernel against its plain version (float32
-   and bfloat16 at both CTA heights, GQA and plain heads, D 64 and 128,
-   ragged lengths, causal and not) and times it beside
-   ``scaled_dot_product_attention`` at the LM's prefill buckets.
+   and bfloat16 at both CTA heights, GQA and plain heads, hymba's group
+   of 5 among them, D 64 and 128, ragged lengths, causal and not) and
+   times it beside ``scaled_dot_product_attention`` at the LM's prefill
+   buckets and at hymba-1.5b's heads.
 8. Serves full-width qwen2-1.5b (28 layers, CCE token table and factored
    CCE head, random weights from a seed) through the LM ``ServeEngine``:
    16 requests of 16-1900 prompt tokens over 8 slots, 16 greedy tokens
-   each; holds a 2-layer cut's prefill logits against CPU copies.
-9. Trains full-width qwen2-1.5b through ``launch.train.build_lm_trainer``
+   each; holds a 2-layer cut's prefill logits and cache against CPU copies.
+9. Serves full-width hymba-1.5b (32 layers of sliding-window attention
+   beside a selective-SSM branch, CCE token table and factored CCE head,
+   random weights from a seed) the same way: prompts past the 1024-token
+   window take the windowed ``_sdpa``, the others flash; holds a 2-layer
+   cut's prefill past the window and 4 decode steps over the ring (logits,
+   ring k/v, SSM and conv states) against CPU copies; times the SSM scan's
+   share of a prefill and the lookup at hymba's table.
+10. Trains full-width qwen2-1.5b through ``launch.train.build_lm_trainer``
    (adamw, cosine schedule, remat, a dense token tracker): 6 steps of 2 x
    4096 tokens, the CCE token table's transition (the assignment kernel
    over all 151,936 ids at d=384), 2 steps; holds the lookup backward at a
@@ -64,7 +72,8 @@ after.  Prints the kernels' JSON line, the card line and, last,
     python3 chip_smoke.py --phases flash,lm_serve
 
 runs only the named phases (of lookup, bwd, kmeans, train, loop, serve,
-methods, flash, lm_serve, lm_train) and prints neither result line.
+methods, flash, lm_serve, hybrid_serve, lm_train) and prints neither result
+line.
 
 Exits non-zero, with no result line, when there is no CUDA device, when the
 port is missing, or when any phase fails.  Imports nothing of JAX.
@@ -120,12 +129,14 @@ ASSIGN_BATCHED = (4, 1 << 18, 250, 4)  # (c, n, k, d): an assign_all chunk of a 
 ASSIGN_GENERAL = ((5000, 250, 3), (3000, 40, 16))  # (n, k, d) off the d = 4 kernel
 ASSIGN_RTOL = 1e-5  # the plain distance of the kernel's pick vs the plain minimum
 STEP_RTOL = 1e-4  # card vs CPU, per leaf, relative to the leaf's largest magnitude
-FLASH_HEADS = ((12, 2), (32, 8), (4, 4))  # (H, KVH): qwen2-1.5b, qwen3-4b/14b style, no GQA
+# (H, KVH): qwen2-1.5b, qwen3-4b/14b style, no GQA, hymba-1.5b (a group of 5)
+FLASH_HEADS = ((12, 2), (32, 8), (4, 4), (25, 5))
 FLASH_DIMS = (64, 128)
 FLASH_LENGTHS = (1, 7, 127, 128, 129, 1000, 2048)  # Sq = S, causal
 FLASH_NONCAUSAL = ((129, 129), (1000, 1000), (129, 300))  # (Sq, S) without the causal mask
 FLASH_STRIDED = 129  # the causal case at this length reads q from a (B, H, S, D) layout
 FLASH_TIMED = (128, 512, 1024, 2048)  # bf16, qwen2-1.5b's heads: the LM's prefill buckets
+FLASH_HYMBA_TIMED = (128, 512, 1024)  # bf16, hymba-1.5b's heads at D 64: its flash prefills
 # kernel vs plain on unit-normal inputs: float32 sums in another order;
 # bfloat16 rounds P to bf16 for the tensor cores and the output once
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -143,6 +154,10 @@ LM_PROMPTS = (16, 1900)  # prompt lengths, uniform: buckets 16..2048
 LM_MAX_TOKENS = 16
 LM_CHECK_LAYERS = 2  # the depth of the card-vs-CPU prefill check
 LM_CHECK_PROMPT = 256
+HYBRID_ARCH = "hymba-1.5b"  # served like LM_ARCH (LM_PROMPTS, LM_MAX_SEQ, slots, tokens)
+HYBRID_CHECK_PROMPT = 1100  # the cut's prompt: past the 1024-token window, ragged to 256
+HYBRID_CHECK_DECODE = 4  # decode steps of the cut after its prefill
+HYBRID_IDLE_PREFILLS = (1024, 1900)  # the longest flash prefill; one past the window
 # card vs CPU prefill logits, relative to the largest logit: float32 sums
 # in other orders; bfloat16 also rounds every activation (8 mantissa bits)
 LM_LOGIT_RTOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -707,7 +722,9 @@ def bwd_kernel_phase(card: str, cfg, device="cuda"):
         dn = str(dtype).split(".")[-1]
         for B in BWD_BATCHES:
             idx, dout = bwd_case(collection, B, dtype, seed=100 + B, device=device)
-            err, nums = bwd_check(card, f"{dn} B={B}", idx, dout, k, ks)
+            # the plain version's device busy (a long trace) at the train batch only
+            err, nums = bwd_check(card, f"{dn} B={B}", idx, dout, k, ks,
+                                  plain_busy=B == TRAIN_BATCH)
             max_err = max(max_err, err)
             if dtype == torch.float32 and B == TRAIN_BATCH:
                 at.update(nums)
@@ -2039,28 +2056,80 @@ def flash_row_err(got, want) -> float:
     return (diff / (want.abs().amax(-1) + 1e-3)).max().item()
 
 
-def flash_phase(card: str, device="cuda"):
-    """The flash-attention kernel against its plain version on unit-normal
-    inputs: within FLASH_TOL, bfloat16 also within FLASH_ROW_TOL of each
-    row's scale against the plain version in float32, repeatable bit for
-    bit, the causal first row equal to v's first row; a strided
-    (B, H, S, D)-layout view read in place.  Times the kernel, the plain
-    version and SDPA at FLASH_TIMED.  Returns ({dtype: max error}, {S: numbers})."""
+def flash_inputs(B, Sq, S, H, KVH, D, dtype, seed, head_major=False, device="cuda"):
+    """Unit-normal q (B, Sq, H, D), k, v (B, S, KVH, D) from a generator of
+    ``seed``; with ``head_major`` q is a (B, H, Sq, D) tensor seen as
+    (B, Sq, H, D)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    if head_major:
+        q = torch.randn((B, H, Sq, D), generator=g, device=device).to(dtype).transpose(1, 2)
+    else:
+        q = torch.randn((B, Sq, H, D), generator=g, device=device).to(dtype)
+    k = torch.randn((B, S, KVH, D), generator=g, device=device).to(dtype)
+    v = torch.randn((B, S, KVH, D), generator=g, device=device).to(dtype)
+    return q, k, v
+
+
+def flash_timed(card: str, S: int, H: int, KVH: int, D: int, device="cuda") -> dict:
+    """The kernel at B=1, causal, bf16 (S, H, KVH, D), both CTA heights,
+    beside its plain version, SDPA (which must compute the same function)
+    and its bound."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    def case(B, Sq, S, H, KVH, D, dtype, causal, seed, head_major=False):
-        g = torch.Generator(device=device).manual_seed(seed)
-        if head_major:  # (B, H, S, D) storage seen as (B, S, H, D)
-            q = torch.randn((B, H, Sq, D), generator=g, device=device).to(dtype).transpose(1, 2)
-        else:
-            q = torch.randn((B, Sq, H, D), generator=g, device=device).to(dtype)
-        k = torch.randn((B, S, KVH, D), generator=g, device=device).to(dtype)
-        v = torch.randn((B, S, KVH, D), generator=g, device=device).to(dtype)
-        return q, k, v
+    q, k, v = flash_inputs(1, S, S, H, KVH, D, torch.bfloat16, seed=10_000 + S, device=device)
+    got = fa.flash_attention(q, k, v)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    # each side rounds to bf16 on its own: two roundings apart at most
+    lib_err = (library().transpose(1, 2).float() - got.float()).abs().max().item()
+    check(lib_err <= 2 * FLASH_TOL["bfloat16"],
+          f"SDPA yardstick computes another function at S={S} H={H} ({lib_err})")
+    ms = time_ms(lambda: fa.flash_attention(q, k, v), iters=50)
+    dev = device_ms(lambda: fa.flash_attention(q, k, v), "flash_fwd_wgmma_kernel")
+    # both CTA heights, whichever the wrapper picks: 64 or 128 query rows
+    by_rows = {r: device_ms(lambda r=r: fa._launch(q, k, v, True, r),
+                            "flash_fwd_wgmma_kernel") for r in (64, 128)}
+    picked = fa.block_rows(1, S, H, torch.cuda.get_device_properties(0).multi_processor_count)
+    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v), iters=10, reps=3)
+    plain_dev = device_busy_ms(lambda: ref.flash_attention_ref(q, k, v), iters=5)
+    lib = time_ms(library, iters=50)
+    lib_dev = device_busy_ms(library, iters=20)
+    bound, bound_by = flash_bound(1, S, S, H, KVH, D, 2, True, H100_BF16_FLOPS)
+    tflops = flash_flops(1, S, S, H, D, True) / (dev * 1e-3) / 1e12
+    print(f"[{card}] flash_attention bf16 B=1 H={H} KVH={KVH} D={D} S={S} causal: "
+          f"ms={ms!r} device_ms={dev!r} (rows {picked}; "
+          f"64 rows {by_rows[64]!r}, 128 rows {by_rows[128]!r}) {tflops!r} TFLOP/s, "
+          f"{bound / dev!r} of bound_ms={bound!r} ({bound_by}) plain_ms={plain!r} "
+          f"plain_device_ms={plain_dev!r} library_ms(sdpa)={lib!r} "
+          f"library_device_ms={lib_dev!r} sdpa_vs_kernel_max_abs_diff={lib_err!r}",
+          flush=True)
+    return dict(ms=ms, device_ms=dev, device_ms_by_rows=by_rows, rows=picked, tflops=tflops,
+                bound_share=bound / dev, plain_ms=plain, plain_device_ms=plain_dev,
+                bound_ms=bound, bound_by=bound_by, library_ms=lib, library_device_ms=lib_dev)
+
+
+def flash_phase(card: str, device="cuda"):
+    """The flash-attention kernel against its plain version on unit-normal
+    inputs: within FLASH_TOL, bfloat16 also within FLASH_ROW_TOL of each
+    row's scale against the plain version in float32, repeatable bit for
+    bit, the causal first row equal to v's first row; a strided
+    (B, H, S, D)-layout view read in place.  Times the kernel, the plain
+    version and SDPA at FLASH_TIMED with qwen2-1.5b's heads and at
+    FLASH_HYMBA_TIMED with hymba-1.5b's.  Returns ({dtype: max error},
+    {S: numbers}, {S: numbers at hymba's heads})."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
 
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     max_row_err = 0.0
@@ -2074,8 +2143,9 @@ def flash_phase(card: str, device="cuda"):
                 shapes += [(sq, sk, False) for sq, sk in FLASH_NONCAUSAL]
                 for Sq, S, causal in shapes:
                     B = 1 if S >= 1000 else 2
-                    q, k, v = case(B, Sq, S, H, KVH, D, dtype, causal, seed=n_cases,
-                                   head_major=(Sq == FLASH_STRIDED and causal))
+                    q, k, v = flash_inputs(B, Sq, S, H, KVH, D, dtype, seed=n_cases,
+                                           head_major=(Sq == FLASH_STRIDED and causal),
+                                           device=device)
                     want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                                      causal=causal)
                     want = want32.to(dtype)
@@ -2110,46 +2180,11 @@ def flash_phase(card: str, device="cuda"):
           f"max_row_scaled_err {max_row_err!r} (<= {FLASH_ROW_TOL!r}), repeatable, "
           f"causal first row == v[0]",
           flush=True)
-
-    at = {}
-    H, KVH = FLASH_HEADS[0]
-    D = FLASH_DIMS[-1]
-    for S in FLASH_TIMED:
-        q, k, v = case(1, S, S, H, KVH, D, torch.bfloat16, True, seed=10_000 + S)
-        got = fa.flash_attention(q, k, v)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-
-        def library():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-
-        # each side rounds to bf16 on its own: two roundings apart at most
-        lib_err = (library().transpose(1, 2).float() - got.float()).abs().max().item()
-        check(lib_err <= 2 * FLASH_TOL["bfloat16"],
-              f"SDPA yardstick computes another function at S={S} ({lib_err})")
-        ms = time_ms(lambda: fa.flash_attention(q, k, v), iters=50)
-        dev = device_ms(lambda: fa.flash_attention(q, k, v), "flash_fwd_wgmma_kernel")
-        # both CTA heights, whichever the wrapper picks: 64 or 128 query rows
-        by_rows = {r: device_ms(lambda r=r: fa._launch(q, k, v, True, r),
-                                "flash_fwd_wgmma_kernel") for r in (64, 128)}
-        picked = fa.block_rows(1, S, H, torch.cuda.get_device_properties(0).multi_processor_count)
-        plain = time_ms(lambda: ref.flash_attention_ref(q, k, v), iters=10, reps=3)
-        plain_dev = device_busy_ms(lambda: ref.flash_attention_ref(q, k, v), iters=5)
-        lib = time_ms(library, iters=50)
-        lib_dev = device_busy_ms(library, iters=20)
-        bound, bound_by = flash_bound(1, S, S, H, KVH, D, 2, True, H100_BF16_FLOPS)
-        tflops = flash_flops(1, S, S, H, D, True) / (dev * 1e-3) / 1e12
-        at[S] = dict(ms=ms, device_ms=dev, device_ms_by_rows=by_rows, rows=picked, tflops=tflops,
-                     bound_share=bound / dev, plain_ms=plain, plain_device_ms=plain_dev,
-                     bound_ms=bound, bound_by=bound_by, library_ms=lib,
-                     library_device_ms=lib_dev)
-        print(f"[{card}] flash_attention bf16 B=1 H={H} KVH={KVH} D={D} S={S} causal: "
-              f"ms={ms!r} device_ms={dev!r} (rows {picked}; "
-              f"64 rows {by_rows[64]!r}, 128 rows {by_rows[128]!r}) {tflops!r} TFLOP/s, "
-              f"{bound / dev!r} of bound_ms={bound!r} ({bound_by}) plain_ms={plain!r} "
-              f"plain_device_ms={plain_dev!r} library_ms(sdpa)={lib!r} "
-              f"library_device_ms={lib_dev!r} sdpa_vs_kernel_max_abs_diff={lib_err!r}",
-              flush=True)
-    return max_err, at
+    at = {S: flash_timed(card, S, *FLASH_HEADS[0], FLASH_DIMS[-1], device=device)
+          for S in FLASH_TIMED}
+    at_hymba = {S: flash_timed(card, S, *FLASH_HEADS[-1], FLASH_DIMS[0], device=device)
+                for S in FLASH_HYMBA_TIMED}
+    return max_err, at, at_hymba
 
 
 def _lm_prompts(cfg):
@@ -2197,19 +2232,22 @@ def lm_fwd_numbers(card: str, label: str, idx, tables) -> dict:
     lib_dev_warm = device_busy_ms(library, iters=20)
     bound, bound_by = lookup_bound(idx, tables)
     print(f"[{card}] cce_lookup_fwd LM shape c={c} T={T} k={tables.shape[2]} "
-          f"dsub={tables.shape[3]} f32 B={n} ({label}): equal to plain, ms={ms!r} "
+          f"dsub={tables.shape[3]} f32 {cl_path(tables)} B={n} ({label}): equal to plain, "
+          f"ms={ms!r} "
           f"device_ms(L2 flushed)={dev!r} device_ms(warm)={dev_warm!r} plain_ms={plain!r} "
           f"plain_device_ms={plain_dev!r} "
           f"bound_ms={bound!r} ({bound_by}) library_ms(embedding_bag)={lib!r} "
           f"library_device_ms(L2 flushed)={lib_dev!r} library_device_ms(warm)="
           f"{lib_dev_warm!r}", flush=True)
-    return dict(B=n, max_abs_err=err, ms=ms, device_ms=dev, device_ms_warm=dev_warm, plain_ms=plain,
+    return dict(B=n, layout=cl_path(tables), max_abs_err=err, ms=ms, device_ms=dev,
+                device_ms_warm=dev_warm, plain_ms=plain,
                 plain_device_ms=plain_dev, bound_ms=bound, bound_by=bound_by,
                 library_ms=lib, library_device_ms=lib_dev, library_device_ms_warm=lib_dev_warm)
 
 
-def lm_lookup_numbers(card: str, cfg, params, buffers, prompts) -> dict:
-    """``lm_fwd_numbers`` at a 2048-token prefill and an 8-slot decode."""
+def lm_lookup_numbers(card: str, cfg, params, buffers, prompts, prefill_rows: int) -> dict:
+    """``lm_fwd_numbers`` at a prefill's ``prefill_rows`` tokens and an
+    LM_MAX_BATCH-slot decode tick."""
     import numpy as np
     import torch
 
@@ -2219,42 +2257,112 @@ def lm_lookup_numbers(card: str, cfg, params, buffers, prompts) -> dict:
     tables = params["emb"]["tables"].contiguous()
     toks = np.concatenate(prompts)
     out = {}
-    for name, n in (("prefill", LM_MAX_SEQ), ("decode", LM_MAX_BATCH)):
+    for name, n in (("prefill", prefill_rows), ("decode", LM_MAX_BATCH)):
         ids = torch.from_numpy(np.resize(toks, n).astype(np.int64)).to(tables.device)
         idx = table._rows(buffers["emb"], ids).reshape(table.c, -1, 2)
-        out[name] = lm_fwd_numbers(card, name, idx, tables)
+        out[name] = lm_fwd_numbers(card, f"{cfg.name} {name}", idx, tables)
     return out
 
 
-def lm_serve_phase(card: str, cfg, device="cuda"):
-    """Full-width LM serving through ``ServeEngine``: LM_REQUESTS prompts
-    over LM_MAX_BATCH slots, greedy, LM_MAX_TOKENS tokens each, with the
-    launch counts reset just before the run and read just after; then a
-    request served alone against itself in the batch, a LM_CHECK_LAYERS
-    cut's prefill logits on the card against CPU copies (float32 and the
-    served bfloat16), the idle share of one decode tick and one full-bucket
-    prefill, and the lookup kernel at the LM's shape.  Returns (launches,
-    lookup numbers)."""
+def _max_rel(got, want) -> float:
+    """max |got - want| over the largest |want|, both as float32 on the CPU."""
+    want = want.float()
+    return ((got.float().cpu() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def lm_cut_check(card: str, label: str, cfg, params, buffers, prompt, n_decode: int,
+                 device="cuda") -> dict:
+    """A LM_CHECK_LAYERS cut of the served model on the card against CPU
+    copies, in float32 and bfloat16: a prefill of ``prompt``, then
+    ``n_decode`` greedy decode steps (the CPU's picks fed to both), the
+    logits and every cache leaf after each call within LM_LOGIT_RTOL of the
+    CPU's largest magnitude.  Returns {dtype: worst relative error}."""
     import dataclasses
 
     import numpy as np
     import torch
 
-    from repro_torch.kernels import ops
     from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+
+    cut_p = dict(params, blocks=tree_map(lambda t: t[:LM_CHECK_LAYERS], params["blocks"]))
+    cpu_p = tree_map(lambda t: t.detach().to("cpu", copy=True), cut_p)
+    cpu_b = tree_map(lambda t: t.detach().to("cpu", copy=True), buffers)
+    S = len(prompt)
+    toks = torch.from_numpy(np.asarray(prompt, np.int64)[None])
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        cut = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS, dtype=dtype)
+        card_c, cpu_c = (lm.init_cache(cut, 1, S + n_decode, device=d) for d in (device, "cpu"))
+        errs = {}
+
+        def compare(what, on_card, on_cpu):
+            check(bool(torch.isfinite(on_card).all()), f"{label} cut {what} ({dn}) not finite")
+            err = _max_rel(on_card, on_cpu)
+            check(err <= LM_LOGIT_RTOL[dn], f"{LM_CHECK_LAYERS}-layer {label} cut {what} card "
+                  f"vs CPU ({dn}): {err} of the largest > {LM_LOGIT_RTOL[dn]}")
+            errs[what] = max(errs.get(what, 0.0), err)
+
+        with torch.inference_mode():
+            on_card, _ = lm.prefill(cut_p, buffers, cut, toks.to(device), card_c)
+            on_cpu, _ = lm.prefill(cpu_p, cpu_b, cut, toks, cpu_c)
+            compare("prefill logits", on_card, on_cpu)
+            for key in cpu_c:
+                compare(f"prefill {key}", card_c[key], cpu_c[key])
+            for t in range(n_decode):
+                nxt = on_cpu.float().argmax(-1)
+                pos = torch.tensor([S + t])
+                on_card, _ = lm.decode_step(cut_p, buffers, cut, nxt.to(device), pos.to(device),
+                                            card_c)
+                on_cpu, _ = lm.decode_step(cpu_p, cpu_b, cut, nxt, pos, cpu_c)
+                compare("decode logits", on_card, on_cpu)
+                for key in cpu_c:
+                    compare(f"decode {key}", card_c[key], cpu_c[key])
+        worst[dn] = max(errs.values())
+        print(f"[{card}] {label} {LM_CHECK_LAYERS}-layer cut, a {S}-token prefill"
+              f"{f' and {n_decode} decode steps' if n_decode else ''}, {dn}: card vs CPU, "
+              f"each relative to the CPU's largest magnitude (tolerance {LM_LOGIT_RTOL[dn]}): "
+              + ", ".join(f"{k} {v!r}" for k, v in errs.items()), flush=True)
+    return worst
+
+
+def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM_CHECK_PROMPT,
+                   check_decode=0, idle_prefills=(LM_MAX_SEQ,)):
+    """Full-width LM serving through ``ServeEngine``: LM_REQUESTS prompts
+    over LM_MAX_BATCH slots, greedy, LM_MAX_TOKENS tokens each, with the
+    launch counts reset just before the run and read just after (flash
+    once a layer for each prefill that takes it: all but those past a
+    sliding window); then a request served alone against itself in the
+    batch, the host time, device busy and idle share of one decode tick and
+    of a prefill of each of ``idle_prefills`` tokens (for the hybrid
+    family also the SSM scan's share), the lookup kernel at the model's
+    table, and a LM_CHECK_LAYERS cut on the card against CPU copies
+    (``lm_cut_check``: a ``check_prompt``-token prefill, then
+    ``check_decode`` decode steps).  Returns (launches, lookup numbers,
+    serve numbers)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models import ssm as ssm_lib
     from repro_torch.serve.engine import Request, ServeEngine
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(LM_SEED)
     params, buffers = lm.init(cfg, gen, device=device)
     n_params = sum(t.numel() for t in tree_leaves(params))
     on_card = torch.cuda.memory_allocated() / 2**30 if device == "cuda" else 0.0
-    print(f"[{card}] lm init: {cfg.name} {cfg.n_layers}L d={cfg.d_model} {cfg.n_heads}H/"
+    extra = (f" ssm inner {cfg.ssm_inner} state {cfg.ssm_state} conv {cfg.ssm_conv}"
+             if cfg.family == "hybrid" else "")
+    print(f"[{card}] {label} init: {cfg.name} {cfg.n_layers}L d={cfg.d_model} {cfg.n_heads}H/"
           f"{cfg.n_kv_heads}KV hd={cfg.head_dim} ff={cfg.d_ff} vocab={cfg.vocab} "
-          f"emb={cfg.emb_method}: {n_params} params (analytic, without biases: "
-          f"{cfg.n_params()}), {on_card:.2f} GiB on the card, "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+          f"window={cfg.sliding_window}{extra} emb={cfg.emb_method}: {n_params} params "
+          f"(analytic, without biases and branch norms: {cfg.n_params()}), {on_card:.2f} GiB "
+          f"on the card, {time.perf_counter() - t0:.3f} s", flush=True)
     prompts = _lm_prompts(cfg)
 
     def engine():
@@ -2287,6 +2395,8 @@ def lm_serve_phase(card: str, cfg, device="cuda"):
 
     eng._prefill_one, eng._decode = timed_prefill, timed_decode
     reqs = [Request(uid=i, prompt=p, max_tokens=LM_MAX_TOKENS) for i, p in enumerate(prompts)]
+    n_flash = sum(1 for p in prompts if not cfg.sliding_window or len(p) <= cfg.sliding_window)
+    torch.cuda.reset_peak_memory_stats()
     ops.LAUNCHES.clear()
     t0 = time.perf_counter()
     for r in reqs:
@@ -2294,11 +2404,12 @@ def lm_serve_phase(card: str, cfg, device="cuda"):
     done = eng.run()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
     n_dec = len(decode_ms)
     check(len(done) == LM_REQUESTS and eng.prefills == LM_REQUESTS,
           f"served {len(done)} requests with {eng.prefills} prefills")
-    check(launches.get("flash_attention") == cfg.n_layers * eng.prefills,
-          f"flash_attention launches {launches} != {cfg.n_layers} x {eng.prefills} prefills")
+    check(launches.get("flash_attention") == cfg.n_layers * n_flash,
+          f"flash_attention launches {launches} != {cfg.n_layers} x {n_flash} prefills")
     check(launches.get("cce_lookup_fwd") == eng.prefills + n_dec,
           f"cce_lookup_fwd launches {launches} != {eng.prefills} prefills + {n_dec} decodes")
     check(all(len(r.generated) == LM_MAX_TOKENS and all(0 <= t < cfg.vocab for t in r.generated)
@@ -2306,20 +2417,24 @@ def lm_serve_phase(card: str, cfg, device="cuda"):
     n_tok = sum(len(r.generated) for r in done)
     lat = np.array([r.latency_s for r in done]) * 1e3
     hist = eng.flush_stats()
-    buckets = {b: statistics.median(v) for b, v in sorted(prefill_ms.items())}
+    by_len = {b: statistics.median(v) for b, v in sorted(prefill_ms.items())}
     counts = {b: len(v) for b, v in sorted(prefill_ms.items())}
-    print(f"[{card}] lm serve: {LM_REQUESTS} requests (prompts {sorted(len(p) for p in prompts)}) "
-          f"over {LM_MAX_BATCH} slots, max_seq {LM_MAX_SEQ}, {n_tok} tokens in {wall!r} s "
-          f"({n_tok / wall!r} tokens/s), {eng.prefills} prefills, {n_dec} decode ticks; "
-          f"launches {launches}", flush=True)
-    print(f"[{card}] lm serve prefill host ms by bucket (median, count): "
-          + ", ".join(f"{b}: {buckets[b]!r} ({counts[b]})" for b in buckets)
+    print(f"[{card}] {label} serve: {LM_REQUESTS} requests (prompts "
+          f"{sorted(len(p) for p in prompts)}) over {LM_MAX_BATCH} slots, max_seq {LM_MAX_SEQ}, "
+          f"{n_tok} tokens in {wall!r} s ({n_tok / wall!r} tokens/s), {eng.prefills} prefills "
+          f"({n_flash} through flash), {n_dec} decode ticks; launches {launches}; peak "
+          f"{peak!r} GB allocated", flush=True)
+    print(f"[{card}] {label} serve prefill host ms by prefill length (median, count): "
+          + ", ".join(f"{b}: {by_len[b]!r} ({counts[b]})" for b in by_len)
           + f"; decode tick host ms median {statistics.median(decode_ms)!r} "
           f"(min {min(decode_ms)!r}, max {max(decode_ms)!r})", flush=True)
-    print(f"[{card}] lm serve request latency (admit to retire, host clock): histogram "
+    print(f"[{card}] {label} serve request latency (admit to retire, host clock): histogram "
           f"p50={hist['p50']!r} s p99={hist['p99']!r} s (upper bucket edges); exact "
           f"p50={float(np.percentile(lat, 50))!r} ms p99={float(np.percentile(lat, 99))!r} ms",
           flush=True)
+    numbers = dict(tokens_per_s=n_tok / wall, p50_ms=float(np.percentile(lat, 50)),
+                   p99_ms=float(np.percentile(lat, 99)), peak_gb=peak,
+                   decode_tick_ms=statistics.median(decode_ms), prefill_ms=by_len)
 
     # a request served alone gives the tokens it gave in the batch
     solo_req = max(done, key=lambda r: len(r.prompt))
@@ -2329,14 +2444,18 @@ def lm_serve_phase(card: str, cfg, device="cuda"):
     check(alone == solo_req.generated,
           f"request {solo_req.uid} alone {alone} != in the batch {solo_req.generated}")
     del solo
-    print(f"[{card}] lm serve: request {solo_req.uid} ({len(solo_req.prompt)} prompt tokens) "
-          f"alone gives its batch tokens {alone}", flush=True)
+    print(f"[{card}] {label} serve: request {solo_req.uid} ({len(solo_req.prompt)} prompt "
+          f"tokens) alone gives its batch tokens {alone}", flush=True)
 
-    # idle share of one decode tick and of one full-bucket prefill
+    # host, device busy and idle share of one decode tick and of prefills
     with torch.inference_mode():
-        toks = np.resize(np.concatenate(prompts), (1, LM_MAX_SEQ)).astype(np.int64)
-        for name, fn in (("decode tick", orig_decode),
-                         (f"prefill {LM_MAX_SEQ}", lambda: orig_prefill(0, toks, LM_MAX_SEQ - 1))):
+        flat = np.concatenate(prompts)
+        cases = [("decode tick", orig_decode, None)]
+        for n in idle_prefills:
+            toks = np.resize(flat, (1, n)).astype(np.int64)
+            cases.append((f"prefill {n}", lambda t=toks: orig_prefill(0, t, t.shape[1] - 1),
+                          toks))
+        for name, fn, toks in cases:
             fn()
             host = []
             for _ in range(3):
@@ -2347,34 +2466,43 @@ def lm_serve_phase(card: str, cfg, device="cuda"):
                 host.append((time.perf_counter() - t) * 1e3)
             busy = device_busy_ms(fn)
             h = statistics.median(host)
-            print(f"[{card}] lm serve {name}: host {h!r} ms, device busy {busy!r} ms "
-                  f"(idle share {1 - busy / h!r})", flush=True)
+            numbers[name] = dict(host_ms=h, busy_ms=busy, idle_share=1 - busy / h)
+            ssm = ""
+            if toks is not None and cfg.family == "hybrid":
+                # layer 0's SSM branch and its chunked scan alone, on that layer's
+                # own input, times the layers
+                lp = lm.layer_params(params["blocks"], 0)
+                x = lm.embed(params, buffers, cfg, torch.from_numpy(toks).to(device))
+                hin = L.apply_norm(lp["ln1"], x)
+                xz = hin @ lp["ssm"]["in_proj"].to(hin.dtype)
+                dt, B_t, C_t, _, xc, _ = ssm_lib._selective_terms(lp["ssm"], cfg, xz)
+                A = -torch.exp(lp["ssm"]["A_log"].float())
+                terms = (dt, B_t.float(), C_t.float(), xc.float(), A)
+                branch = cfg.n_layers * device_busy_ms(
+                    lambda: ssm_lib.ssm_train(lp["ssm"], cfg, hin))
+                scan = cfg.n_layers * device_busy_ms(lambda: ssm_lib.selective_scan(*terms))
+                numbers[name].update(ssm_branch_busy_ms=branch, ssm_scan_busy_ms=scan,
+                                     ssm_scan_share=scan / busy)
+                ssm = (f"; the SSM branch {branch!r} ms busy over {cfg.n_layers} layers "
+                       f"({branch / busy!r} of busy), its chunked scan {scan!r} ms "
+                       f"({scan / busy!r} of busy)")
+            print(f"[{card}] {label} serve {name}: host {h!r} ms, device busy {busy!r} ms "
+                  f"(idle share {1 - busy / h!r}){ssm}", flush=True)
 
-    lookup = lm_lookup_numbers(card, cfg, params, buffers, prompts)
+    lookup = lm_lookup_numbers(card, cfg, params, buffers, prompts, max(idle_prefills))
+    numbers["cut_max_rel_err"] = lm_cut_check(
+        card, label, cfg, params, buffers, np.resize(prompts[-1], check_prompt), check_decode,
+        device=device)
+    return launches, lookup, numbers
 
-    # prefill logits of a LM_CHECK_LAYERS cut: the card against CPU copies
-    cut_p = dict(params, blocks=tree_map(lambda t: t[:LM_CHECK_LAYERS], params["blocks"]))
-    cpu_p = tree_map(lambda t: t.detach().to("cpu", copy=True), cut_p)
-    cpu_b = tree_map(lambda t: t.detach().to("cpu", copy=True), buffers)
-    toks = torch.from_numpy(np.resize(prompts[-1], (1, LM_CHECK_PROMPT)).astype(np.int64))
-    for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).split(".")[-1]
-        cut = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS, dtype=dtype)
-        with torch.inference_mode():
-            on_card, _ = lm.prefill(cut_p, buffers, cut, toks.to(device),
-                                    lm.init_cache(cut, 1, LM_CHECK_PROMPT, device=device))
-            on_cpu, _ = lm.prefill(cpu_p, cpu_b, cut, toks,
-                                   lm.init_cache(cut, 1, LM_CHECK_PROMPT, device="cpu"))
-        err = (on_card.float().cpu() - on_cpu.float()).abs().max().item()
-        top = on_cpu.float().abs().max().item()
-        check(bool(torch.isfinite(on_card).all()) and err <= LM_LOGIT_RTOL[dn] * top,
-              f"{LM_CHECK_LAYERS}-layer prefill logits card vs CPU ({dn}): max abs diff {err} "
-              f"> {LM_LOGIT_RTOL[dn]} x largest {top}")
-        print(f"[{card}] lm prefill logits, {LM_CHECK_LAYERS}-layer cut, {LM_CHECK_PROMPT} "
-              f"tokens, {dn}: card vs CPU max abs diff {err!r} (largest logit {top!r}, "
-              f"relative {err / top!r}, tolerance {LM_LOGIT_RTOL[dn]})", flush=True)
-    del cpu_p, cpu_b, cut_p, eng
-    return launches, lookup
+
+def hybrid_serve_phase(card: str, cfg, device="cuda"):
+    """``lm_serve_phase`` on the hybrid family (hymba-1.5b): prompts past
+    the window take ``_sdpa`` under the windowed mask, those within it the
+    flash kernel; the cut's check runs a prompt past the window and not a
+    multiple of the SSM's chunk, then decode steps over the ring."""
+    return lm_serve_phase(card, cfg, device, label="hybrid", check_prompt=HYBRID_CHECK_PROMPT,
+                          check_decode=HYBRID_CHECK_DECODE, idle_prefills=HYBRID_IDLE_PREFILLS)
 
 
 def long_kernel_call(fn, kernel_name: str):
@@ -2787,7 +2915,7 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call it replaces)
                         "src/repro/kernels/flash_attention.py:97"),
 }
 PHASES = ("lookup", "bwd", "kmeans", "train", "loop", "serve", "methods", "flash", "lm_serve",
-          "lm_train")
+          "hybrid_serve", "lm_train")
 
 
 def main(argv=None) -> int:
@@ -2851,6 +2979,9 @@ def main(argv=None) -> int:
     lm_out = phase("lm_serve", lm_serve_phase, card, configs.get(LM_ARCH))
     if lm_out is not None:
         launches["lm_serve"] = lm_out[0]
+    hybrid = phase("hybrid_serve", hybrid_serve_phase, card, configs.get(HYBRID_ARCH))
+    if hybrid is not None:
+        launches["hybrid_serve"] = hybrid[0]
     lm_train = phase("lm_train", lm_train_phase, card, configs.get(LM_ARCH))
     if lm_train is not None:
         launches.update(lm_train[0])
@@ -2859,7 +2990,8 @@ def main(argv=None) -> int:
               f"(a partial run: no result line)")
         return 0
     (fwd_err, fwd_at), (bwd_err, bwd_at), (assign_err, assign_at) = fwd, bwd, assign
-    (flash_err, flash_at), lm_lookup = flash, lm_out[1]
+    flash_err, flash_at, flash_hymba_at = flash
+    lm_lookup, hybrid_lookup = lm_out[1], hybrid[1]
     _, methods_err, methods_at, _ = methods
     _, lm_fwd_at, lm_bwd_err, lm_bwd_at, lm_assign_err, lm_assign_at = lm_train
 
@@ -2875,21 +3007,26 @@ def main(argv=None) -> int:
     steps = ("train", "train_after_transition", "loop", "methods", "lm_train")
     S = FLASH_TIMED[-1]
     kernels = [
-        entry("cce_lookup_fwd", steps, max(fwd_err, methods_err, lm_fwd_at["max_abs_err"]),
+        entry("cce_lookup_fwd", steps + ("hybrid_serve",),
+              max(fwd_err, methods_err, lm_fwd_at["max_abs_err"],
+                  *(v["max_abs_err"] for v in hybrid_lookup.values())),
               fwd_at[TRAIN_BATCH], batch=TRAIN_BATCH, at_serve_batch=fwd_at[SERVE_BATCH],
-              at_lm_shape=lm_lookup, at_lm_train_shape=lm_fwd_at,
+              at_lm_shape=lm_lookup, at_lm_train_shape=lm_fwd_at, at_hymba_shape=hybrid_lookup,
               **{f"at_{m}_shape": methods_at[m]["fwd"] for m in METHOD_KERNEL_SHAPES}),
         entry("cce_lookup_bwd", steps, max(bwd_err, methods_err, lm_bwd_err), bwd_at,
               batch=TRAIN_BATCH, at_lm_train_shape=lm_bwd_at,
               **{f"at_{m}_shape": methods_at[m]["bwd"] for m in METHOD_KERNEL_SHAPES}),
         entry("kmeans_assign", ("transition", "loop", "methods", "lm_train"),
               max(assign_err, lm_assign_err), assign_at, at_lm_table_shape=lm_assign_at),
-        entry("flash_attention", ("lm_serve",), flash_err["bfloat16"], flash_at[S],
+        entry("flash_attention", ("lm_serve", "hybrid_serve"), flash_err["bfloat16"], flash_at[S],
               max_abs_err_float32=flash_err["float32"],
               shape=dict(B=1, S=S, H=FLASH_HEADS[0][0], KVH=FLASH_HEADS[0][1], D=FLASH_DIMS[-1],
                          dtype="bfloat16", causal=True),
               library="scaled_dot_product_attention",
-              at_other_lengths={s: flash_at[s] for s in FLASH_TIMED[:-1]}),
+              at_other_lengths={s: flash_at[s] for s in FLASH_TIMED[:-1]},
+              at_hymba_shape=dict(shape=dict(B=1, H=FLASH_HEADS[-1][0], KVH=FLASH_HEADS[-1][1],
+                                             D=FLASH_DIMS[0], dtype="bfloat16", causal=True),
+                                  by_length=flash_hymba_at)),
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_run:.1f} s")
     print(f"card: {card}")

@@ -1,26 +1,26 @@
 """LM config registry: ``get(name)`` -> full-size ModelConfig,
 ``get_reduced(name)`` -> its CPU test variant.  ``ARCHS`` lists the
-architectures the port serves and trains (the dense family);
-``UNPORTED`` names the JAX package's other configurations by family, and
-both functions raise on them.  The DLRM configuration lives in
-``configs/dlrm_criteo.py``."""
+architectures the port serves and trains (the dense family and the
+hybrid family's hymba-1.5b); ``UNPORTED`` names the JAX package's other
+configurations by family, and both functions raise on them.  The DLRM
+configuration lives in ``configs/dlrm_criteo.py``."""
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import qwen2_1_5b, qwen3_4b, qwen3_14b
+from repro_torch.configs import hymba_1_5b, qwen2_1_5b, qwen3_4b, qwen3_14b
 
 ARCHS = {
     "qwen2-1.5b": qwen2_1_5b.CONFIG,
     "qwen3-4b": qwen3_4b.CONFIG,
     "qwen3-14b": qwen3_14b.CONFIG,
+    "hymba-1.5b": hymba_1_5b.CONFIG,
 }
 
 #: The JAX package's configurations that the port lacks -> their family
 #: (ROADMAP Queue 1 #3; command-r-35b is dense, but does not fit one card).
 UNPORTED = {
     "command-r-35b": "dense",
-    "hymba-1.5b": "hybrid",
     "musicgen-medium": "audio",
     "paligemma-3b": "vlm",
     "phi3.5-moe-42b-a6.6b": "moe",

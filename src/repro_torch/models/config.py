@@ -3,7 +3,7 @@
 
 One frozen dataclass carries every field of the JAX package's, so a
 config crosses between the packages field by field; the port serves the
-dense family so far (``models/lm.py`` raises on the rest).  Configs are
+dense and hybrid families so far (``models/lm.py`` raises on the rest).  Configs are
 built in ``repro_torch/configs/<arch>.py``; ``reduced()`` gives the
 small same-family variant the CPU tests run.
 """
@@ -94,15 +94,34 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    @property
+    def ssm_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def is_recurrent(self) -> bool:
+        """True if decode state is O(1) in sequence length (no KV cache)."""
+        return self.family == "xlstm"
+
+    @property
+    def subquadratic(self) -> bool:
+        """Eligible for long_500k (sliding-window or recurrent)."""
+        return self.family in ("xlstm",) or (
+            self.family == "hybrid" and self.sliding_window > 0
+        )
+
     def n_params(self) -> int:
-        """Total parameter count of a dense-family model (analytic,
-        matches ``lm.init``)."""
-        if self.family != "dense":
+        """Total parameter count of a dense- or hybrid-family model
+        (analytic, matches ``lm.init``)."""
+        if self.family not in ("dense", "hybrid"):
             raise NotImplementedError(f"n_params of family {self.family!r} is not ported")
         d, L, hd = self.d_model, self.n_layers, self.head_dim
         attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
-        ffn = (3 if self.act == "swiglu" else 2) * d * self.d_ff
-        blocks = L * (attn + ffn + 2 * d)
+        if self.family == "hybrid":
+            blocks = L * (attn + _ssm_params(self) + 3 * d * self.d_ff + 2 * d)
+        else:
+            ffn = (3 if self.act == "swiglu" else 2) * d * self.d_ff
+            blocks = L * (attn + ffn + 2 * d)
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         if self.emb_method != "full" and self.emb_budget:
             emb = self.emb_budget * (1 if self.tie_embeddings else 2)
@@ -131,3 +150,17 @@ class ModelConfig:
         )
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+def _ssm_params(cfg: ModelConfig) -> int:
+    di, ds = cfg.ssm_inner, cfg.ssm_state
+    d = cfg.d_model
+    # in_proj (x+z), conv, dt/B/C proj, A, D, out_proj
+    return (
+        d * 2 * di
+        + cfg.ssm_conv * di
+        + di * (2 * ds + 1)
+        + di * ds
+        + di
+        + di * d
+    )

@@ -12,9 +12,10 @@ past ``attn_chunk`` tokens, ``_sdpa_chunked``'s online softmax over KV
 chunks; both are plain torch, as the JAX package computes them outside
 any kernel, and both take a gradient.  The LM's prefill calls the flash
 kernel itself (``models/lm.py``), which has no backward.  Decode
-attention over the cache is ``_sdpa`` too.  Not ported: the sharding
-hints and sinusoidal positions; ``attn_impl="dense_bf16p"``, sliding
-windows and logit soft-caps raise ``NotImplementedError``.
+attention over the cache is ``_sdpa`` too; with a sliding window the
+cache is a ring of ``min(max_seq, window)`` rows.  Not ported: the
+sharding hints and sinusoidal positions; ``attn_impl="dense_bf16p"`` and
+logit soft-caps raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,8 +44,6 @@ def check_attention(cfg: ModelConfig) -> None:
     """Raise on the attention variants this slice does not port."""
     if cfg.attn_impl not in ("dense", "chunked"):
         raise NotImplementedError(f"attn_impl={cfg.attn_impl!r} is not ported")
-    if cfg.sliding_window:
-        raise NotImplementedError("sliding-window attention is not ported")
     if cfg.logit_softcap:
         raise NotImplementedError("attention logit soft-capping is not ported")
 
@@ -164,21 +163,27 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
     return torch.einsum("bngqk,bknd->bqngd", w, v).reshape(B, Sq, H, D)
 
 
-def causal_mask(Sq: int, Sk: int, offset: int = 0, device="cuda"):
-    """(Sq, Sk) boolean mask.  ``offset`` = absolute position of query 0
-    relative to key 0."""
+def causal_mask(Sq: int, Sk: int, sliding_window: int = 0, offset: int = 0, device="cuda"):
+    """(Sq, Sk) boolean mask; with ``sliding_window`` w a query also sees
+    only the w keys up to its own.  ``offset`` = absolute position of
+    query 0 relative to key 0."""
     qi = torch.arange(Sq, device=device)[:, None] + offset
     kj = torch.arange(Sk, device=device)[None, :]
-    return qi >= kj
+    m = qi >= kj
+    if sliding_window:
+        m = m & (qi - kj < sliding_window)
+    return m
 
 
-def _chunk_step(qf, kj, vj, kpos, acc, m, ell):
+def _chunk_step(qf, kj, vj, kpos, acc, m, ell, window):
     """One KV chunk of ``_sdpa_chunked``'s online softmax: qf (B, H, S, D)
     float32 and pre-scaled, kj/vj (B, H, C, D) float32, kpos (C,) key
-    positions; carries acc (B, H, S, D), the running max m and
-    denominator ell (B, H, S)."""
+    positions, ``window`` the sliding window (0: none); carries acc (B, H,
+    S, D), the running max m and denominator ell (B, H, S)."""
     qpos = torch.arange(qf.shape[2], device=qf.device)
     valid = qpos[:, None] >= kpos[None, :]
+    if window:
+        valid &= qpos[:, None] - kpos[None, :] < window
     s = torch.einsum("bhqd,bhcd->bhqc", qf, kj)
     s = torch.where(valid, s, float("-inf"))
     m_new = torch.maximum(m, torch.amax(s, dim=-1))  # stays -inf if all masked
@@ -216,7 +221,7 @@ def _sdpa_chunked(cfg: ModelConfig, q, k, v) -> torch.Tensor:
         kpos = torch.arange(j * C, (j + 1) * C, device=q.device)
         acc, m, ell = checkpoint(_chunk_step, qf, kf[:, :, j * C:(j + 1) * C],
                                  vf[:, :, j * C:(j + 1) * C], kpos, acc, m, ell,
-                                 use_reentrant=False)
+                                 cfg.sliding_window, use_reentrant=False)
     out = acc / torch.clamp(ell, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
 
@@ -234,7 +239,7 @@ def attention_train(p, cfg: ModelConfig, x, positions, freqs) -> torch.Tensor:
     if cfg.attn_impl == "chunked" and S > cfg.attn_chunk:
         out = _sdpa_chunked(cfg, q, k, v)
     else:
-        out = _sdpa(cfg, q, k, v, causal_mask(S, S, device=x.device))
+        out = _sdpa(cfg, q, k, v, causal_mask(S, S, cfg.sliding_window, device=x.device))
     return out.reshape(*x.shape[:2], cfg.q_dim) @ p["wo"].to(x.dtype)
 
 
@@ -242,7 +247,9 @@ def attention_decode(p, cfg: ModelConfig, x, pos, cache_k, cache_v, freqs):
     """One-token decode with a KV cache.
 
     x (B, 1, d); pos (B,) int positions; cache_k/v (B, S_max, KVH, D),
-    written in place at each row's position.  Returns (out (B, 1, d),
+    written in place at each row's position, or, with a sliding window,
+    at ``pos % S_max`` of the ring (S_max = min(max_seq, window)), every
+    slot of which is live once ``pos >= S_max``.  Returns (out (B, 1, d),
     cache_k, cache_v)."""
     check_attention(cfg)
     B = x.shape[0]
@@ -251,10 +258,14 @@ def attention_decode(p, cfg: ModelConfig, x, pos, cache_k, cache_v, freqs):
         q = apply_rope(q, pos[:, None], freqs)
         k = apply_rope(k, pos[:, None], freqs)
     S_max = cache_k.shape[1]
+    ring = bool(cfg.sliding_window)
+    slot = pos % S_max if ring else pos
     bidx = torch.arange(B, device=x.device)
-    cache_k[bidx, pos] = k[:, 0]
-    cache_v[bidx, pos] = v[:, 0]
-    valid = torch.arange(S_max, device=x.device)[None, :] <= pos[:, None]
+    cache_k[bidx, slot] = k[:, 0]
+    cache_v[bidx, slot] = v[:, 0]
+    valid = torch.arange(S_max, device=x.device)[None, :] <= slot[:, None]
+    if ring:
+        valid = valid | (pos[:, None] >= S_max)
     out = _sdpa(cfg, q, cache_k, cache_v, valid[:, None, None, :])
     out = out.reshape(B, 1, cfg.q_dim) @ p["wo"].to(x.dtype)
     return out, cache_k, cache_v

@@ -1,5 +1,6 @@
-"""Decoder LM of the dense family (qwen2/qwen3 style), the counterpart of
-the JAX package's ``repro/models/lm.py``.
+"""Decoder LM of the dense family (qwen2/qwen3 style) and the hybrid family
+(hymba: sliding-window attention beside a selective-SSM branch in each
+layer), the counterpart of the JAX package's ``repro/models/lm.py``.
 
 The input embedding and the output head are the paper's integration
 points: ``cfg.emb_method`` "cce" makes the token table a CCE table, looked
@@ -9,16 +10,16 @@ d matmul); "full" keeps both uncompressed.
 
 Params are stacked ``(L, ...)`` per leaf, as the JAX package stacks them
 for ``lax.scan``, so ``convert`` carries a JAX state across leaf by leaf;
-Python loops over the layers replace the scans.  The KV cache is written
+Python loops over the layers replace the scans.  The cache is written
 in place (``prefill`` into the slice it is given, ``decode_step`` at each
-row's position), where the JAX functions return a new cache.  ``forward``
-takes each layer's params through one ``unbind`` a leaf, whose backward
-stacks the layers' gradients once, and checkpoints each block under
-``cfg.remat="full"`` (the JAX package's ``nothing_saveable``): the
-backward recomputes the block, so the forward keeps only each block's
-input.  ``next_token_loss`` is the training loss.  Not ported: the MoE,
-hybrid, xLSTM, VLM and audio families, sinusoidal positions and
-``remat="dots"``.
+row's position, or its ring slot under a sliding window; the hybrid
+family's SSM and conv states row by row), where the JAX functions return
+a new cache.  ``forward`` takes each layer's params through one
+``unbind`` a leaf, whose backward stacks the layers' gradients once, and
+checkpoints each block under ``cfg.remat="full"`` (the JAX package's
+``nothing_saveable``): the backward recomputes the block, so the forward
+keeps only each block's input.  ``next_token_loss`` is the training loss.  Not ported: the MoE,
+xLSTM, VLM and audio families, sinusoidal positions and ``remat="dots"``.
 """
 from __future__ import annotations
 
@@ -32,12 +33,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import embeddings as emb_lib
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 
 
 def _check(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"LM family {cfg.family!r} is not ported (dense only)")
+    if cfg.family not in ("dense", "hybrid"):
+        raise NotImplementedError(f"LM family {cfg.family!r} is not ported (dense and hybrid only)")
     if cfg.pos_emb not in ("rope", "none"):
         raise NotImplementedError(f"pos_emb={cfg.pos_emb!r} is not ported")
     L.check_attention(cfg)
@@ -68,6 +70,11 @@ def _head_table(cfg: ModelConfig):
 def _init_layer(generator: torch.Generator, cfg: ModelConfig, device):
     p = {"ln1": L.init_norm(cfg, device=device),
          "attn": L.init_attention(generator, cfg, device=device)}
+    if cfg.family == "hybrid":
+        p["ssm"] = ssm_lib.init_ssm(generator, cfg, device=device)
+        # per-branch output norms (hymba averages normed branch outputs)
+        p["attn_norm"] = torch.ones((cfg.d_model,), dtype=cfg.param_dtype, device=device)
+        p["ssm_norm"] = torch.ones((cfg.d_model,), dtype=cfg.param_dtype, device=device)
     if not cfg.parallel_block:
         p["ln2"] = L.init_norm(cfg, device=device)
     if cfg.d_ff:
@@ -159,13 +166,23 @@ def logits_fn(params, buffers, cfg: ModelConfig, h):
 
 def _block_train(p, cfg: ModelConfig, x, positions, freqs, *, decode_cache=None):
     """One block over a full sequence, or one decode token when
-    ``decode_cache`` ({"k", "v"} of this layer) is given.  Returns x."""
+    ``decode_cache`` (this layer's rows of the cache, written in place) is
+    given.  Returns x."""
     h = L.apply_norm(p["ln1"], x)
     if decode_cache is None:
         attn = L.attention_train(p["attn"], cfg, h, positions, freqs)
     else:
         attn, _, _ = L.attention_decode(p["attn"], cfg, h, positions, decode_cache["k"],
                                         decode_cache["v"], freqs)
+    if cfg.family == "hybrid":
+        if decode_cache is None:
+            s = ssm_lib.ssm_train(p["ssm"], cfg, h)
+        else:
+            s, hst, cst = ssm_lib.ssm_decode(p["ssm"], cfg, h, decode_cache["ssm"],
+                                             decode_cache["conv"])
+            decode_cache["ssm"].copy_(hst)
+            decode_cache["conv"].copy_(cst)
+        return _hybrid_out(p, cfg, x, attn, s)
     if cfg.parallel_block:
         # command-r: attn and FFN both read ln1(x), summed into the residual
         return x + attn + L.apply_mlp(p["mlp"], cfg, h)
@@ -175,10 +192,21 @@ def _block_train(p, cfg: ModelConfig, x, positions, freqs, *, decode_cache=None)
     return x
 
 
+def _hybrid_out(p, cfg: ModelConfig, x, attn, s):
+    """hymba's residual update: the mean of the RMS-normed attention and
+    SSM branch outputs, then the MLP."""
+    attn = L.rms_norm_dim(attn, p["attn_norm"])
+    s = L.rms_norm_dim(s, p["ssm_norm"])
+    x = x + 0.5 * (attn + s)
+    if cfg.d_ff:
+        x = x + L.apply_mlp(p["mlp"], cfg, L.apply_norm(p["ln2"], x))
+    return x
+
+
 def forward(params, buffers, cfg: ModelConfig, batch):
     """Full-sequence forward.  batch: {"tokens": (B, S) integer}.  Returns
-    (logits (B, S, vocab), aux), aux a float32 zero (the dense family has
-    no auxiliary loss)."""
+    (logits (B, S, vocab), aux), aux a float32 zero (the dense and hybrid
+    families have no auxiliary loss)."""
     _check(cfg)
     tokens = batch["tokens"]
     x = embed(params, buffers, cfg, tokens)
@@ -217,29 +245,43 @@ def next_token_loss(params, buffers, cfg: ModelConfig, batch):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
-    """Decode cache {"k", "v"}, each (L, batch, max_seq, KVH, D) zeros in
-    ``cfg.dtype``."""
+    """Decode cache of zeros: "k", "v" (L, batch, S, KVH, D) in
+    ``cfg.dtype``, S = max_seq, or min(max_seq, window), a ring, under a
+    sliding window; the hybrid family adds "ssm" (L, batch, di, ds) and
+    "conv" (L, batch, K-1, di), both float32."""
     _check(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    S = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
+    Lc = cfg.n_layers
+    shape = (Lc, batch, S, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    if cfg.family == "hybrid":
+        cache["ssm"] = torch.zeros((Lc, batch, cfg.ssm_inner, cfg.ssm_state),
+                                   dtype=torch.float32, device=device)
+        cache["conv"] = torch.zeros((Lc, batch, cfg.ssm_conv - 1, cfg.ssm_inner),
+                                    dtype=torch.float32, device=device)
+    return cache
 
 
 def cache_batch_axis(cfg: ModelConfig):
     """The batch-dimension index of each cache leaf."""
-    return {"k": 1, "v": 1}
+    base = {"k": 1, "v": 1}
+    if cfg.family == "hybrid":
+        base |= {"ssm": 1, "conv": 1}
+    return base
 
 
 def decode_step(params, buffers, cfg: ModelConfig, tokens, pos, cache):
     """One-token decode.  tokens (B,), pos (B,) integer positions; the
-    token's k/v go into ``cache`` in place at ``pos``.  Returns (logits
-    (B, vocab), cache)."""
+    token's k/v go into ``cache`` in place at ``pos`` (its ring slot under
+    a sliding window), and the hybrid family's SSM and conv states move on
+    by one token in place.  Returns (logits (B, vocab), cache)."""
     _check(cfg)
     x = embed(params, buffers, cfg, tokens[:, None])
     freqs = L.rope_freqs(cfg, device=x.device)
     pos = pos.to(torch.int64)
     for i in range(cfg.n_layers):
-        lc = {"k": cache["k"][i], "v": cache["v"][i]}
+        lc = {key: c[i] for key, c in cache.items()}
         x = _block_train(layer_params(params["blocks"], i), cfg, x, pos, freqs,
                          decode_cache=lc)
     x = L.apply_norm(params["ln_f"], x)
@@ -248,12 +290,19 @@ def decode_step(params, buffers, cfg: ModelConfig, tokens, pos, cache):
 
 def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None):
     """Process a full prompt: write its k/v into ``cache[:, :, :S]`` in
-    place and return (logits of one position (B, vocab), cache).
+    place and return (logits of one position (B, vocab), cache).  Under a
+    sliding window with S longer than the cache's ring, the last ring's
+    worth of k/v is written in ring order (position t at t % ring), and
+    attention runs through ``_sdpa`` under the windowed mask, as in the JAX
+    package; otherwise through the flash kernel (where S <= window the
+    windowed mask is the causal one).  The hybrid family also writes the
+    SSM branch's terminal state and conv inputs into the cache.
 
     ``last_idx`` (default ``S - 1``) picks that position: a serving engine
     that right-pads prompts into power-of-two buckets passes the true last
     token's index, and causal attention keeps every position up to it
-    blind to the padding."""
+    blind to the padding (only the dense family without a window pads:
+    ring and recurrent caches would take the pads in)."""
     _check(cfg)
     B, S = tokens.shape
     x = embed(params, buffers, cfg, tokens)
@@ -266,10 +315,27 @@ def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None):
         if cfg.pos_emb == "rope":
             q = L.apply_rope(q, positions, freqs)
             k = L.apply_rope(k, positions, freqs)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
-        attn = kops.flash_attention(q, k, v, causal=True)
+        Sc = cache["k"].shape[2]
+        if cfg.sliding_window and Sc < S:
+            # keep only the last window of k/v in the ring buffer
+            ring = (torch.arange(Sc, device=x.device) + (S - Sc) % Sc) % Sc
+            cache["k"][i, :, ring] = k[:, -Sc:]
+            cache["v"][i, :, ring] = v[:, -Sc:]
+        else:
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+        if not cfg.sliding_window or S <= cfg.sliding_window:
+            attn = kops.flash_attention(q, k, v, causal=True)
+        else:
+            attn = L._sdpa(cfg, q, k, v, L.causal_mask(S, S, cfg.sliding_window,
+                                                       device=x.device))
         attn = attn.reshape(B, S, cfg.q_dim) @ lp["attn"]["wo"].to(x.dtype)
+        if cfg.family == "hybrid":
+            s, (st, cv) = ssm_lib.ssm_train(lp["ssm"], cfg, h, return_state=True)
+            cache["ssm"][i] = st
+            cache["conv"][i] = cv
+            x = _hybrid_out(lp, cfg, x, attn, s)
+            continue
         if cfg.parallel_block:
             x = x + attn + L.apply_mlp(lp["mlp"], cfg, h)
             continue

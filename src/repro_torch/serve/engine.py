@@ -6,7 +6,11 @@ each request owns a slot.  Per tick:
 
   1. admit queued requests into every free slot: one prefill per request
      (prompts are ragged), right-padded into a power-of-two length bucket,
-     writing its k/v straight into its slot of the cache;
+     writing its k/v straight into its slot of the cache (and, for the
+     hybrid family, its SSM and conv states).  Only the dense family
+     without a sliding window pads: a ring or a recurrent state would take
+     the pads in, so those prompts prefill at their own length, as in the
+     JAX engine;
   2. one decode step over all ``max_batch`` slots;
   3. retire finished requests (eos, ``max_tokens``, or the cache's end).
 
@@ -69,6 +73,10 @@ class ServeEngine:
         # logged to a RunLog per retired request and as a final histogram
         self.latency = LatencyHistogram()
         self.runlog = runlog
+        # padded prefill is only sound when no cache state is a function of
+        # the whole padded sequence: the hybrid family's SSM folds pads into
+        # its terminal state, a sliding window rotates the ring by S
+        self._pad_prompts = cfg.family == "dense" and not cfg.sliding_window
 
     # --- public API ---------------------------------------------------------
 
@@ -91,9 +99,9 @@ class ServeEngine:
         return min(L, self.max_seq)
 
     def _prefill_one(self, slot: int, tokens: np.ndarray, last_idx: int) -> torch.Tensor:
-        """Prefill one bucketed prompt (1, L) into ``slot`` of the cache
-        (the rest of the slot zeroed, as a fresh cache would be); returns
-        the logits (1, vocab) at ``last_idx``."""
+        """Prefill one prompt (1, L), bucketed or not, into ``slot`` of every
+        cache leaf (the rest of the slot zeroed, as a fresh cache would be);
+        returns the logits (1, vocab) at ``last_idx``."""
         view = {k: c[:, slot: slot + 1] for k, c in self.cache.items()}
         for c in view.values():
             c.zero_()
@@ -119,7 +127,7 @@ class ServeEngine:
             S = len(req.prompt)
             if S >= self.max_seq:
                 raise ValueError(f"prompt of {S} tokens does not fit max_seq {self.max_seq}")
-            toks = np.zeros((1, self._bucket_len(S)), np.int64)
+            toks = np.zeros((1, self._bucket_len(S) if self._pad_prompts else S), np.int64)
             toks[0, :S] = req.prompt
             logits = self._prefill_one(slot, toks, S - 1)
             self.slots[slot] = req

@@ -164,7 +164,7 @@ def test_convert_round_trip(model):
 
 
 @pytest.mark.parametrize("override", [
-    dict(sliding_window=8), dict(logit_softcap=30.0), dict(attn_impl="dense_bf16p"),
+    dict(pos_emb="sinusoidal"), dict(logit_softcap=30.0), dict(attn_impl="dense_bf16p"),
     dict(family="moe", n_experts=4, top_k=2),
 ])
 def test_unported_variants_raise(override):

@@ -156,8 +156,8 @@ def test_main_trains_clusters_and_resumes_on_cpu(tmp_path, capsys):
 
 
 def test_unported_arch_raises_and_names_its_family():
-    with pytest.raises(NotImplementedError, match="hybrid family"):
-        tlaunch.main(["--arch", "hymba-1.5b", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="xlstm family"):
+        tlaunch.main(["--arch", "xlstm-1.3b", "--device", "cpu"])
     assert set(tconfigs.ARCHS) | set(tconfigs.UNPORTED) == set(jconfigs.ARCHS)
     assert not set(tconfigs.ARCHS) & set(tconfigs.UNPORTED)
     for name, family in tconfigs.UNPORTED.items():

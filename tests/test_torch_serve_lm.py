@@ -3,18 +3,23 @@ model (dense, 2 layers, full tables, float32) with the JAX package's
 params carried over by ``convert``, the port's ``ServeEngine`` generates
 the same greedy tokens as the JAX ``ServeEngine`` for the same requests:
 continuous batching over fewer slots than requests, prompts of every
-length up to a 32-token cache (power-of-two buckets), and eos.  Also
-drives the port's serve launcher on the CPU."""
+length up to a 32-token cache (power-of-two buckets), and eos.  The same
+on reduced hymba-1.5b (the hybrid family: window 8, so a ring of 8 k/v
+rows, and SSM states; prompts unpadded, shorter and longer than the
+window, decoding past it) at two slot counts.  Also drives the port's
+serve launcher on the CPU, dense and hybrid."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro.models import lm as jlm
 from repro.models.config import ModelConfig as JConfig
 from repro.serve import Request as JRequest
 from repro.serve import ServeEngine as JEngine
+from repro_torch import configs as tconfigs
 from repro_torch import convert
 from repro_torch.launch import serve as tserve
 from repro_torch.models.config import ModelConfig as TConfig
@@ -35,6 +40,14 @@ def model():
     params, buffers = jlm.init(jax.random.PRNGKey(0), jcfg)
     tp, tb = convert.lm_to_torch(*jax.tree.map(np.asarray, (params, buffers)), "cpu")
     return (jcfg, params, buffers), (TConfig(dtype=torch.float32, **FIELDS), tp, tb)
+
+
+@pytest.fixture(scope="module")
+def hymba():
+    jcfg = jconfigs.get_reduced("hymba-1.5b")
+    params, buffers = jax.jit(jlm.init, static_argnums=1)(jax.random.PRNGKey(1), jcfg)
+    tp, tb = convert.lm_to_torch(*jax.tree.map(np.asarray, (params, buffers)), "cpu")
+    return (jcfg, params, buffers), (tconfigs.get_reduced("hymba-1.5b"), tp, tb)
 
 
 def _serve(engine_cls, request_cls, state, requests, **kw):
@@ -67,6 +80,20 @@ def test_engine_tokens_match_jax(model, scenario, max_batch):
     assert got == want
 
 
+@pytest.mark.parametrize("max_batch", [2, 3])
+def test_hybrid_engine_tokens_match_jax(hymba, max_batch):
+    """Four requests of 5 and 13 prompt tokens (the window is 8) and 6
+    generated tokens each, so that every request's ring wraps while it
+    decodes, over fewer slots than requests."""
+    jstate, tstate = hymba
+    rng = np.random.default_rng(4)
+    reqs = [(i, rng.integers(0, 257, s).astype(np.int32), 6, None)
+            for i, s in enumerate((5, 13, 13, 5))]
+    want = _serve(JEngine, JRequest, jstate, reqs, max_batch=max_batch, max_seq=32)
+    got = _serve(TEngine, TRequest, tstate, reqs, max_batch=max_batch, max_seq=32)
+    assert got == want
+
+
 def test_eos_matches_jax(model):
     jstate, tstate = model
     prompt = np.asarray([5, 17, 3], np.int32)
@@ -92,7 +119,9 @@ def test_prefill_count_latency_histogram_and_run_log(model, tmp_path):
     assert events == ["manifest"] + ["request"] * 7 + ["latency_hist"]
 
 
-def test_launch_serve_runs_on_the_cpu(capsys):
-    done = tserve.main(["--device", "cpu", "--requests", "3", "--max-tokens", "3"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "hymba-1.5b"])
+def test_launch_serve_runs_on_the_cpu(capsys, arch):
+    done = tserve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
+                        "--max-tokens", "3"])
     assert len(done) == 3 and all(len(r.generated) == 3 for r in done)
-    assert "served 3 requests" in capsys.readouterr().out
+    assert f"{arch}: served 3 requests" in capsys.readouterr().out
