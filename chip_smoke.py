@@ -43,9 +43,10 @@
    scale against Theorem 3.1's bound.
 7. Holds the flash-attention kernel against its plain version (float32
    and bfloat16 at both CTA heights, GQA and plain heads, hymba's group
-   of 5 among them, D 64 and 128, ragged lengths, causal and not) and
-   times it beside ``scaled_dot_product_attention`` at the LM's prefill
-   buckets and at hymba-1.5b's heads.
+   of 5 among them, D 64 and 128, ragged lengths, causal and not; and
+   paligemma-3b's MQA heads at D 256, 64-row CTAs) and times it beside
+   ``scaled_dot_product_attention`` at the LM's prefill buckets and at
+   hymba-1.5b's and paligemma-3b's heads.
 8. Serves full-width qwen2-1.5b (28 layers, CCE token table and factored
    CCE head, random weights from a seed) through the LM ``ServeEngine``:
    16 requests of 16-1900 prompt tokens over 8 slots, 16 greedy tokens
@@ -57,7 +58,14 @@
    cut's prefill past the window and 4 decode steps over the ring (logits,
    ring k/v, SSM and conv states) against CPU copies; times the SSM scan's
    share of a prefill and the lookup at hymba's table.
-10. Trains full-width qwen2-1.5b through ``launch.train.build_lm_trainer``
+10. Serves full-width paligemma-3b (18 layers, MQA at head_dim 256, a GELU
+   MLP, a CCE token table that is also the head, random weights from a
+   seed) the same way, text only, prompts padded into buckets: the flash
+   kernel at D 256 in every prefill; holds each request alone against
+   itself in the batch by its prefill logits, a 2-layer cut's prefill, 4
+   decode steps and a forward with 256 patch embeddings prepended
+   against CPU copies, and the lookup at paligemma's table (dsub 512).
+11. Trains full-width qwen2-1.5b through ``launch.train.build_lm_trainer``
    (adamw, cosine schedule, remat, a dense token tracker): 6 steps of 2 x
    4096 tokens, the CCE token table's transition (the assignment kernel
    over all 151,936 ids at d=384), 2 steps; holds the lookup backward at a
@@ -72,8 +80,8 @@ after.  Prints the kernels' JSON line, the card line and, last,
     python3 chip_smoke.py --phases flash,lm_serve
 
 runs only the named phases (of lookup, bwd, kmeans, train, loop, serve,
-methods, flash, lm_serve, hybrid_serve, lm_train) and prints neither result
-line.
+methods, flash, lm_serve, hybrid_serve, vlm_serve, lm_train) and prints
+neither result line.
 
 Exits non-zero, with no result line, when there is no CUDA device, when the
 port is missing, or when any phase fails.  Imports nothing of JAX.
@@ -137,6 +145,10 @@ FLASH_NONCAUSAL = ((129, 129), (1000, 1000), (129, 300))  # (Sq, S) without the 
 FLASH_STRIDED = 129  # the causal case at this length reads q from a (B, H, S, D) layout
 FLASH_TIMED = (128, 512, 1024, 2048)  # bf16, qwen2-1.5b's heads: the LM's prefill buckets
 FLASH_HYMBA_TIMED = (128, 512, 1024)  # bf16, hymba-1.5b's heads at D 64: its flash prefills
+# (H, KVH, D): paligemma-3b, MQA (a group of 8) at head_dim 256, the only D of
+# 256 the repo's configurations use; held over FLASH_LENGTHS and FLASH_NONCAUSAL
+# alone, not crossed with FLASH_HEADS, and timed at FLASH_TIMED
+FLASH_PALIGEMMA = (8, 1, 256)
 # kernel vs plain on unit-normal inputs: float32 sums in another order;
 # bfloat16 rounds P to bf16 for the tensor cores and the output once
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -157,6 +169,8 @@ LM_CHECK_PROMPT = 256
 HYBRID_ARCH = "hymba-1.5b"  # served like LM_ARCH (LM_PROMPTS, LM_MAX_SEQ, slots, tokens)
 HYBRID_CHECK_PROMPT = 1100  # the cut's prompt: past the 1024-token window, ragged to 256
 HYBRID_CHECK_DECODE = 4  # decode steps of the cut after its prefill
+VLM_ARCH = "paligemma-3b"  # served like LM_ARCH (LM_PROMPTS, LM_MAX_SEQ, slots, tokens)
+VLM_CHECK_DECODE = 4  # decode steps of the cut after its LM_CHECK_PROMPT prefill
 HYBRID_IDLE_PREFILLS = (1024, 1900)  # the longest flash prefill; one past the window
 # card vs CPU prefill logits, relative to the largest logit: float32 sums
 # in other orders; bfloat16 also rounds every activation (8 mantissa bits)
@@ -2095,10 +2109,10 @@ def flash_timed(card: str, S: int, H: int, KVH: int, D: int, device="cuda") -> d
           f"SDPA yardstick computes another function at S={S} H={H} ({lib_err})")
     ms = time_ms(lambda: fa.flash_attention(q, k, v), iters=50)
     dev = device_ms(lambda: fa.flash_attention(q, k, v), "flash_fwd_wgmma_kernel")
-    # both CTA heights, whichever the wrapper picks: 64 or 128 query rows
+    # every CTA height the kernel takes at D, whichever the wrapper picks
     by_rows = {r: device_ms(lambda r=r: fa._launch(q, k, v, True, r),
-                            "flash_fwd_wgmma_kernel") for r in (64, 128)}
-    picked = fa.block_rows(1, S, H, torch.cuda.get_device_properties(0).multi_processor_count)
+                            "flash_fwd_wgmma_kernel") for r in cta_rows(D)}
+    picked = fa.block_rows(1, S, H, torch.cuda.get_device_properties(0).multi_processor_count, D)
     plain = time_ms(lambda: ref.flash_attention_ref(q, k, v), iters=10, reps=3)
     plain_dev = device_busy_ms(lambda: ref.flash_attention_ref(q, k, v), iters=5)
     lib = time_ms(library, iters=50)
@@ -2107,7 +2121,7 @@ def flash_timed(card: str, S: int, H: int, KVH: int, D: int, device="cuda") -> d
     tflops = flash_flops(1, S, S, H, D, True) / (dev * 1e-3) / 1e12
     print(f"[{card}] flash_attention bf16 B=1 H={H} KVH={KVH} D={D} S={S} causal: "
           f"ms={ms!r} device_ms={dev!r} (rows {picked}; "
-          f"64 rows {by_rows[64]!r}, 128 rows {by_rows[128]!r}) {tflops!r} TFLOP/s, "
+          + ", ".join(f"{r} rows {t!r}" for r, t in by_rows.items()) + f") {tflops!r} TFLOP/s, "
           f"{bound / dev!r} of bound_ms={bound!r} ({bound_by}) plain_ms={plain!r} "
           f"plain_device_ms={plain_dev!r} library_ms(sdpa)={lib!r} "
           f"library_device_ms={lib_dev!r} sdpa_vs_kernel_max_abs_diff={lib_err!r}",
@@ -2117,74 +2131,103 @@ def flash_timed(card: str, S: int, H: int, KVH: int, D: int, device="cuda") -> d
                 bound_ms=bound, bound_by=bound_by, library_ms=lib, library_device_ms=lib_dev)
 
 
+def cta_rows(D: int) -> tuple:
+    """The query rows a bf16 CTA can take at head_dim D."""
+    return (64,) if D == 256 else (64, 128)
+
+
 def flash_phase(card: str, device="cuda"):
     """The flash-attention kernel against its plain version on unit-normal
     inputs: within FLASH_TOL, bfloat16 also within FLASH_ROW_TOL of each
     row's scale against the plain version in float32, repeatable bit for
     bit, the causal first row equal to v's first row; a strided
     (B, H, S, D)-layout view read in place.  Times the kernel, the plain
-    version and SDPA at FLASH_TIMED with qwen2-1.5b's heads and at
-    FLASH_HYMBA_TIMED with hymba-1.5b's.  Returns ({dtype: max error},
-    {S: numbers}, {S: numbers at hymba's heads})."""
+    version and SDPA at FLASH_TIMED with qwen2-1.5b's heads, at
+    FLASH_HYMBA_TIMED with hymba-1.5b's and at FLASH_TIMED with
+    paligemma-3b's (D 256).  Returns ({dtype: max error}, {S: numbers},
+    {S: numbers at hymba's heads}, {S: numbers at paligemma's}, {dtype: max
+    error at paligemma's})."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     max_err = {"float32": 0.0, "bfloat16": 0.0}
+    paligemma_err = dict(max_err)  # the FLASH_PALIGEMMA cases alone
     max_row_err = 0.0
     n_cases = 0
+    heads_dims = [(H, KVH, D) for H, KVH in FLASH_HEADS for D in FLASH_DIMS] + [FLASH_PALIGEMMA]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         tol = FLASH_TOL[dn]
-        for H, KVH in FLASH_HEADS:
-            for D in FLASH_DIMS:
-                shapes = [(n, n, True) for n in FLASH_LENGTHS]
-                shapes += [(sq, sk, False) for sq, sk in FLASH_NONCAUSAL]
-                for Sq, S, causal in shapes:
-                    B = 1 if S >= 1000 else 2
-                    q, k, v = flash_inputs(B, Sq, S, H, KVH, D, dtype, seed=n_cases,
-                                           head_major=(Sq == FLASH_STRIDED and causal),
-                                           device=device)
-                    want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                                     causal=causal)
-                    want = want32.to(dtype)
-                    # bf16: CTAs of 64 and of 128 query rows, whichever the wrapper picks
-                    for rows in (None,) if dtype == torch.float32 else (64, 128):
-                        if rows:
-                            got = fa._launch(q, k, v, causal, rows)
-                            again = fa._launch(q, k, v, causal, rows)
-                        else:
-                            got = fa.flash_attention(q, k, v, causal=causal)
-                            again = fa.flash_attention(q, k, v, causal=causal)
-                        torch.cuda.synchronize()
-                        err = (got.float() - want.float()).abs().max().item()
-                        what = (f"{dn} H={H} KVH={KVH} D={D} Sq={Sq} S={S} causal={causal}"
-                                f"{f' rows={rows}' if rows else ''}")
-                        check(err <= tol, f"flash kernel vs plain {err} > {tol} at {what}")
-                        if rows:
-                            row_err = flash_row_err(got, want32)
-                            check(row_err <= FLASH_ROW_TOL, f"flash kernel vs plain {row_err} "
-                                  f"> {FLASH_ROW_TOL} of a row's scale at {what}")
-                            max_row_err = max(max_row_err, row_err)
-                        check(torch.equal(got, again), f"flash kernel not repeatable at {what}")
-                        if causal:
-                            first = v[:, 0].repeat_interleave(H // KVH, dim=1)
-                            row_err = (got[:, 0].float() - first.float()).abs().max().item()
-                            check(row_err <= tol, f"flash first row != v[0] ({row_err}) at {what}")
-                        max_err[dn] = max(max_err[dn], err)
-                    n_cases += 1
+        for H, KVH, D in heads_dims:
+            shapes = [(n, n, True) for n in FLASH_LENGTHS]
+            shapes += [(sq, sk, False) for sq, sk in FLASH_NONCAUSAL]
+            for Sq, S, causal in shapes:
+                B = 1 if S >= 1000 else 2
+                q, k, v = flash_inputs(B, Sq, S, H, KVH, D, dtype, seed=n_cases,
+                                       head_major=(Sq == FLASH_STRIDED and causal),
+                                       device=device)
+                want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                                 causal=causal)
+                want = want32.to(dtype)
+                # bf16: every CTA height the kernel takes at D, whichever the
+                # wrapper picks
+                for rows in (None,) if dtype == torch.float32 else cta_rows(D):
+                    if rows:
+                        got = fa._launch(q, k, v, causal, rows)
+                        again = fa._launch(q, k, v, causal, rows)
+                    else:
+                        got = fa.flash_attention(q, k, v, causal=causal)
+                        again = fa.flash_attention(q, k, v, causal=causal)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    what = (f"{dn} H={H} KVH={KVH} D={D} Sq={Sq} S={S} causal={causal}"
+                            f"{f' rows={rows}' if rows else ''}")
+                    check(err <= tol, f"flash kernel vs plain {err} > {tol} at {what}")
+                    if rows:
+                        row_err = flash_row_err(got, want32)
+                        check(row_err <= FLASH_ROW_TOL, f"flash kernel vs plain {row_err} "
+                              f"> {FLASH_ROW_TOL} of a row's scale at {what}")
+                        max_row_err = max(max_row_err, row_err)
+                    check(torch.equal(got, again), f"flash kernel not repeatable at {what}")
+                    if causal:
+                        first = v[:, 0].repeat_interleave(H // KVH, dim=1)
+                        row_err = (got[:, 0].float() - first.float()).abs().max().item()
+                        check(row_err <= tol, f"flash first row != v[0] ({row_err}) at {what}")
+                    max_err[dn] = max(max_err[dn], err)
+                    if (H, KVH, D) == FLASH_PALIGEMMA:
+                        paligemma_err[dn] = max(paligemma_err[dn], err)
+                n_cases += 1
     print(f"[{card}] flash_attention: {n_cases} cases (heads {FLASH_HEADS}, D {FLASH_DIMS}, "
-          f"causal S {FLASH_LENGTHS}, non-causal (Sq, S) {FLASH_NONCAUSAL}) in float32 and "
-          f"bfloat16 (at 64 and 128 query rows a CTA): max_abs_err {max_err!r}, bfloat16 "
+          f"and (H, KVH, D) {FLASH_PALIGEMMA}; causal S {FLASH_LENGTHS}, non-causal (Sq, S) "
+          f"{FLASH_NONCAUSAL}) in float32 and bfloat16 (at 64 and 128 query rows a CTA, 64 "
+          f"at D 256): max_abs_err {max_err!r} (at D 256 {paligemma_err!r}), bfloat16 "
           f"max_row_scaled_err {max_row_err!r} (<= {FLASH_ROW_TOL!r}), repeatable, "
           f"causal first row == v[0]",
           flush=True)
+    # every other head_dim is refused, by the wrapper and by the C entry
+    # behind it, and so are 128-row CTAs at D 256
+    def refused(fn) -> bool:
+        try:
+            fn()
+        except (ValueError, RuntimeError):
+            return True
+        return False
+
+    at96 = flash_inputs(1, 8, 8, 8, 1, 96, torch.bfloat16, seed=0, device=device)
+    at256 = flash_inputs(1, 8, 8, *FLASH_PALIGEMMA, torch.bfloat16, seed=0, device=device)
+    check(refused(lambda: fa.flash_attention(*at96))
+          and refused(lambda: fa._launch(*at96, True, 64))
+          and refused(lambda: fa._launch(*at256, True, 128)),
+          "the flash kernel took D 96, or 128-row CTAs at D 256")
     at = {S: flash_timed(card, S, *FLASH_HEADS[0], FLASH_DIMS[-1], device=device)
           for S in FLASH_TIMED}
     at_hymba = {S: flash_timed(card, S, *FLASH_HEADS[-1], FLASH_DIMS[0], device=device)
                 for S in FLASH_HYMBA_TIMED}
-    return max_err, at, at_hymba
+    at_paligemma = {S: flash_timed(card, S, *FLASH_PALIGEMMA, device=device)
+                    for S in FLASH_TIMED}
+    return max_err, at, at_hymba, at_paligemma, paligemma_err
 
 
 def _lm_prompts(cfg):
@@ -2276,7 +2319,10 @@ def lm_cut_check(card: str, label: str, cfg, params, buffers, prompt, n_decode: 
     copies, in float32 and bfloat16: a prefill of ``prompt``, then
     ``n_decode`` greedy decode steps (the CPU's picks fed to both), the
     logits and every cache leaf after each call within LM_LOGIT_RTOL of the
-    CPU's largest magnitude.  Returns {dtype: worst relative error}."""
+    CPU's largest magnitude; for the vlm family also ``forward`` with
+    ``cfg.n_patches`` patch embeddings (unit normal, from LM_SEED) before
+    the prompt, which serving never runs.  Returns {dtype: worst relative
+    error}."""
     import dataclasses
 
     import numpy as np
@@ -2319,6 +2365,14 @@ def lm_cut_check(card: str, label: str, cfg, params, buffers, prompt, n_decode: 
                 compare("decode logits", on_card, on_cpu)
                 for key in cpu_c:
                     compare(f"decode {key}", card_c[key], cpu_c[key])
+            if cfg.family == "vlm":
+                pe = torch.randn((1, cfg.n_patches, cfg.d_model),
+                                 generator=torch.Generator().manual_seed(LM_SEED))
+                on_card, _ = lm.forward(cut_p, buffers, cut, {"tokens": toks.to(device),
+                                                              "patch_emb": pe.to(device)})
+                on_cpu, _ = lm.forward(cpu_p, cpu_b, cut, {"tokens": toks, "patch_emb": pe})
+                check(on_cpu.shape == (1, S, cfg.vocab), f"patch forward logits {on_cpu.shape}")
+                compare(f"forward logits after {cfg.n_patches} patches", on_card, on_cpu)
         worst[dn] = max(errs.values())
         print(f"[{card}] {label} {LM_CHECK_LAYERS}-layer cut, a {S}-token prefill"
               f"{f' and {n_decode} decode steps' if n_decode else ''}, {dn}: card vs CPU, "
@@ -2358,10 +2412,14 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
     on_card = torch.cuda.memory_allocated() / 2**30 if device == "cuda" else 0.0
     extra = (f" ssm inner {cfg.ssm_inner} state {cfg.ssm_state} conv {cfg.ssm_conv}"
              if cfg.family == "hybrid" else "")
+    if cfg.family == "vlm":
+        extra = (f" act={cfg.act} tied={cfg.tie_embeddings} emb_scale={cfg.emb_scale} "
+                 f"patches {cfg.n_patches}")
     print(f"[{card}] {label} init: {cfg.name} {cfg.n_layers}L d={cfg.d_model} {cfg.n_heads}H/"
           f"{cfg.n_kv_heads}KV hd={cfg.head_dim} ff={cfg.d_ff} vocab={cfg.vocab} "
           f"window={cfg.sliding_window}{extra} emb={cfg.emb_method}: {n_params} params "
-          f"(analytic, without biases and branch norms: {cfg.n_params()}), {on_card:.2f} GiB "
+          f"(analytic, as the JAX package counts them, without biases, branch norms and "
+          f"patch_proj: {cfg.n_params()}), {on_card:.2f} GiB "
           f"on the card, {time.perf_counter() - t0:.3f} s", flush=True)
     prompts = _lm_prompts(cfg)
 
@@ -2375,6 +2433,7 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
 
     eng = engine()
     prefill_ms, decode_ms = collections.defaultdict(list), []
+    prefill_logits = []  # in admission order, which is the order of submission
     orig_prefill, orig_decode = eng._prefill_one, eng._decode
 
     def timed_prefill(slot, toks, last_idx):
@@ -2383,6 +2442,7 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
         out = orig_prefill(slot, toks, last_idx)
         torch.cuda.synchronize()
         prefill_ms[toks.shape[1]].append((time.perf_counter() - t) * 1e3)
+        prefill_logits.append(out)
         return out
 
     def timed_decode():
@@ -2436,16 +2496,32 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
                    p99_ms=float(np.percentile(lat, 99)), peak_gb=peak,
                    decode_tick_ms=statistics.median(decode_ms), prefill_ms=by_len)
 
-    # a request served alone gives the tokens it gave in the batch
+    # a request served alone gives the prefill logits and the tokens it gave
+    # in the batch (the logits too: with random tied weights greedy decoding
+    # can echo the prompt's last token whatever the layers compute)
     solo_req = max(done, key=lambda r: len(r.prompt))
     solo = engine()
+    solo_logits = []
+    solo_prefill = solo._prefill_one
+
+    def kept_prefill(*a):
+        solo_logits.append(solo_prefill(*a))
+        return solo_logits[-1]
+
+    solo._prefill_one = kept_prefill
     solo.submit(Request(uid=0, prompt=solo_req.prompt, max_tokens=LM_MAX_TOKENS))
     alone = solo.run()[0].generated
     check(alone == solo_req.generated,
           f"request {solo_req.uid} alone {alone} != in the batch {solo_req.generated}")
-    del solo
+    dn = str(cfg.dtype).split(".")[-1]
+    solo_err = _max_rel(solo_logits[0], prefill_logits[solo_req.uid].cpu())
+    check(solo_err <= LM_LOGIT_RTOL[dn], f"request {solo_req.uid}'s prefill logits alone vs in "
+          f"the batch: {solo_err} of the largest > {LM_LOGIT_RTOL[dn]}")
+    del solo, prefill_logits
+    numbers["solo_logits_max_rel_err"] = solo_err
     print(f"[{card}] {label} serve: request {solo_req.uid} ({len(solo_req.prompt)} prompt "
-          f"tokens) alone gives its batch tokens {alone}", flush=True)
+          f"tokens) alone gives its batch tokens {alone} and its prefill logits within "
+          f"{solo_err!r} of the largest (tolerance {LM_LOGIT_RTOL[dn]})", flush=True)
 
     # host, device busy and idle share of one decode tick and of prefills
     with torch.inference_mode():
@@ -2503,6 +2579,15 @@ def hybrid_serve_phase(card: str, cfg, device="cuda"):
     multiple of the SSM's chunk, then decode steps over the ring."""
     return lm_serve_phase(card, cfg, device, label="hybrid", check_prompt=HYBRID_CHECK_PROMPT,
                           check_decode=HYBRID_CHECK_DECODE, idle_prefills=HYBRID_IDLE_PREFILLS)
+
+
+def vlm_serve_phase(card: str, cfg, device="cuda"):
+    """``lm_serve_phase`` on the vlm family (paligemma-3b): text prompts
+    padded into buckets, every prefill through the flash kernel at D 256
+    (8 query heads over one KV head), the tied CCE head; the cut's check
+    adds 4 decode steps and a forward with patch embeddings prepended."""
+    return lm_serve_phase(card, cfg, device, label="vlm", check_decode=VLM_CHECK_DECODE,
+                          idle_prefills=(LM_MAX_SEQ,))
 
 
 def long_kernel_call(fn, kernel_name: str):
@@ -2915,7 +3000,7 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call it replaces)
                         "src/repro/kernels/flash_attention.py:97"),
 }
 PHASES = ("lookup", "bwd", "kmeans", "train", "loop", "serve", "methods", "flash", "lm_serve",
-          "hybrid_serve", "lm_train")
+          "hybrid_serve", "vlm_serve", "lm_train")
 
 
 def main(argv=None) -> int:
@@ -2982,6 +3067,9 @@ def main(argv=None) -> int:
     hybrid = phase("hybrid_serve", hybrid_serve_phase, card, configs.get(HYBRID_ARCH))
     if hybrid is not None:
         launches["hybrid_serve"] = hybrid[0]
+    vlm = phase("vlm_serve", vlm_serve_phase, card, configs.get(VLM_ARCH))
+    if vlm is not None:
+        launches["vlm_serve"] = vlm[0]
     lm_train = phase("lm_train", lm_train_phase, card, configs.get(LM_ARCH))
     if lm_train is not None:
         launches.update(lm_train[0])
@@ -2990,8 +3078,8 @@ def main(argv=None) -> int:
               f"(a partial run: no result line)")
         return 0
     (fwd_err, fwd_at), (bwd_err, bwd_at), (assign_err, assign_at) = fwd, bwd, assign
-    flash_err, flash_at, flash_hymba_at = flash
-    lm_lookup, hybrid_lookup = lm_out[1], hybrid[1]
+    flash_err, flash_at, flash_hymba_at, flash_paligemma_at, flash_paligemma_err = flash
+    lm_lookup, hybrid_lookup, vlm_lookup = lm_out[1], hybrid[1], vlm[1]
     _, methods_err, methods_at, _ = methods
     _, lm_fwd_at, lm_bwd_err, lm_bwd_at, lm_assign_err, lm_assign_at = lm_train
 
@@ -3007,18 +3095,20 @@ def main(argv=None) -> int:
     steps = ("train", "train_after_transition", "loop", "methods", "lm_train")
     S = FLASH_TIMED[-1]
     kernels = [
-        entry("cce_lookup_fwd", steps + ("hybrid_serve",),
+        entry("cce_lookup_fwd", steps + ("lm_serve", "hybrid_serve", "vlm_serve"),
               max(fwd_err, methods_err, lm_fwd_at["max_abs_err"],
-                  *(v["max_abs_err"] for v in hybrid_lookup.values())),
+                  *(v["max_abs_err"] for v in (*hybrid_lookup.values(), *vlm_lookup.values()))),
               fwd_at[TRAIN_BATCH], batch=TRAIN_BATCH, at_serve_batch=fwd_at[SERVE_BATCH],
               at_lm_shape=lm_lookup, at_lm_train_shape=lm_fwd_at, at_hymba_shape=hybrid_lookup,
+              at_paligemma_shape=vlm_lookup,
               **{f"at_{m}_shape": methods_at[m]["fwd"] for m in METHOD_KERNEL_SHAPES}),
         entry("cce_lookup_bwd", steps, max(bwd_err, methods_err, lm_bwd_err), bwd_at,
               batch=TRAIN_BATCH, at_lm_train_shape=lm_bwd_at,
               **{f"at_{m}_shape": methods_at[m]["bwd"] for m in METHOD_KERNEL_SHAPES}),
         entry("kmeans_assign", ("transition", "loop", "methods", "lm_train"),
               max(assign_err, lm_assign_err), assign_at, at_lm_table_shape=lm_assign_at),
-        entry("flash_attention", ("lm_serve", "hybrid_serve"), flash_err["bfloat16"], flash_at[S],
+        entry("flash_attention", ("lm_serve", "hybrid_serve", "vlm_serve"), flash_err["bfloat16"],
+              flash_at[S],
               max_abs_err_float32=flash_err["float32"],
               shape=dict(B=1, S=S, H=FLASH_HEADS[0][0], KVH=FLASH_HEADS[0][1], D=FLASH_DIMS[-1],
                          dtype="bfloat16", causal=True),
@@ -3026,7 +3116,13 @@ def main(argv=None) -> int:
               at_other_lengths={s: flash_at[s] for s in FLASH_TIMED[:-1]},
               at_hymba_shape=dict(shape=dict(B=1, H=FLASH_HEADS[-1][0], KVH=FLASH_HEADS[-1][1],
                                              D=FLASH_DIMS[0], dtype="bfloat16", causal=True),
-                                  by_length=flash_hymba_at)),
+                                  by_length=flash_hymba_at),
+              at_paligemma_shape=dict(
+                  shape=dict(B=1, H=FLASH_PALIGEMMA[0], KVH=FLASH_PALIGEMMA[1],
+                             D=FLASH_PALIGEMMA[2], dtype="bfloat16", causal=True),
+                  max_abs_err=flash_paligemma_err["bfloat16"],
+                  max_abs_err_float32=flash_paligemma_err["float32"],
+                  by_length=flash_paligemma_at)),
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_run:.1f} s")
     print(f"card: {card}")

@@ -19,7 +19,8 @@ arrays (``a`` negative where numpy's int32 wrapped) stay int32.  ``train_state_t
 mirror params), the embedding buffers and the error feedback.
 ``lm_to_torch`` carries the JAX LM's ``(params, buffers)``: the stacked
 ``(L, ...)`` block leaves as they are, the CCE ``ptr``/``hs``/``epoch``
-buffers, and a ``FullTable`` head.
+buffers, a ``FullTable`` head, the vlm family's ``patch_proj``, and a
+tied configuration's layout, which has no ``head`` leaf at all.
 
 ``HostCopy(tree)`` starts the host copy of a tree of tensors without a
 synchronisation, for the metrics pump and the sketch fold: each CUDA leaf
@@ -105,7 +106,8 @@ def train_state_to_torch(state, device="cuda"):
 def lm_to_torch(params, buffers, device="cuda"):
     """The JAX package's ``lm.init`` output (numpy or JAX arrays) -> the
     port's ``(params, buffers)`` for ``repro_torch.models.lm``: the two
-    packages share the layout, so this is a leaf-wise conversion."""
+    packages share the layout (``patch_proj`` and a tied config's missing
+    ``head`` included), so this is a leaf-wise conversion."""
     return to_torch(params, device), to_torch(buffers, device)
 
 

@@ -27,7 +27,9 @@
 // 2048-token bucket) the function reads q, k, v and writes o: 14.7 MB, 4.4 us
 // at 3.35 TB/s; its two causal products are 4*D*H*S(S+1)/2 = 12.9 GFLOP,
 // 13 us at the H100's 989 TFLOP/s dense bf16.  It is bound by operations; at
-// a 128-token bucket both are under 1 us and a launch costs more.
+// a 128-token bucket both are under 1 us and a launch costs more.  For
+// paligemma-3b's prefill (B=1, H=8, KVH=1, D=256) at 2048 tokens: 18.9 MB,
+// 5.6 us, against 17.2 GFLOP, 17.4 us: bound by operations too.
 //
 // Design response (bfloat16, the LM's path).  Only wgmma reaches the tensor
 // cores' full rate on Hopper, so both products are warpgroup MMAs fed from
@@ -38,10 +40,10 @@
 //   warpgroups own 64 query rows each (a consumer needs ~155 registers, so
 //   the 168 of a 384-thread CTA suffice: no setmaxnreg).
 // - Q (64 NC rows) lands once and stays in shared memory as the A operand of
-//   S = Q K^T.  K and V tiles of 128 keys stream through a 2-stage ring; each
-//   stage has a full barrier for K and one for V (Q K^T starts before V has
-//   landed) and a free barrier for each, so K goes back to the producer as
-//   soon as Q K^T has read it.
+//   S = Q K^T.  K and V tiles of 128 keys (64 at D = 256) stream through a
+//   2-stage ring; each stage has a full barrier for K and one for V (Q K^T
+//   starts before V has landed) and a free barrier for each, so K goes back
+//   to the producer as soon as Q K^T has read it.
 // - Every tile is 128-byte swizzled.  A 64-column bf16 row is 128 bytes, the
 //   widest box that swizzle takes, so a row of D = 128 arrives as two boxes
 //   of 64 columns and the wgmma descriptors follow the same atoms.
@@ -57,6 +59,11 @@
 // - O += P V: wgmma m64nDk16 with A = P from registers (the accumulator
 //   layout of S, packed to bf16 pairs, is the A-register layout of each k16
 //   slice) and B = V read MN-major from shared memory (the transpose bit).
+// - D = 256 (paligemma-3b) takes K/V tiles of 64 keys (block_n) and 64-row
+//   CTAs only: Q 32 KB and two stages of 32 KB K and 32 KB V tiles make
+//   160 KB of shared memory, and a consumer holds 128 accumulators and 32
+//   scores.  S = Q K^T is wgmma m64n64k16, and each k-step of O += P V
+//   issues two m64n128k16, one on each half of V's 256 columns.
 // - Heaviest q tiles first: the q tile is the grid's slow index, reversed,
 //   so the causal diagonal's longest rows start in the first wave.  The
 //   wrapper picks 64-row tiles where 128-row tiles would leave SMs idle.
@@ -98,13 +105,18 @@ __device__ __forceinline__ float quad_sum(float x) {
 // ---------------------------------------------------------------------------
 // bfloat16: wgmma, TMA, mbarriers (sm_90a).
 
-constexpr int kBlockN = 128;  // keys per K/V tile
 constexpr int kStages = 2;    // K/V ring depth
 constexpr int kBoxCols = 64;  // bf16 columns of one 128-byte-swizzled TMA box
 constexpr int kGeom = 11;     // per tensor map: 4 dims, 3 byte strides, 4 box dims
 
+// Keys per K/V tile: 128, or 64 at D = 256, where two stages of 128-key
+// K and V tiles (256 KB) would not fit a CTA's 227 KB of shared memory and
+// 64 scores a thread beside the 128 accumulators would pass 255 registers.
+constexpr int block_n(int D) { return D == 256 ? 64 : 128; }
+
 template <int D, int NC>
 struct Tiles {
+  static constexpr int kBlockN = block_n(D);
   static constexpr int kChunks = D / kBoxCols;  // boxes per row
   static constexpr int kRows = 64 * NC;         // query rows per CTA
   static constexpr int kThreads = 128 * (NC + 1);
@@ -237,8 +249,27 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (m64n128, f32) += A (64x16 bf16, registers) * B (16x128 bf16, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+// d (m64n64, f32) = A (64x16 bf16, shared, K-major) * B (16x64 bf16, shared, K-major) [+ d]
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[OFF .. OFF + 63] (m64n128, f32) += A (64x16 bf16, registers) * B (16x128
+// bf16, shared, MN-major): OFF 64 takes columns 128..255 of a D = 256 accumulator
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N], const uint32_t (&a)[4], uint64_t db) {
+  static_assert(OFF + 64 <= N, "accumulator too short");
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %69, 0;\n"
@@ -248,14 +279,17 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+        "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
+        "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]),
+        "+f"(d[OFF + 30]), "+f"(d[OFF + 31]), "+f"(d[OFF + 32]), "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]),
+        "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]), "+f"(d[OFF + 39]), "+f"(d[OFF + 40]), "+f"(d[OFF + 41]),
+        "+f"(d[OFF + 42]), "+f"(d[OFF + 43]), "+f"(d[OFF + 44]), "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]), "+f"(d[OFF + 51]), "+f"(d[OFF + 52]), "+f"(d[OFF + 53]),
+        "+f"(d[OFF + 54]), "+f"(d[OFF + 55]), "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
+        "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -283,6 +317,7 @@ __global__ void __launch_bounds__(Tiles<D, NC>::kThreads, 1)
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv, const WParams p) {
   using T = Tiles<D, NC>;
+  constexpr int kBlockN = T::kBlockN;
   extern __shared__ uint8_t tiles[];  // (the float32 kernel's is `smem`)
   // bars[0]: Q landed; per stage s: K landed, V landed, K free, V free
   __shared__ __align__(8) uint64_t bars[1 + 4 * kStages];
@@ -369,8 +404,12 @@ __global__ void __launch_bounds__(Tiles<D, NC>::kThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t col = (kk % 4) * 32;  // 16 bf16 columns = 32 bytes
-      wgmma_ss_n128(sc, desc_sw128(q_base + (kk / 4) * T::kRows * 128 + col, 16, 1024),
-                    desc_sw128(k_base + (kk / 4) * kBlockN * 128 + col, 16, 1024), kk > 0);
+      const uint64_t dq = desc_sw128(q_base + (kk / 4) * T::kRows * 128 + col, 16, 1024);
+      const uint64_t dk = desc_sw128(k_base + (kk / 4) * kBlockN * 128 + col, 16, 1024);
+      if constexpr (kBlockN == 128)
+        wgmma_ss_n128(sc, dq, dk, kk > 0);
+      else
+        wgmma_ss_n64(sc, dq, dk, kk > 0);
     }
     wg_commit();
     wg_wait_all();
@@ -438,9 +477,17 @@ __global__ void __launch_bounds__(Tiles<D, NC>::kThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
       const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2], pk[4 * kk + 3]};
-      // the next 64 columns of V lie one box (kBlockN rows) away
+      // the next 64 columns of V lie one box (kBlockN rows) away; at D = 256
+      // columns 128..255 (boxes 2 and 3) take a second m64n128 into o[64..127]
       const uint64_t dv = desc_sw128(v_base + kk * 16 * 128, kBlockN * 128, 1024);
-      if constexpr (D == 128) wgmma_rs_n128(o, a, dv); else wgmma_rs_n64(o, a, dv);
+      if constexpr (D == 64) {
+        wgmma_rs_n64(o, a, dv);
+      } else {
+        wgmma_rs_n128<0>(o, a, dv);
+        if constexpr (D == 256)
+          wgmma_rs_n128<64>(o, a, desc_sw128(v_base + 2 * kBlockN * 128 + kk * 16 * 128,
+                                             kBlockN * 128, 1024));
+      }
     }
     wg_commit();
     wg_wait_all();
@@ -630,7 +677,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const long long* g
   // the boxes must be the tiles whose bytes the barriers expect
   for (int i = 0; i < 3; ++i) {
     const long long* g = geom + i * kGeom;
-    if (g[0] != D || g[7] != kBoxCols || g[8] != (i == 0 ? T::kRows : kBlockN) || g[9] != 1 ||
+    if (g[0] != D || g[7] != kBoxCols || g[8] != (i == 0 ? T::kRows : T::kBlockN) || g[9] != 1 ||
         g[10] != 1)
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -660,11 +707,11 @@ int launch_f32(const Params& p, dim3 grid, cudaStream_t st) {
 
 // q (B, Sq, H, D), k and v (B, S, KVH, D), o (B, Sq, H, D), all of `dtype`
 // (0 = float32, 1 = bfloat16), d contiguous, strides in elements.  The
-// caller guarantees D in {64, 128}, H % KVH == 0, S >= 1, B*Sq*H >= 1.  For
-// bfloat16 it also gives 16-byte aligned bases and (b, s, h) strides, each
-// tensor's TMA geometry in tma_geom (q, k, v: kGeom values each, see
-// encode) and block_rows, the query rows of a CTA (64 or 128: q's box
-// rows; k's and v's are 128); float32 ignores both.  Returns 0, the
+// caller guarantees D in {64, 128, 256}, H % KVH == 0, S >= 1, B*Sq*H >= 1.
+// For bfloat16 it also gives 16-byte aligned bases and (b, s, h) strides,
+// each tensor's TMA geometry in tma_geom (q, k, v: kGeom values each, see
+// encode) and block_rows, the query rows of a CTA (64 or 128, and 64 at
+// D = 256: q's box rows; k's and v's are block_n(D)); float32 ignores both.  Returns 0, the
 // cudaError_t of the launch, or kEncodeError (+ a CUresult) where a tensor
 // map could not be made.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -675,13 +722,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    long long o_sb, long long o_ss, long long o_sh,
                                    float scale, int causal, const long long* tma_geom,
                                    int block_rows, void* stream) {
-  if ((dtype != 0 && dtype != 1) || KVH < 1 || H % KVH || S < 1 || (D != 64 && D != 128))
+  if ((dtype != 0 && dtype != 1) || KVH < 1 || H % KVH || S < 1 || (D != 64 && D != 128 && D != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const int n_qtiles = block_rows > 0 ? (Sq + block_rows - 1) / block_rows : 0;
-    if ((block_rows != 64 && block_rows != 128) || tma_geom == nullptr || n_qtiles > 65535 ||
-        static_cast<long long>(B) * H > 0x7fffffffLL)
+    if ((block_rows != 64 && block_rows != 128) || (D == 256 && block_rows != 64) ||
+        tma_geom == nullptr || n_qtiles > 65535 || static_cast<long long>(B) * H > 0x7fffffffLL)
       return static_cast<int>(cudaErrorInvalidValue);
     const WParams p{o, Sq, S, H, H / KVH, o_sb, o_ss, o_sh,
                     scale * 1.4426950408889634f, causal, n_qtiles};
@@ -689,15 +736,18 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     if (D == 64)
       return block_rows == 64 ? launch_wgmma<64, 1>(q, k, v, tma_geom, p, BH, st)
                               : launch_wgmma<64, 2>(q, k, v, tma_geom, p, BH, st);
-    return block_rows == 64 ? launch_wgmma<128, 1>(q, k, v, tma_geom, p, BH, st)
-                            : launch_wgmma<128, 2>(q, k, v, tma_geom, p, BH, st);
+    if (D == 128)
+      return block_rows == 64 ? launch_wgmma<128, 1>(q, k, v, tma_geom, p, BH, st)
+                              : launch_wgmma<128, 2>(q, k, v, tma_geom, p, BH, st);
+    return launch_wgmma<256, 1>(q, k, v, tma_geom, p, BH, st);
   }
   if (static_cast<long long>(B) * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const Params p{q, k, v, o, Sq, S, H, H / KVH,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
                  scale, causal};
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * H);
-  return D == 64 ? launch_f32<64>(p, grid, st) : launch_f32<128>(p, grid, st);
+  if (D == 64) return launch_f32<64>(p, grid, st);
+  return D == 128 ? launch_f32<128>(p, grid, st) : launch_f32<256>(p, grid, st);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -21,9 +21,8 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 BOX_COLS = 64  # bf16 columns of one 128-byte-swizzled TMA box
-BLOCK_N = 128  # keys of one K/V tile: the rows of k's and v's boxes
 _GEOM = 11  # values per tensor map: 4 dims, 3 byte strides, 4 box dims
 _fn = None
 
@@ -63,17 +62,25 @@ def tma_geometry(t: torch.Tensor, box_rows: int):
     (dims, strides, box).  dims innermost first, (D, S, H, B); strides in
     bytes of s, h and b (d, dim 0, is contiguous and has none); box: 64
     columns by ``box_rows`` rows of one (h, b), so a row of D = 128 comes
-    as two boxes, at columns 0 and 64."""
+    as two boxes, at columns 0 and 64, and one of D = 256 as four."""
     B, S, H, D = t.shape
     es = t.element_size()
     return ((D, S, H, B), (t.stride(1) * es, t.stride(2) * es, t.stride(0) * es),
             (BOX_COLS, box_rows, 1, 1))
 
 
-def block_rows(B: int, Sq: int, H: int, n_sm: int) -> int:
+def block_n(D: int) -> int:
+    """Keys of one K/V tile, the rows of k's and v's boxes: 128, or 64 at
+    D = 256, where two stages of 128-key tiles would not fit a CTA's
+    shared memory."""
+    return 64 if D == 256 else 128
+
+
+def block_rows(B: int, Sq: int, H: int, n_sm: int, D: int) -> int:
     """Query rows of a CTA: 128 (two consumer warpgroups) where that still
-    gives each of the ``n_sm`` SMs a CTA, else 64."""
-    return 128 if B * H * -(-Sq // 128) >= n_sm else 64
+    gives each of the ``n_sm`` SMs a CTA, else 64; always 64 at D = 256,
+    whose accumulators fill a consumer's registers."""
+    return 128 if D != 256 and B * H * -(-Sq // 128) >= n_sm else 64
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -83,9 +90,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KVH -> (B, Sq, H, D) in q's dtype.  Strided inputs are read in place
     unless ``needs_copy``, then copied into fresh contiguous storage.
     Raises on anything else, or if a tensor map or the launch fails."""
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA device, got "
-                         f"{q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share one dtype, float32 or bfloat16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -101,17 +105,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}, got {D}")
     if S < 1:
         raise ValueError("flash_attention needs at least one key")
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}")
     n_rows = 0
     if q.dtype == torch.bfloat16:
         n_rows = block_rows(
-            B, Sq, H, torch.cuda.get_device_properties(q.device).multi_processor_count)
+            B, Sq, H, torch.cuda.get_device_properties(q.device).multi_processor_count, D)
     return _launch(q, k, v, causal, n_rows)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             n_rows: int) -> torch.Tensor:
     """The launch behind ``flash_attention``, on inputs it has checked:
-    a bf16 CTA takes ``n_rows`` (64 or 128) query rows; float32 takes 0."""
+    a bf16 CTA takes ``n_rows`` (64 or 128; 64 at D = 256) query rows;
+    float32 takes 0."""
     B, Sq, H, D = q.shape
     S, KVH = k.shape[1], k.shape[2]
     q, k, v = (t.clone(memory_format=torch.contiguous_format) if needs_copy(t) else t
@@ -121,7 +129,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         return out
     geom = None
     if q.dtype == torch.bfloat16:
-        flat = [x for t, r in ((q, n_rows), (k, BLOCK_N), (v, BLOCK_N))
+        flat = [x for t, r in ((q, n_rows), (k, block_n(D)), (v, block_n(D)))
                 for part in tma_geometry(t, r) for x in part]
         geom = (ctypes.c_longlong * (3 * _GEOM))(*flat)
     fn = _kernel()

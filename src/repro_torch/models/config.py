@@ -3,7 +3,7 @@
 
 One frozen dataclass carries every field of the JAX package's, so a
 config crosses between the packages field by field; the port serves the
-dense and hybrid families so far (``models/lm.py`` raises on the rest).  Configs are
+dense, hybrid and vlm families so far (``models/lm.py`` raises on the rest).  Configs are
 built in ``repro_torch/configs/<arch>.py``; ``reduced()`` gives the
 small same-family variant the CPU tests run.
 """
@@ -111,9 +111,10 @@ class ModelConfig:
         )
 
     def n_params(self) -> int:
-        """Total parameter count of a dense- or hybrid-family model
-        (analytic, matches ``lm.init``)."""
-        if self.family not in ("dense", "hybrid"):
+        """Total parameter count of a dense-, hybrid- or vlm-family model,
+        analytic and as the JAX package counts it: biases, the hybrid
+        branch norms and the vlm's ``patch_proj`` are left out."""
+        if self.family not in ("dense", "hybrid", "vlm"):
             raise NotImplementedError(f"n_params of family {self.family!r} is not ported")
         d, L, hd = self.d_model, self.n_layers, self.head_dim
         attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d

@@ -1,6 +1,8 @@
-"""Decoder LM of the dense family (qwen2/qwen3 style) and the hybrid family
+"""Decoder LM of the dense family (qwen2/qwen3 style), the hybrid family
 (hymba: sliding-window attention beside a selective-SSM branch in each
-layer), the counterpart of the JAX package's ``repro/models/lm.py``.
+layer) and the vlm family (paligemma: a dense gemma backbone whose
+``forward`` prepends projected patch embeddings to the text), the
+counterpart of the JAX package's ``repro/models/lm.py``.
 
 The input embedding and the output head are the paper's integration
 points: ``cfg.emb_method`` "cce" makes the token table a CCE table, looked
@@ -19,7 +21,7 @@ a new cache.  ``forward`` takes each layer's params through one
 checkpoints each block under ``cfg.remat="full"`` (the JAX package's
 ``nothing_saveable``): the backward recomputes the block, so the forward
 keeps only each block's input.  ``next_token_loss`` is the training loss.  Not ported: the MoE,
-xLSTM, VLM and audio families, sinusoidal positions and ``remat="dots"``.
+xLSTM and audio families, sinusoidal positions and ``remat="dots"``.
 """
 from __future__ import annotations
 
@@ -38,8 +40,9 @@ from repro_torch.models.config import ModelConfig
 
 
 def _check(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "hybrid"):
-        raise NotImplementedError(f"LM family {cfg.family!r} is not ported (dense and hybrid only)")
+    if cfg.family not in ("dense", "hybrid", "vlm"):
+        raise NotImplementedError(f"LM family {cfg.family!r} is not ported "
+                                  f"(dense, hybrid and vlm only)")
     if cfg.pos_emb not in ("rope", "none"):
         raise NotImplementedError(f"pos_emb={cfg.pos_emb!r} is not ported")
     L.check_attention(cfg)
@@ -110,6 +113,11 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
         hp, hb = _head_table(cfg).init(generator, device=device)
         params["head"] = hp
         buffers["head"] = hb
+    if cfg.family == "vlm":
+        # the adapter of precomputed patch embeddings (the vision tower is a stub)
+        params["patch_proj"] = L.truncated_normal(
+            generator, (cfg.d_model, cfg.d_model), 1.0 / math.sqrt(cfg.d_model),
+            cfg.param_dtype).to(device)
     return params, buffers
 
 
@@ -204,12 +212,19 @@ def _hybrid_out(p, cfg: ModelConfig, x, attn, s):
 
 
 def forward(params, buffers, cfg: ModelConfig, batch):
-    """Full-sequence forward.  batch: {"tokens": (B, S) integer}.  Returns
-    (logits (B, S, vocab), aux), aux a float32 zero (the dense and hybrid
-    families have no auxiliary loss)."""
+    """Full-sequence forward.  batch: {"tokens": (B, S) integer} and, for
+    the vlm family, optionally "patch_emb" (B, n_patches, d): projected
+    by ``patch_proj`` in ``cfg.dtype`` and prepended to the text, with
+    positions over the whole sequence; only the text positions give
+    logits.  Returns (logits (B, S, vocab), aux), aux a float32 zero (no
+    ported family has an auxiliary loss)."""
     _check(cfg)
     tokens = batch["tokens"]
     x = embed(params, buffers, cfg, tokens)
+    patches = cfg.family == "vlm" and "patch_emb" in batch
+    if patches:
+        pe = batch["patch_emb"].to(cfg.dtype) @ params["patch_proj"].to(cfg.dtype)
+        x = torch.cat([pe, x], dim=1)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     freqs = L.rope_freqs(cfg, device=x.device)
@@ -222,6 +237,8 @@ def forward(params, buffers, cfg: ModelConfig, batch):
         else:
             x = _block_train(lp, cfg, x, positions, freqs)
     x = L.apply_norm(params["ln_f"], x)
+    if patches:
+        x = x[:, -tokens.shape[1]:]
     return logits_fn(params, buffers, cfg, x), torch.zeros((), dtype=torch.float32,
                                                            device=x.device)
 
@@ -301,8 +318,9 @@ def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None):
     ``last_idx`` (default ``S - 1``) picks that position: a serving engine
     that right-pads prompts into power-of-two buckets passes the true last
     token's index, and causal attention keeps every position up to it
-    blind to the padding (only the dense family without a window pads:
-    ring and recurrent caches would take the pads in)."""
+    blind to the padding (only families without a window or a recurrent
+    state pad: ring and recurrent caches would take the pads in).  The vlm
+    family prefills text only, as in the JAX package."""
     _check(cfg)
     B, S = tokens.shape
     x = embed(params, buffers, cfg, tokens)

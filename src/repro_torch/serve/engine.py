@@ -7,10 +7,10 @@ each request owns a slot.  Per tick:
   1. admit queued requests into every free slot: one prefill per request
      (prompts are ragged), right-padded into a power-of-two length bucket,
      writing its k/v straight into its slot of the cache (and, for the
-     hybrid family, its SSM and conv states).  Only the dense family
-     without a sliding window pads: a ring or a recurrent state would take
-     the pads in, so those prompts prefill at their own length, as in the
-     JAX engine;
+     hybrid family, its SSM and conv states).  Every family but the
+     hybrid one pads, unless it has a sliding window: a ring or a recurrent
+     state would take the pads in, so those prompts prefill at their own
+     length, as in the JAX engine;
   2. one decode step over all ``max_batch`` slots;
   3. retire finished requests (eos, ``max_tokens``, or the cache's end).
 
@@ -76,7 +76,7 @@ class ServeEngine:
         # padded prefill is only sound when no cache state is a function of
         # the whole padded sequence: the hybrid family's SSM folds pads into
         # its terminal state, a sliding window rotates the ring by S
-        self._pad_prompts = cfg.family == "dense" and not cfg.sliding_window
+        self._pad_prompts = cfg.family not in ("xlstm", "hybrid") and not cfg.sliding_window
 
     # --- public API ---------------------------------------------------------
 

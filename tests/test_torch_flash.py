@@ -46,6 +46,8 @@ def _both(q, k, v, dtype, causal):
     (128, 128, 4, 2, 16),  # the JAX package's flash sweep
     (256, 256, 2, 1, 32),
     (64, 64, 8, 8, 8),
+    (40, 40, 8, 1, 256),  # paligemma-3b's heads: MQA (a group of 8) at head_dim 256
+    (129, 129, 8, 1, 256),
 ])
 def test_flash_matches_jax_oracle(Sq, S, H, KVH, D, dtype):
     q, k, v = _inputs(2, Sq, S, H, KVH, D, seed=Sq + H)
@@ -73,6 +75,17 @@ def test_flash_launcher_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 8, 8, 2, 1, 64, seed=3))
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("D", [8, 32, 96, 192, 512])
+def test_flash_launcher_refuses_other_head_dims(D):
+    """The kernel takes head_dim 64, 128 and 256 only, in both dtypes, and
+    refuses every other before it looks for a card."""
+    assert tfa.HEAD_DIMS == (64, 128, 256)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.from_numpy(x).to(dtype) for x in _inputs(1, 8, 8, 2, 1, D, seed=5))
+        with pytest.raises(ValueError, match="head_dim"):
+            tfa.flash_attention(q, k, v)
 
 
 def test_flash_refuses_inputs_that_need_a_gradient():
@@ -133,9 +146,27 @@ def test_tma_geometry_fused_projection_slice(D):
     q, k, v = _fused_qkv(1, S, H, KVH, D)
     assert tfa.tma_geometry(q, 128) == ((D, S, H, 1), (row, D * 2, S * row), (64, 128, 1, 1))
     for t in (k, v):
-        assert tfa.tma_geometry(t, tfa.BLOCK_N) == ((D, S, KVH, 1), (row, D * 2, S * row),
-                                                    (64, 128, 1, 1))
+        assert tfa.tma_geometry(t, tfa.block_n(D)) == ((D, S, KVH, 1), (row, D * 2, S * row),
+                                                       (64, 128, 1, 1))
     assert D // 64 == (2 if D == 128 else 1)
+
+
+def test_tma_geometry_at_head_dim_256():
+    """paligemma-3b's q (B, S, 8, 256) and k, v (B, S, 1, 256): a row comes
+    as four 64-column boxes; K/V tiles are 64 keys, so k's and v's boxes
+    have 64 rows, and a q tile 64 (``block_rows`` never picks 128 at
+    D = 256)."""
+    q = torch.zeros((1, 300, 8, 256), dtype=torch.bfloat16)
+    k = torch.zeros((1, 300, 1, 256), dtype=torch.bfloat16)
+    assert tfa.block_n(256) == 64 and tfa.block_n(128) == tfa.block_n(64) == 128
+    rows = tfa.block_rows(8, 2048, 8, 132, 256)
+    assert rows == 64
+    dims, strides, box = tfa.tma_geometry(q, rows)
+    assert dims == (256, 300, 8, 1) and box == (64, 64, 1, 1)
+    assert strides == (8 * 256 * 2, 256 * 2, 300 * 8 * 256 * 2)
+    assert dims[0] // box[0] == 4
+    assert tfa.tma_geometry(k, tfa.block_n(256)) == (
+        (256, 300, 1, 1), (256 * 2, 256 * 2, 300 * 256 * 2), (64, 64, 1, 1))
 
 
 def _unaligned_stride(B, S, H, D):
@@ -165,11 +196,13 @@ def test_needs_copy_decision(case):
     assert tfa.needs_copy(t) is want
 
 
-@pytest.mark.parametrize("B,Sq,H,rows", [(1, 2048, 12, 128), (1, 1024, 12, 64), (1, 128, 12, 64),
-                                          (8, 1024, 12, 128)])
-def test_block_rows_fills_the_sms(B, Sq, H, rows):
-    """128-row CTAs only where they still give each of 132 SMs one."""
-    assert tfa.block_rows(B, Sq, H, 132) == rows
+@pytest.mark.parametrize("B,Sq,H,D,rows", [(1, 2048, 12, 128, 128), (1, 1024, 12, 128, 64),
+                                            (1, 128, 12, 128, 64), (8, 1024, 12, 128, 128),
+                                            (8, 2048, 8, 256, 64), (1, 2048, 32, 64, 128)])
+def test_block_rows_fills_the_sms(B, Sq, H, D, rows):
+    """128-row CTAs only where they still give each of 132 SMs one, and
+    never at D = 256."""
+    assert tfa.block_rows(B, Sq, H, 132, D) == rows
 
 
 def _chip_smoke():

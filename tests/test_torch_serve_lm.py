@@ -6,8 +6,12 @@ continuous batching over fewer slots than requests, prompts of every
 length up to a 32-token cache (power-of-two buckets), and eos.  The same
 on reduced hymba-1.5b (the hybrid family: window 8, so a ring of 8 k/v
 rows, and SSM states; prompts unpadded, shorter and longer than the
-window, decoding past it) at two slot counts.  Also drives the port's
-serve launcher on the CPU, dense and hybrid."""
+window, decoding past it) at two slot counts, and on reduced paligemma-3b
+(the vlm family: tied CCE head, MQA; prompts padded into buckets), where
+each prefill's logits are held too: with random tied weights greedy
+decoding repeats each prompt's last token, so equal tokens alone would
+pass most faults in the layers.  Also drives the port's serve launcher on
+the CPU, dense, hybrid and vlm."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -48,6 +52,14 @@ def hymba():
     params, buffers = jax.jit(jlm.init, static_argnums=1)(jax.random.PRNGKey(1), jcfg)
     tp, tb = convert.lm_to_torch(*jax.tree.map(np.asarray, (params, buffers)), "cpu")
     return (jcfg, params, buffers), (tconfigs.get_reduced("hymba-1.5b"), tp, tb)
+
+
+@pytest.fixture(scope="module")
+def paligemma():
+    jcfg = jconfigs.get_reduced("paligemma-3b")
+    params, buffers = jax.jit(jlm.init, static_argnums=1)(jax.random.PRNGKey(2), jcfg)
+    tp, tb = convert.lm_to_torch(*jax.tree.map(np.asarray, (params, buffers)), "cpu")
+    return (jcfg, params, buffers), (tconfigs.get_reduced("paligemma-3b"), tp, tb)
 
 
 def _serve(engine_cls, request_cls, state, requests, **kw):
@@ -94,6 +106,49 @@ def test_hybrid_engine_tokens_match_jax(hymba, max_batch):
     assert got == want
 
 
+def _prefill_calls(eng, attr):
+    """Record each prefill's (padded length, logits as numpy) in call
+    order: ``attr`` is the JAX engine's jitted ``_prefill`` (dyn, toks,
+    cache, last) or the port's ``_prefill_one`` (slot, toks, last)."""
+    calls, inner = [], getattr(eng, attr)
+
+    def recorded(*a):
+        out = inner(*a)
+        logits = out[0] if isinstance(out, tuple) else out
+        calls.append((int(a[1].shape[1]), np.asarray(logits, np.float32)))
+        return out
+
+    setattr(eng, attr, recorded)
+    return calls
+
+
+@pytest.mark.parametrize("max_batch", [2, 3])
+def test_vlm_engine_tokens_and_prefill_logits_match_jax(paligemma, max_batch):
+    """Five requests of 3..13 prompt tokens over fewer slots: each prompt
+    padded into its power-of-two bucket on both sides, each prefill's
+    logits within rtol 1e-4 / atol 1e-5 of JAX's, and the same tokens."""
+    jstate, tstate = paligemma
+    rng = np.random.default_rng(5)
+    reqs = [(i, rng.integers(0, 257, s).astype(np.int32), 5, None)
+            for i, s in enumerate((3, 13, 8, 5, 9))]
+    out = {}
+    for side, (cls, rcls, state, attr) in {
+            "jax": (JEngine, JRequest, jstate, "_prefill"),
+            "port": (TEngine, TRequest, tstate, "_prefill_one")}.items():
+        cfg, params, buffers = state
+        eng = cls(cfg, params, buffers, max_batch=max_batch, max_seq=32)
+        calls = _prefill_calls(eng, attr)
+        for uid, prompt, max_tokens, eos in reqs:
+            eng.submit(rcls(uid=uid, prompt=prompt, max_tokens=max_tokens, eos=eos))
+        done = eng.run()
+        out[side] = ({r.uid: r.generated for r in done}, calls)
+    (want, jcalls), (got, tcalls) = out["jax"], out["port"]
+    assert got == want
+    assert [n for n, _ in tcalls] == [n for n, _ in jcalls] == [4, 16, 8, 8, 16]
+    for (_, a), (_, b) in zip(tcalls, jcalls):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
 def test_eos_matches_jax(model):
     jstate, tstate = model
     prompt = np.asarray([5, 17, 3], np.int32)
@@ -119,7 +174,7 @@ def test_prefill_count_latency_histogram_and_run_log(model, tmp_path):
     assert events == ["manifest"] + ["request"] * 7 + ["latency_hist"]
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "hymba-1.5b", "paligemma-3b"])
 def test_launch_serve_runs_on_the_cpu(capsys, arch):
     done = tserve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
                         "--max-tokens", "3"])
