@@ -134,7 +134,21 @@ WIDE_LOOKUP = {
 WIDE_BATCHES = (1, 8, TRAIN_BATCH)
 ASSIGN_SHAPES = ((1 << 18, 250, 4), (64000, 250, 4))  # an assign_all chunk; a Lloyd sample
 ASSIGN_BATCHED = (4, 1 << 18, 250, 4)  # (c, n, k, d): an assign_all chunk of a c=4 table
-ASSIGN_GENERAL = ((5000, 250, 3), (3000, 40, 16))  # (n, k, d) off the d = 4 kernel
+# (c, n, k, d, ties planted) off the d = 4 kernel, through the tiled one: hymba-1.5b's token
+# table (a d tail past the 32-float step), paligemma-3b's (n cut to 2^16), n on either side of
+# 40 CTAs of 128 points with k one past 9 tiles of 128 centroids, d 3 (4-byte copies) and 16,
+# and d = 4 one centroid past the d = 4 kernel's slots (kmeans_assign.FAST_MAX_K + 1)
+ASSIGN_GENERAL = (
+    (4, 32001, 1000, 400, False),
+    (4, 1 << 16, 8038, 512, False),
+    (2, 128 * 40 + 1, 128 * 9 + 1, 64, True),
+    (2, 128 * 40 - 1, 128 * 9 + 1, 64, True),
+    (2, 5000, 250, 3, False),
+    (2, 3000, 40, 16, False),
+    (2, 4096, 2457, 4, False),
+)
+ASSIGN_LM_TABLE = (4, 151936, 4748, 384)  # qwen2-1.5b's token table (c, n, k, d), timed
+ASSIGN_PALIGEMMA_TABLE = (4, 257216, 8038, 512)  # paligemma-3b's, timed (cdist on one column)
 ASSIGN_RTOL = 1e-5  # the plain distance of the kernel's pick vs the plain minimum
 STEP_RTOL = 1e-4  # card vs CPU, per leaf, relative to the leaf's largest magnitude
 # (H, KVH): qwen2-1.5b, qwen3-4b/14b style, no GQA, hymba-1.5b (a group of 5)
@@ -866,12 +880,16 @@ def kmeans_phase(card: str, cfg, device="cuda"):
     pointer table, as ``CCE.assign_all`` does), at every other chunk shape
     the transition over cfg's tables launches (``assign_chunk_shapes``:
     each template instance and each table's ragged last chunk) and,
-    through the general kernel, at d 3 and 16: for every point the plain
-    distance of the kernel's pick is within ASSIGN_RTOL*(|min|+1) of the
-    plain minimum, and a second launch gives the same picks bit for bit.
-    Times each d = 4 shape of ASSIGN_SHAPES and ASSIGN_BATCHED beside
-    ``cdist``+``argmin``.  Returns (max excess, numbers at the chunk shape,
-    with the others under ``at_lloyd_sample`` and ``batched``)."""
+    through the tiled kernel, at every ASSIGN_GENERAL shape (planted ties
+    go to the lower j) and at the full token tables of ASSIGN_LM_TABLE and
+    ASSIGN_PALIGEMMA_TABLE: for every point the plain distance of the
+    kernel's pick is within ASSIGN_RTOL*(|min|+1) of the plain minimum,
+    and a second launch gives the same picks bit for bit.  Times each
+    d = 4 shape of ASSIGN_SHAPES and ASSIGN_BATCHED, and both token
+    tables, beside ``cdist``+``argmin``.  Returns (max excess, numbers at
+    the chunk shape, with the others under ``at_lloyd_sample``,
+    ``batched``, ``at_lm_table_shape_random_inputs`` and
+    ``at_paligemma_table_shape``)."""
     import torch
 
     from repro_torch.kernels import build
@@ -923,16 +941,32 @@ def kmeans_phase(card: str, cfg, device="cuda"):
                        plain_ms=plain, plain_device_ms=plain_dev, bound_ms=bound,
                        bound_by=bound_by, library_ms=lib, library_device_ms=lib_dev,
                        points_per_thread=p, threads=threads))
-    for n, k, d in ASSIGN_GENERAL:  # the general kernel, one point a thread
-        g = torch.Generator(device=device).manual_seed(n)
-        x = torch.randn((2, n, d), generator=g, device=device)
-        cent = torch.randn((2, k, d), generator=g, device=device)
+    tiled_regs = next((r for fn, r in regs.items() if "kmeans_assign_tiled_kernel" in fn),
+                      "not measured")
+    for c, n, k, d, ties in ASSIGN_GENERAL:  # the tiled kernel
+        x, cent = tiled_assign_inputs(c, n, k, d, device)
+        planted = plant_ties(x, cent) if ties else None
         got = ka.kmeans_assign(x, cent)
-        excess = max(assign_excess(got[i], x[i], cent[i]) for i in range(2))
+        excess = max(assign_excess(got[i], x[i], cent[i]) for i in range(c))
         check(torch.equal(ka.kmeans_assign(x, cent), got), f"a second launch differs at d={d}")
+        if planted is not None:
+            points, want = planted
+            check(torch.equal(got[:, points], want),
+                  f"a planted tie at c={c} n={n} k={k} d={d} does not go to the lower j")
         max_excess = max(max_excess, excess)
-        print(f"[{card}] kmeans_assign (general kernel) c=2 n={n} k={k} d={d}: "
-              f"max_excess={excess!r}; repeats bit for bit", flush=True)
+        t = ka.tiles(n, c, k, d)
+        print(f"[{card}] kmeans_assign (tiled kernel) c={c} n={n} k={k} d={d}: "
+              f"max_excess={excess!r}; repeats bit for bit"
+              f"{'; planted ties go to the lower j' if planted is not None else ''}; grid "
+              f"{t.grid}, {t.k_tiles} centroid tiles of {t.d_steps} steps, "
+              f"{'16' if t.vec else '4'}-byte copies, (registers, spill bytes) {tiled_regs}",
+              flush=True)
+    at_tables = {key: tiled_assign_numbers(card, *tiled_assign_inputs(*shape, device),
+                                           "random inputs", plain=plain, library_columns=lc)
+                 for key, shape, plain, lc in (
+                     ("at_lm_table_shape_random_inputs", ASSIGN_LM_TABLE, True, None),
+                     ("at_paligemma_table_shape", ASSIGN_PALIGEMMA_TABLE, False, 1))}
+    max_excess = max(max_excess, *(a["max_excess"] for a in at_tables.values()))
     main_path = assign_chunk_shapes(cfg)
     geometries = collections.Counter()
     for c, n, k, d in main_path:  # what the transition launches, held as above
@@ -946,7 +980,100 @@ def kmeans_phase(card: str, cfg, device="cuda"):
           f"launch geometries {dict(geometries)}", flush=True)
     chunk, lloyd, batched = at
     return max_excess, dict(chunk, at_lloyd_sample=lloyd, batched=batched,
-                            transition_chunk_shapes_held=len(main_path))
+                            transition_chunk_shapes_held=len(main_path),
+                            tiled_shapes_held=len(ASSIGN_GENERAL), **at_tables)
+
+
+def tiled_assign_inputs(c, n, k, d, device):
+    """Random (c, n, d) points and (c, k, d) centroids from a generator
+    seeded with n * d + k."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(n * d + k)
+    return (torch.randn((c, n, d), generator=g, device=device),
+            torch.randn((c, k, d), generator=g, device=device))
+
+
+def plant_ties(x, cent):
+    """Copies centroid j to a j' > j where the tiled kernel splits the
+    scan (``kmeans_assign.tiles``): j' = j + bn // tn (the same thread's
+    block), j + bn (the next centroid tile) and k - 1 (the ragged last
+    tile), in every column, and puts a few points on each centroid j,
+    spread over the CTAs.  Returns (those points, (c, len) int32 the j each
+    must pick)."""
+    import torch
+
+    from repro_torch.kernels import kmeans_assign as ka
+
+    (c, n, _), k = x.shape, cent.shape[1]
+    t = ka.tiles(n, c, k, x.shape[2])
+    pairs = ((3, 3 + t.bn // t.tn), (5, 5 + t.bn), (7, k - 1))
+    check(k - 1 >= (t.k_tiles - 1) * t.bn > 5 + t.bn, f"k={k} leaves no ragged tile to plant in")
+    points, want = [], []
+    for q, (j, jj) in enumerate(pairs):
+        cent[:, jj] = cent[:, j]
+        for r in range(4):
+            p = (q * 997 + r * (n // 4)) % n
+            x[:, p] = cent[:, j]
+            points.append(p)
+            want.append(j)
+    want = torch.tensor(want, dtype=torch.int32, device=x.device).expand(c, -1)
+    return torch.tensor(points, device=x.device), want
+
+
+def tiled_assign_numbers(card: str, x, cent, inputs: str, *, plain: bool = True,
+                         library_columns=None) -> dict:
+    """The tiled kernel at a token table's full shape, x (c, n, d) and cent
+    (c, k, d) (``inputs`` says whose): every pick within ASSIGN_RTOL of the
+    plain minimum, a second launch bit for bit, timed (device ms from a
+    10-call trace) beside its bound, the plain version (where ``plain``)
+    and ``cdist``+``argmin`` (on the first ``library_columns`` columns
+    where given, else all).  Returns the numbers."""
+    import torch
+
+    from repro_torch.kernels import kmeans_assign as ka
+    from repro_torch.kernels import ref
+
+    (c, n, d), k = x.shape, cent.shape[1]
+    name = "kmeans_assign_tiled_kernel"
+
+    def run():
+        return ka.kmeans_assign(x, cent)
+
+    got = run()
+    check(torch.equal(run(), got), f"a second launch differs at n={n} d={d}")
+    excess = max(assign_excess(got[i], x[i], cent[i]) for i in range(c))
+    ms = time_ms(run, iters=2, reps=3, warmup=1)
+    dev = device_ms(run, name, iters=10)
+    bound, bound_by = assign_bound(n, k, d, c)
+    nums = dict(c=c, n=n, k=k, d=d, kernel=name, max_excess=excess, ms=ms, device_ms=dev,
+                bound_ms=bound, bound_by=bound_by)
+    if plain:
+        def plain_fn():
+            return ref.kmeans_assign_batched_ref(x, cent)
+
+        nums.update(agree_with_plain=(got == plain_fn()).float().mean().item(),
+                    plain_ms=time_ms(plain_fn, iters=1, reps=3, warmup=1),
+                    plain_device_ms=device_busy_ms(plain_fn))
+    cols = library_columns or c
+    xl, cl = x[:cols], cent[:cols]
+
+    def library():
+        return torch.cdist(xl, cl).argmin(-1)
+
+    nums.update(library_columns=cols,
+                agree_with_cdist=(library() == got[:cols].long()).float().mean().item(),
+                library_ms=time_ms(library, iters=1, reps=3, warmup=1),
+                library_device_ms=device_busy_ms(library))
+    print(f"[{card}] kmeans_assign (tiled kernel) token table c={c} n={n} k={k} d={d}, {inputs}: "
+          f"max_excess={excess!r}; repeats bit for bit; ms={ms!r} device_ms={dev!r} "
+          f"bound_ms={bound!r} ({bound_by}), share of bound {bound / dev!r}; "
+          + (f"plain_ms={nums['plain_ms']!r} plain_device_ms={nums['plain_device_ms']!r} "
+             f"agree_with_plain={nums['agree_with_plain']!r}; " if plain else "")
+          + f"library_ms(cdist+argmin, {cols} of {c} columns)={nums['library_ms']!r} "
+          f"library_device_ms={nums['library_device_ms']!r} "
+          f"agree_with_cdist={nums['agree_with_cdist']!r}", flush=True)
+    return nums
 
 
 class PhaseClock:
@@ -2590,79 +2717,20 @@ def vlm_serve_phase(card: str, cfg, device="cuda"):
                           idle_prefills=(LM_MAX_SEQ,))
 
 
-def long_kernel_call(fn, kernel_name: str):
-    """One call of ``fn``, which launches the kernel whose name holds
-    ``kernel_name`` once and runs for a second or so (device_ms's 400 calls
-    would take minutes): (its output, CUDA-event ms of the call, the
-    kernel's device ms from a trace of the same call, or None where the
-    trace lost its record)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        out = fn()
-        end.record()
-        end.synchronize()
-    hits = [e for e in prof.key_averages() if kernel_name in e.key and e.count]
-    n = sum(e.count for e in hits)
-    check(n <= 1, f"{n} launches of *{kernel_name}* in one call")
-    if not n:
-        print(f"chip_smoke: the trace lost the launch of *{kernel_name}*", flush=True)
-    return out, start.elapsed_time(end), sum(_device_us(e) for e in hits) / 1e3 if n else None
-
-
 def lm_table_assign_numbers(card: str, x, cent, ptr) -> tuple[float, dict]:
     """The assignment kernel at the LM token table's transition: x the
     materialised vocabulary (c, d1, dsub) and cent the centroids (c, k,
     dsub) that ``assign_all`` took, ptr the pointers it wrote.  The kernel
-    gives ptr again bit for bit, repeats, and each pick lies within
-    ASSIGN_RTOL of the plain minimum (``assign_excess``); timed beside its
-    plain version, ``cdist``+``argmin`` and its bound.  Returns (max excess,
-    numbers)."""
+    gives ptr again bit for bit, then ``tiled_assign_numbers`` on the same
+    inputs.  Returns (max excess, numbers)."""
     import torch
 
     from repro_torch.kernels import kmeans_assign as ka
-    from repro_torch.kernels import ref
 
-    c, n, d = x.shape
-    k = cent.shape[1]
-    name = "kmeans_assign_general_kernel"
-    got, ms1, dev1 = long_kernel_call(lambda: ka.kmeans_assign(x, cent), name)
-    check(torch.equal(got, ptr), "the assignment kernel on the transition's inputs != its ptr")
-    again, ms2, dev2 = long_kernel_call(lambda: ka.kmeans_assign(x, cent), name)
-    check(torch.equal(again, got), "the LM-table assignment does not repeat")
-    ms = (ms1 + ms2) / 2
-    devs = [t for t in (dev1, dev2) if t is not None]
-    dev = sum(devs) / len(devs) if devs else None
-    excess = max(assign_excess(got[i], x[i], cent[i]) for i in range(c))
-    agree = (got == ref.kmeans_assign_batched_ref(x, cent)).float().mean().item()
-
-    def plain():
-        return ref.kmeans_assign_batched_ref(x, cent)
-
-    def library():
-        return torch.cdist(x, cent).argmin(-1)
-
-    lib_agree = (library() == got.long()).float().mean().item()
-    plain_ms = time_ms(plain, iters=1, reps=3, warmup=1)
-    plain_dev = device_busy_ms(plain)
-    lib = time_ms(library, iters=1, reps=3, warmup=1)
-    lib_dev = device_busy_ms(library)
-    bound, bound_by = assign_bound(n, k, d, c)
-    print(f"[{card}] kmeans_assign LM token table c={c} n={n} k={k} d={d} (general kernel, "
-          f"the transition's own inputs): equal to the transition's ptr, repeats bit for bit, "
-          f"2 calls of {ms1!r} and {ms2!r} ms, "
-          f"max_excess={excess!r} agree_with_plain={agree!r} agree_with_cdist={lib_agree!r}; "
-          f"ms={ms!r} device_ms={dev!r} plain_ms={plain_ms!r} plain_device_ms={plain_dev!r} "
-          f"library_ms(cdist+argmin)={lib!r} library_device_ms={lib_dev!r} "
-          f"bound_ms={bound!r} ({bound_by}), {ms / bound!r} x the bound", flush=True)
-    return excess, dict(c=c, n=n, k=k, d=d, kernel=name,
-                        agree_with_plain=agree, ms=ms, device_ms=dev, plain_ms=plain_ms,
-                        plain_device_ms=plain_dev, bound_ms=bound, bound_by=bound_by,
-                        library_ms=lib, library_device_ms=lib_dev)
+    check(torch.equal(ka.kmeans_assign(x, cent), ptr),
+          "the assignment kernel on the transition's inputs != its ptr")
+    nums = tiled_assign_numbers(card, x, cent, "the transition's own inputs, equal to its ptr")
+    return nums["max_excess"], nums
 
 
 def _lm_batch(vocab: int, batch: int, seq: int, seed: int, step: int):

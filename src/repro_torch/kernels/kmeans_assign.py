@@ -9,11 +9,13 @@ the public entry points and send CPU tensors to the plain versions
 (``kernels/ref.py``) instead.
 
 The launch geometry (points a thread, threads a CTA) is computed here by
-``assign_geometry``, so that it can be checked without a card.
+``assign_geometry``, and the tiled kernel's tiles, shared memory and grid
+by ``tiles``, so that they can be checked without a card.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -25,7 +27,26 @@ TILE = 8  # centroids a step of the d = 4 kernel (kTile)
 FAST_MAX_K = 48 * 1024 // (TILE * 20) * TILE
 POINTS = (4, 2, 1)  # points a thread, the d = 4 kernel's template instances
 THREADS = (128, 64)  # threads a CTA of the d = 4 kernel
-GENERAL_THREADS = 256
+SMEM_LIMIT = 232448  # bytes of shared memory a CTA can opt into on an H100
+
+
+class Tiles(NamedTuple):
+    """The tiled kernel's launch (``csrc/kmeans_assign.cu``: kTiledM,
+    kTiledN, kBK, kStages, kTM, kTN, kTiledThreads, kTiledSmemBytes)."""
+    bm: int  # points a CTA
+    bn: int  # centroids a tile
+    bk: int  # floats of d a ring stage
+    stages: int  # ring stages
+    tm: int  # points a thread
+    tn: int  # centroids a thread
+    threads: int  # a CTA
+    smem_bytes: int  # dynamic shared memory a CTA: the ring and one tile's norms
+    grid: tuple[int, int]  # (point blocks, columns)
+    k_tiles: int  # centroid tiles a CTA loops over
+    d_steps: int  # ring steps a centroid tile
+    vec: bool  # 16-byte copies (d % 4 == 0), else 4-byte
+
+
 _fn = None
 
 
@@ -52,13 +73,27 @@ def fast_path(k: int, d: int) -> bool:
     return d == 4 and k <= FAST_MAX_K
 
 
+def tiles(n: int, c: int, k: int, d: int) -> Tiles:
+    """The tiled kernel's launch over c columns of n points against k
+    centroids of width d (every shape off ``fast_path``): a CTA of
+    ``bm`` points loops over all centroid tiles of ``bn``, d in steps of
+    ``bk`` through a ring of ``stages``, rows padded by 16 bytes."""
+    bm, bn, bk, stages, tm, tn = 128, 128, 32, 3, 8, 8
+    ring = stages * (bm + bn) * (bk + 4)
+    return Tiles(bm, bn, bk, stages, tm, tn, threads=(bm // tm) * (bn // tn),
+                 smem_bytes=(ring + bn) * 4, grid=(-(-n // bm), c), k_tiles=-(-k // bn),
+                 d_steps=-(-d // bk), vec=d % 4 == 0)
+
+
 def assign_geometry(n: int, c: int, k: int, d: int, sm_count: int) -> tuple[int, int]:
     """(points a thread, threads a CTA) of a launch over c columns of n
     points: on the d = 4 kernel the largest P, then the largest CTA, that
     still gives each of the ``sm_count`` SMs a CTA (the smallest pair
-    where none does); one point a thread on the general kernel."""
+    where none does); on the tiled kernel its fixed 8 points (by 8
+    centroids) a thread and 256 threads (``tiles``)."""
     if not fast_path(k, d):
-        return 1, GENERAL_THREADS
+        t = tiles(n, c, k, d)
+        return t.tm, t.threads
     for p in POINTS:
         for threads in THREADS:
             if c * -(-n // (p * threads)) >= sm_count:
@@ -122,7 +157,7 @@ def _launch(x: torch.Tensor, centroids: torch.Tensor, out: torch.Tensor,
     (``shape``: their (c, n, k, d) from ``check_args``), with the geometry
     given: (points a thread, threads a CTA)."""
     c, n, k, d = shape
-    if fast_path(k, d):  # the d = 4 kernel reads float4s
+    if d % 4 == 0:  # both kernels read rows of float4s
         x, centroids = (t.clone() if t.data_ptr() % 16 else t for t in (x, centroids))
     fn = _kernel()
     with torch.cuda.device(x.device):

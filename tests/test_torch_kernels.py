@@ -332,14 +332,38 @@ def test_kmeans_assign_batched_writes_a_strided_slice_only():
     (1 << 18, 4, 250, 4, (4, 128)),  # the chunk of a c=4 table in one launch: 2048 CTAs
     (64000, 1, 250, 4, (4, 64)),  # a Lloyd sample: 250 CTAs
     (1000, 1, 250, 4, (1, 64)),  # nothing fills the card: the smallest
-    (1 << 18, 4, 250, 3, (1, 256)),  # d != 4: the general kernel
-    (1 << 18, 4, tka.FAST_MAX_K + 1, 4, (1, 256)),  # k past the d = 4 kernel's slots
+    (1 << 18, 4, 250, 3, (8, 256)),  # d != 4: the tiled kernel, 8 x 8 pairs a thread
+    (1 << 18, 4, tka.FAST_MAX_K + 1, 4, (8, 256)),  # k past the d = 4 kernel's slots
 ])
 def test_assign_geometry(n, c, k, d, want):
     assert tka.assign_geometry(n, c, k, d, 132) == want
     p, threads = want
     if tka.fast_path(k, d) and p > 1:  # at least one CTA an SM
         assert c * -(-n // (p * threads)) >= 132
+    if not tka.fast_path(k, d):
+        assert want == (tka.tiles(n, c, k, d).tm, tka.tiles(n, c, k, d).threads)
+
+
+@pytest.mark.parametrize("n,c,k,d,grid,k_tiles,d_steps", [
+    (151936, 4, 4748, 384, (1187, 4), 38, 12),  # qwen2-1.5b's token table
+    (32001, 4, 1000, 400, (251, 4), 8, 13),  # hymba-1.5b's: a d tail, n ragged
+    (257216, 4, 8038, 512, (2010, 4), 63, 16),  # paligemma-3b's
+    (5000, 2, 250, 3, (40, 2), 2, 1),  # d = 3: 4-byte copies
+    (128 * 40 + 1, 2, 128 * 9 + 1, 64, (41, 2), 10, 2),  # ragged n and k
+])
+def test_tiled_geometry(n, c, k, d, grid, k_tiles, d_steps):
+    """The tiled kernel's launch (csrc/kmeans_assign.cu's constants):
+    128 points by 128 centroids a CTA of 256 threads, each 8 x 8, d in
+    32-float steps through 3 stages of 16-byte padded rows, within the
+    shared memory a CTA can opt into."""
+    t = tka.tiles(n, c, k, d)
+    assert (t.bm, t.bn, t.bk, t.stages, t.tm, t.tn, t.threads) == (128, 128, 32, 3, 8, 8, 256)
+    assert t.threads == (t.bm // t.tm) * (t.bn // t.tn)
+    assert t.smem_bytes == (3 * (128 + 128) * 36 + 128) * 4 == 111104
+    assert 48 * 1024 < t.smem_bytes <= tka.SMEM_LIMIT == 232448
+    assert (t.grid, t.k_tiles, t.d_steps) == (grid, k_tiles, d_steps)
+    assert t.grid[0] * t.bm >= n > (t.grid[0] - 1) * t.bm and t.grid[1] <= 65535
+    assert t.vec == (d % 4 == 0)
 
 
 def test_fast_path_bounds():
