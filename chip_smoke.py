@@ -106,6 +106,8 @@ sys.path.insert(0, str(ROOT / "src"))
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor cores, H100 SXM data sheet
+H100_SM_HZ = 1.98e9  # the SM's boost clock, H100 SXM data sheet
+FADD_CYCLES = 4  # latency of a dependent float32 add on the SM (Hopper)
 SERVE_BATCH = 256
 SERVE_BATCHES = 4  # host-side id sampling over 10M-row vocabularies costs ~1 s a batch
 TRAIN_BATCH = 2048
@@ -125,12 +127,19 @@ LOOKUP_BATCHES = (1, 7, SERVE_BATCH, TRAIN_BATCH, 4096)
 BWD_BATCHES = (256, TRAIN_BATCH, 4096)
 LM_DSUB = 384  # the LM token table's sub-row width (qwen2-1.5b: d 1536 over c=4)
 # other widths of both lookup kernels: (c, T, k, dsub) -> the layout each
-# dtype takes; the first is the LM token table's shape
+# dtype takes; the first is the LM token table's shape, the fourth the
+# hashing trick's supertable (HASH_SHAPE), the last a narrow one with two
+# sub-tables and two row ranges a column (k > 512)
 WIDE_LOOKUP = {
     (4, 2, 4748, LM_DSUB): {"float32": "wide_vector", "bfloat16": "wide_vector"},
     (26, 2, 305, 36): {"float32": "wide_vector", "bfloat16": "wide_scalar"},
     (26, 2, 305, 6): {"float32": "wide_scalar", "bfloat16": "wide_scalar"},
+    (26, 1, 500, 16): {"float32": "narrow", "bfloat16": "narrow"},
+    (26, 1, 500, 8): {"float32": "narrow", "bfloat16": "wide_vector"},
+    (26, 1, 500, 64): {"float32": "narrow", "bfloat16": "narrow"},
+    (26, 2, 1000, 16): {"float32": "narrow", "bfloat16": "narrow"},
 }
+HASH_SHAPE = (26, 1, 500, 16)  # emb_method="hash" on CONFIG: the narrow layout's main path
 WIDE_BATCHES = (1, 8, TRAIN_BATCH)
 ASSIGN_SHAPES = ((1 << 18, 250, 4), (64000, 250, 4))  # an assign_all chunk; a Lloyd sample
 ASSIGN_BATCHED = (4, 1 << 18, 250, 4)  # (c, n, k, d): an assign_all chunk of a c=4 table
@@ -463,9 +472,11 @@ def random_lookup(c: int, T: int, k: int, dsub: int, B: int, dtype, seed: int, d
 
 def wide_lookup_cases(card: str, device="cuda") -> float:
     """The lookup at widths other than the Criteo supertable's dsub=4: the
-    LM token table's 384, and 36 and 6, at B in WIDE_BATCHES, on strided
-    idx; float32 bit for bit, bfloat16 within one bf16 step; each takes
-    the layout ``lookup_path`` names for it, and an unaligned table takes
+    LM token table's 384, 36 and 6, and the narrow layout's 16 (the
+    hashing trick's, and at T=2, k=1000), 8 and 64, at B in WIDE_BATCHES,
+    on strided idx;
+    float32 bit for bit, bfloat16 within one bf16 step; each takes the
+    layout ``lookup_path`` names for it, and an unaligned table takes
     wide_scalar.  Times the largest batch with the L2 flushed before each
     call, beside ``embedding_bag`` (float32), flushed the same way.
     Returns the largest float32 error."""
@@ -510,6 +521,20 @@ def wide_lookup_cases(card: str, device="cuda") -> float:
     return max_err
 
 
+def narrow_ptxas(card: str) -> None:
+    """Prints ptxas' registers and spill of every build of both narrow
+    kernels (one a dtype and row width) from this process' build logs."""
+    from repro_torch.kernels import build
+
+    for lib in ("cce_lookup", "cce_lookup_bwd"):
+        regs = {fn: r for fn, r in ptxas_registers(build.BUILD_LOGS.get(lib, "")).items()
+                if "narrow_kernel" in fn}
+        for fn, (n, spill) in sorted(regs.items()):
+            print(f"[{card}] ptxas {fn}: {n} registers, {spill} bytes spill stores")
+        if not regs:
+            print(f"[{card}] ptxas {lib}: no build log in this process (built earlier)")
+
+
 def kernel_phase(card: str, collection, device="cuda"):
     """The lookup kernel against its plain version at the supertable's
     shape, with its times, then at other widths (``wide_lookup_cases``).
@@ -524,6 +549,7 @@ def kernel_phase(card: str, collection, device="cuda"):
     (g,) = collection.univ_groups
     grp = collection.groups[g]
     print(f"supertable: c={grp.n_cols} T={grp.n_tables} k={grp.k_pad} dsub={grp.dsub}")
+    narrow_ptxas(card)
     max_err = 0.0
     at = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -577,8 +603,8 @@ def column_ks(collection) -> list[int]:
 
 def bwd_case(collection, B: int, dtype, seed: int, device="cuda"):
     """idx with uniform rows (the (c, B, T) view of rows drawn below each
-    column's real k, the second slot of full-table columns -1, 10% more -1
-    sentinels) and a random upstream gradient."""
+    column's real k, the second slot of full-table columns -1 where T is
+    2, 10% more -1 sentinels) and a random upstream gradient."""
     import numpy as np
     import torch
 
@@ -592,7 +618,8 @@ def bwd_case(collection, B: int, dtype, seed: int, device="cuda"):
     rows = (rng.random((B, c, T)) * ks[None, :, None]).astype(np.int32)
     full_col = np.array([isinstance(collection.tables[f], FullTable)
                          for f in collection.rows_col_feature])
-    rows[:, full_col, 1] = -1
+    if T > 1:
+        rows[:, full_col, 1] = -1
     rows[rng.random((B, c, T)) < 0.10] = -1
     idx = torch.from_numpy(rows).to(device).movedim(0, 1)  # (c, B, T), strided
     dout = torch.from_numpy(rng.normal(size=(B, c, dsub)).astype(np.float32))
@@ -662,6 +689,14 @@ def hottest_share(idx, k: int) -> float:
     return torch.bincount(key).max().item() / B if key.numel() else 0.0
 
 
+def chain_floor_ms(terms: int) -> float:
+    """Least time for one row of ``terms`` terms summed in increasing b:
+    that many dependent float32 adds a chain, FADD_CYCLES each at the
+    SM's boost clock.  No bit-equal kernel splits a row along b, so its
+    hottest row's chain bounds the backward from below beside bwd_bound."""
+    return terms * FADD_CYCLES / H100_SM_HZ * 1e3
+
+
 def bwd_check(card: str, label: str, idx, dout, k: int, ks=None, *, timed=True,
               plain_busy=True):
     """The backward kernel on one input against its plain version: equal
@@ -669,7 +704,8 @@ def bwd_check(card: str, label: str, idx, dout, k: int, ks=None, *, timed=True,
     once), equal to itself across calls, exactly zero on rows no index
     names and on padding rows past a column's real k (``ks``).  With
     ``timed``, prints and returns its numbers beside its bound, its plain
-    version's and (float32) ``zeros``+``index_add_``'s; ``plain_busy=False``
+    version's and (float32) ``zeros``+``index_add_``'s, and the hottest
+    row's chain floor (``chain_floor_ms``); ``plain_busy=False``
     leaves out the plain version's device busy (a trace of tens of
     thousands of records, ~15 s to read).  Returns (max error, numbers or
     None)."""
@@ -697,9 +733,10 @@ def bwd_check(card: str, label: str, idx, dout, k: int, ks=None, *, timed=True,
         pad = torch.arange(k, device=device)[None, None, :] >= ks[:, None, None]
         check(not got[pad.expand(c, T, k)].any(), f"bwd padding rows not zero on {label}")
     hot = hottest_share(idx, k)
+    chain = chain_floor_ms(round(hot * B))
     if not timed:
         print(f"[{card}] cce_lookup_bwd {label}: equal to plain, repeatable, zero on unnamed "
-              f"rows; hottest row {hot!r} of the batch", flush=True)
+              f"rows; hottest row {hot!r} of the batch, chain_floor_ms={chain!r}", flush=True)
         return err, None
     ms = time_ms(lambda: cl.cce_lookup_bwd(idx, dout, k))
     plain = time_ms(lambda: ref.cce_lookup_bwd_ref(idx, dout, k), iters=3, reps=3, warmup=1)
@@ -709,7 +746,8 @@ def bwd_check(card: str, label: str, idx, dout, k: int, ks=None, *, timed=True,
     bound, bound_by = bwd_bound(idx, dout, k)
     line = (f"[{card}] cce_lookup_bwd {label}: max_abs_err={err!r} repeatable=True "
             f"zero_unnamed_rows=True hottest_row_share={hot!r} ms={ms!r} device_ms={dev!r} "
-            f"plain_ms={plain!r} plain_device_ms={plain_dev!r} bound_ms={bound!r} ({bound_by})")
+            f"plain_ms={plain!r} plain_device_ms={plain_dev!r} bound_ms={bound!r} ({bound_by}) "
+            f"chain_floor_ms={chain!r}")
     lib = lib_dev = None
     if dout.dtype == torch.float32:
         dest, rows = index_add_args(idx, dout, k)
@@ -727,7 +765,7 @@ def bwd_check(card: str, label: str, idx, dout, k: int, ks=None, *, timed=True,
         line += f" library_ms(zeros+index_add_)={lib!r} library_device_ms={lib_dev!r}"
     print(line, flush=True)
     return err, dict(ms=ms, device_ms=dev, plain_ms=plain, plain_device_ms=plain_dev,
-                     bound_ms=bound, bound_by=bound_by, library_ms=lib,
+                     bound_ms=bound, bound_by=bound_by, chain_floor_ms=chain, library_ms=lib,
                      library_device_ms=lib_dev, hottest_row_share=hot)
 
 
@@ -736,9 +774,10 @@ def bwd_kernel_phase(card: str, cfg, device="cuda"):
     supertable's shape on uniform rows at BWD_BATCHES, on the rows a real
     train batch gives (Zipf ids through ``group_rows``), on every valid
     index of a column naming one row, on an unaligned dout (wide_scalar),
-    then at the wide widths of WIDE_LOOKUP.  Returns (max error, numbers at
-    the train batch: uniform ids at the top level, the skewed, the one-row
-    and the LM-shape cases under their own keys)."""
+    then at the hashing trick's supertable (``hash_bwd_cases``), then at
+    the widths of WIDE_LOOKUP.  Returns (max error, numbers at the train
+    batch: uniform ids at the top level, the skewed, the one-row, the
+    hash-shape and the LM-shape cases under their own keys)."""
     import torch
 
     collection = cfg.collection
@@ -772,6 +811,9 @@ def bwd_kernel_phase(card: str, cfg, device="cuda"):
     err, _ = bwd_check(card, f"float32 B={TRAIN_BATCH} unaligned dout", uniform, odd, k, ks,
                        timed=False)
     max_err = max(max_err, err)
+    err, hash_at = hash_bwd_cases(card, cfg, device=device)
+    max_err = max(max_err, err)
+    at.update(hash_at)
     for (c, T, kw, dsub), paths in WIDE_LOOKUP.items():
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[-1]
@@ -786,6 +828,56 @@ def bwd_kernel_phase(card: str, cfg, device="cuda"):
                 max_err = max(max_err, err)
                 if dsub == LM_DSUB:
                     at["at_lm_shape"] = nums
+    return max_err, at
+
+
+def hash_bwd_cases(card: str, cfg, device="cuda"):
+    """The backward at the hashing trick's supertable (``emb_method="hash"``
+    on ``cfg``: HASH_SHAPE, the narrow layout) on the rows a train batch
+    gives (Zipf ids through ``group_rows``) and on every valid index of a
+    column naming its last real row (a 2048-term chain), in float32 and
+    bfloat16, through ``bwd_check``; float32 timed.  Then, untimed, on a
+    Zipf batch of 4096 (two chunks: a hot row's sums carried from one to
+    the next).  Returns (max error, {"at_hash_train_batch": numbers,
+    "at_hash_one_row": numbers})."""
+    import dataclasses
+
+    import torch
+
+    hcfg = dataclasses.replace(cfg, emb_method="hash")
+    coll = hcfg.collection
+    (g,) = coll.univ_groups
+    grp = coll.groups[g]
+    k = grp.k_pad
+    check((grp.n_cols, grp.n_tables, k, grp.dsub) == HASH_SHAPE,
+          f"the hash supertable is not {HASH_SHAPE}")
+    ks = torch.tensor(column_ks(coll), device=device)
+    idx, dout32 = bwd_train_case(hcfg, TRAIN_BATCH, seed=3, device=device)
+    valid = (idx >= 0) & (idx < ks[:, None, None])
+    one_row = torch.where(valid, (ks - 1).to(torch.int32)[:, None, None], idx)
+    max_err, at = 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        dout = dout32.to(dtype)
+        check(cl_path(dout) == "narrow", f"the hash shape's {dn} dout does not take narrow")
+        f32 = dtype == torch.float32
+        for key, what, rows in (("at_hash_train_batch", "a train batch's rows", idx),
+                                ("at_hash_one_row", "one row a column", one_row)):
+            # the plain version's device busy on the train batch only: one row
+            # a column is 2048 rounds of index_add_, a trace of ~10^5 records
+            err, nums = bwd_check(
+                card, f"{dn} B={TRAIN_BATCH} hash shape c={grp.n_cols} T=1 k={k} dsub={grp.dsub} "
+                f"narrow, {what}", rows, dout, k, ks, timed=f32,
+                plain_busy=key == "at_hash_train_batch")
+            max_err = max(max_err, err)
+            if f32:
+                at[key] = nums
+    idx, dout32 = bwd_train_case(hcfg, 4096, seed=4, device=device)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        err, _ = bwd_check(card, f"{dn} B=4096 hash shape narrow, a Zipf batch's rows", idx,
+                           dout32.to(dtype), k, ks, timed=False)
+        max_err = max(max_err, err)
     return max_err, at
 
 
@@ -1868,7 +1960,7 @@ def method_kernel_numbers(card: str, m: str, mcfg, params, buffers, raw, device=
     tables = params["emb"][g]["tables"].detach()
     c, T, k, dsub = tables.shape
     shape = dict(c=c, T=T, k=k, dsub=dsub, layout=cl_path(tables))
-    want_layout = {16: "wide_vector", 4: "vec4"}.get(dsub)
+    want_layout = {16: "narrow", 4: "vec4"}.get(dsub)
     check(want_layout is None or shape["layout"] == want_layout,
           f"{m}: dsub={dsub} takes {shape['layout']}, not {want_layout}")
     max_err = 0.0

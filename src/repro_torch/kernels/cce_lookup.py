@@ -19,19 +19,32 @@ from repro_torch.kernels import build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: The kernels' layouts, in the order the C entry points number them
 #: (each source's header describes them).
-PATHS = ("vec4", "wide_vector", "wide_scalar")
+PATHS = ("vec4", "wide_vector", "wide_scalar", "narrow")
+#: Row sizes in bytes that take ``narrow``: 2, 4, 8 or 16 16-byte vectors.
+NARROW_ROW_BYTES = (32, 64, 128, 256)
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
 
 def lookup_path(dsub: int, element_size: int, *addresses: int) -> str:
     """The layout both kernels take for rows of ``dsub`` elements of
     ``element_size`` bytes in tensors at ``addresses`` (the float tensors'
-    data pointers): ``"vec4"`` for dsub 4 with every address aligned to
-    the row, ``"wide_vector"`` where dsub is a multiple of a 16-byte vector
-    and every address is 16-byte aligned, else ``"wide_scalar"``."""
+    data pointers):
+
+    - ``"vec4"``: dsub 4 with every address aligned to the row (a thread
+      a row; the Criteo supertable);
+    - ``"narrow"``: rows of 2, 4, 8 or 16 16-byte vectors (float32 dsub 8,
+      16, 32, 64; bfloat16 16, 32, 64, 128) with every address 16-byte
+      aligned (a lane group a row; the hashing trick's dsub 16);
+    - ``"wide_vector"``: any other dsub that is a multiple of a 16-byte
+      vector, every address 16-byte aligned (the lanes of a warp along d;
+      the LM token tables);
+    - ``"wide_scalar"``: anything else, unaligned views included."""
+    aligned = all(a % 16 == 0 for a in addresses)
     if dsub == 4 and all(a % (4 * element_size) == 0 for a in addresses):
         return "vec4"
-    if dsub % (16 // element_size) == 0 and all(a % 16 == 0 for a in addresses):
+    if aligned and dsub * element_size in NARROW_ROW_BYTES:
+        return "narrow"
+    if aligned and dsub % (16 // element_size) == 0:
         return "wide_vector"
     return "wide_scalar"
 
@@ -39,7 +52,9 @@ def lookup_path(dsub: int, element_size: int, *addresses: int) -> str:
 def _kernel(lib_name: str, entry: str):
     """The C entry point ``entry`` of ``csrc/<lib_name>.cu`` (forward and
     backward share one signature: idx, a float tensor in, a float tensor
-    out, dtype code, c B T k dsub, idx strides, path, stream)."""
+    out, dtype code, c B T k dsub, idx strides, path, stream).  The path
+    is the layout's index in PATHS, one of the four that ``lookup_path``
+    names; the source compiles every layout into one library."""
     if entry not in _fns:
         lib = build.library(lib_name)
         fn = getattr(lib, entry)

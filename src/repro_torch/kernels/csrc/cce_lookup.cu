@@ -26,17 +26,24 @@
 // about 33 MB, 9.8 us; a decode tick of 8 tokens about 0.15 MB, 0.04 us.
 //
 // Design.  One launch covers every column and both sub-tables, with no
-// scratch memory, no second pass and no atomics.  Three layouts, chosen by
+// scratch memory, no second pass and no atomics.  Four layouts, chosen by
 // the launcher (cce_lookup.py::lookup_path) and named by the path argument:
 //   vec4         dsub == 4, rows aligned: one thread owns one (b, column)
 //                output row, the column fastest, and reads each stored row
 //                with one 16-byte load (8 bytes in bfloat16).  A Criteo row
 //                is 16 bytes, so a thread per row already reads whole rows.
-//   wide_vector  dsub a multiple of 16 bytes' worth of elements, rows
-//                aligned: the lanes of a warp run along d.  One warp owns a
-//                512-byte slice of one (b, column) output row (128 float32
-//                or 256 bfloat16 elements); each lane loads 16 bytes, so one
-//                warp instruction reads 512 contiguous bytes of a stored row.
+//   narrow       rows of 2, 4, 8 or 16 16-byte vectors (float32 dsub 8, 16,
+//                32, 64; bfloat16 16, 32, 64, 128), rows aligned: a group of
+//                that many lanes owns one (b, column) output row, each lane
+//                one 16-byte vector, and a warp holds 32/group consecutive
+//                output rows, so its stores are one run of 512 bytes.  The
+//                hashing trick's rows (dsub 16) take it.
+//   wide_vector  any other dsub that is a multiple of 16 bytes' worth of
+//                elements, rows aligned: the lanes of a warp run along d.
+//                One warp owns a 512-byte slice of one (b, column) output
+//                row (128 float32 or 256 bfloat16 elements); each lane loads
+//                16 bytes, so one warp instruction reads 512 contiguous
+//                bytes of a stored row.  The LM's dsub=384 takes it.
 //   wide_scalar  any other width or an unaligned pointer: the same warp per
 //                (row, slice), each lane holding elements lane + 32*j, j < 4,
 //                loaded one at a time; still coalesced.
@@ -47,13 +54,14 @@
 // In the wide layouts each (row, t) index is one broadcast load, requested for
 // two sub-tables before either row is loaded, and the grid has one warp per
 // (row, slice): 96 warps over 24 CTAs for a decode tick, 24576 warps for a
-// 2048-token prefill.
+// 2048-token prefill.  At dsub=16 that warp left 28 of its 32 lanes idle
+// and took 11.8 times the byte bound; narrow puts 8 rows in a warp.
 
 #include "cce_lookup_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;      // vec4: a thread per output row
+constexpr int kThreads = 256;      // vec4: a thread per output row; narrow: a lane group
 constexpr int kWideThreads = 128;  // wide: 4 warps a CTA, so a decode tick spreads over SMs
 constexpr int kTStep = 2;          // sub-tables whose indices are loaded before their rows
 
@@ -146,6 +154,50 @@ cce_lookup_fwd_wide_scalar_kernel(const int32_t* __restrict__ idx,
   fwd_wide<scalar_t, false>(idx, tables, out, c, B, T, k, dsub, s_col, s_b, s_t);
 }
 
+// narrow: a group of dsub*esize/16 lanes per output row, groups numbered
+// b*c + column; lane v of a group loads vector v of each stored row.  Each
+// lane loads the indices of kTStep sub-tables before their rows, as
+// fwd_wide does.
+template <typename scalar_t>
+__global__ void __launch_bounds__(kThreads)
+cce_lookup_fwd_narrow_kernel(const int32_t* __restrict__ idx, const scalar_t* __restrict__ tables,
+                             scalar_t* __restrict__ out, int c, int B, int T, int k, int dsub,
+                             int64_t s_col, int64_t s_b, int64_t s_t) {
+  using G = Group<scalar_t>;
+  const int lg = __ffs(dsub / G::kPer) - 1;  // log2 of the lanes a row
+  const int64_t gid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t row = gid >> lg;  // b*c + col
+  if (row >= static_cast<int64_t>(B) * c) return;
+  const int v = static_cast<int>(gid) & ((1 << lg) - 1);
+  const int col = static_cast<int>(row % c);
+  const int64_t b = row / c;
+  const int32_t* ip = idx + col * s_col + b * s_b;
+  const scalar_t* tab = tables + static_cast<int64_t>(col) * T * k * dsub;
+  float acc[G::kPer];
+#pragma unroll
+  for (int j = 0; j < G::kPer; ++j) acc[j] = 0.f;
+  for (int t0 = 0; t0 < T; t0 += kTStep) {
+    int r[kTStep];
+#pragma unroll
+    for (int u = 0; u < kTStep; ++u) {  // the group's lanes load the same index
+      const int t = t0 + u;
+      r[u] = t < T ? __ldg(ip + t * s_t) : -1;
+      if (r[u] >= k) r[u] = -1;
+    }
+    float x[kTStep][G::kPer];
+#pragma unroll
+    for (int u = 0; u < kTStep; ++u)
+      if (r[u] >= 0) G::load(tab + (static_cast<int64_t>(t0 + u) * k + r[u]) * dsub, v, x[u]);
+#pragma unroll
+    for (int u = 0; u < kTStep; ++u)  // in t order
+      if (r[u] >= 0) {
+#pragma unroll
+        for (int j = 0; j < G::kPer; ++j) acc[j] += x[u][j];
+      }
+  }
+  G::store(out + row * dsub, v, acc);
+}
+
 template <typename scalar_t>
 int launch(const void* idx, const void* tables, void* out, int c, int B, int T, int k, int dsub,
            int64_t s_col, int64_t s_b, int64_t s_t, int path, cudaStream_t stream) {
@@ -158,6 +210,15 @@ int launch(const void* idx, const void* tables, void* out, int c, int B, int T, 
     const unsigned blocks = static_cast<unsigned>((rows + kThreads - 1) / kThreads);
     cce_lookup_fwd_vec4_kernel<scalar_t><<<blocks, kThreads, 0, stream>>>(
         ip, tp, op, c, B, T, k, s_col, s_b, s_t);
+    return 0;
+  }
+  if (path == kNarrow) {
+    const int lanes = dsub / Group<scalar_t>::kPer;
+    if (dsub % Group<scalar_t>::kPer || lanes < 2 || lanes > 16 || (lanes & (lanes - 1)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned blocks = static_cast<unsigned>((rows * lanes + kThreads - 1) / kThreads);
+    cce_lookup_fwd_narrow_kernel<scalar_t><<<blocks, kThreads, 0, stream>>>(
+        ip, tp, op, c, B, T, k, dsub, s_col, s_b, s_t);
     return 0;
   }
   const int slice = path == kWideVector ? Lanes<scalar_t, true>::kSlice
@@ -180,8 +241,9 @@ int launch(const void* idx, const void* tables, void* out, int c, int B, int T, 
 
 // dtype: 0 = float32, 1 = bfloat16.  path: 0 = vec4 (dsub == 4, tables and
 // out aligned to 4 elements), 1 = wide_vector (dsub a multiple of 16 bytes
-// of elements, tables and out aligned to 16 bytes), 2 = wide_scalar (any);
-// the caller checks the conditions.  Returns the cudaError_t of the launch
+// of elements, tables and out aligned to 16 bytes), 2 = wide_scalar (any),
+// 3 = narrow (rows of 2, 4, 8 or 16 16-byte vectors, tables and out aligned
+// to 16 bytes); the caller checks the alignment.  Returns the cudaError_t of the launch
 // (0 on success).  B*c >= 1.
 extern "C" int cce_lookup_fwd(const void* idx, const void* tables, void* out, int dtype, int c,
                               int B, int T, int k, int dsub, long long s_col, long long s_b,

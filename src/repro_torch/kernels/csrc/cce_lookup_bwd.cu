@@ -38,33 +38,49 @@
 // sub-table) (one CTA per (column, sub-table) wherever k <= R); for each
 // chunk of kChunk b it
 //   1. loads its 2048 indices (4 a thread, strided reads of the view, no
-//      copy) and, on vec4, the dout rows of the same entries into
-//      registers, so that the sort below hides their latency;
+//      copy) and, on vec4 and narrow, the dout rows (narrow: one 16-byte
+//      vector of each) of the same entries into registers, so that the
+//      sort below hides their latency;
 //   2. buckets the chunk by row with a stable counting sort in shared
 //      memory: each warp takes 128 consecutive b as 4 tiles of 32, in
-//      order, ranks each entry among the equal rows of its tile with one
-//      __ballot_sync a key bit (cheaper than __match_any_sync) and keeps
-//      per-warp counts (integers, written by one lane a row: exact and
-//      deterministic); an exclusive scan over (row, warp) gives every
-//      entry its place, so each row's terms form one segment, ascending
-//      in b.  On vec4 the entries' dout rows themselves are placed, so
-//      that a row's terms lie side by side;
+//      order, ranks each entry among the equal rows of its tile (vec4 and
+//      wide: one __ballot_sync a key bit, cheaper there than
+//      __match_any_sync; narrow: __match_any_sync, 0.9 us the cheaper at
+//      the hashing trick's shape) and keeps per-warp counts (integers,
+//      written by one lane a row: exact and deterministic); an exclusive
+//      scan over (row, warp) gives every entry its place, so each row's
+//      terms form one segment, ascending in b.  On vec4 and narrow the
+//      entries' dout rows themselves are placed, so that a row's terms lie
+//      side by side;
 //   3. lets each owner walk only its own segment, carrying acc in
 //      registers from chunk to chunk: no comparisons against other rows,
 //      no index to chase, no data-dependent branch in the loop.
 // A row is never split along b, since that would change the order of its
-// adds.  On vec4 a row of more than kHot terms is split along d instead:
-// its 4 elements are 4 independent chains of adds, walked by 4 threads in
-// warps on the SM's 4 schedulers, each with kHotAhead loads in flight.
-// One row holding the whole chunk is still 2048 dependent adds.
+// adds.  On vec4 and narrow a row of more than kHot terms is split along d
+// instead: its kOwn elements are independent chains of adds, walked by
+// kOwn threads in warps on the SM's 4 schedulers, each with kHotAhead loads
+// in flight.  One row holding the whole chunk is still 2048 dependent adds.
 // Layouts (the launcher's path, as in the forward):
 //   vec4         dsub == 4, aligned: a thread owns a row (R = 512); the
 //                sorted rows take 32 KB of shared memory a chunk in
 //                float32, 16 KB in bfloat16.
+//   narrow       rows of 2, 4, 8 or 16 16-byte vectors, aligned (float32
+//                dsub 8-64, bfloat16 16-128): vec4 on one 16-byte vector
+//                of each row a CTA (grid y numbers the vectors), a thread
+//                owning that vector of one row (R = 512).  A column's
+//                gather and its hot rows' chains so spread over as many
+//                SMs as a row has vectors (one CTA a (column, sub-table,
+//                vector) at the hashing trick's k=500: 104 CTAs at dsub 16
+//                in float32).  The sorted vectors take 32 KB a chunk.
 //   wide_vector  a warp owns kWarpRows rows (R = 64) and one 512-byte slice
 //   wide_scalar  of d (grid y); its lanes run along d and read dout from
 //                global memory, 16 bytes (or one element) a lane, as in the
 //                forward.  The LM's dsub=384 takes this path, in one pass.
+// The hashing trick's rows (c=26, T=1, k=500, dsub=16) took wide_vector
+// until narrow came: 8 CTAs a column, each sorting all 2048 indices, 28 of
+// a warp's 32 lanes idle, and a hot row walked by one warp that read each
+// term's dout row from global memory at an address from the sorted list:
+// on a train batch 1117 dependent L2 round trips, 0.19 ms.
 // What bounds it (phase times from tools/probe_lookup_bwd.py in PERF.md).
 // On the train step's shape each CTA first gathers 2048 dout rows of 16
 // bytes that lie 1664 bytes apart (and, from the serving layout, 2048
@@ -78,28 +94,42 @@
 
 namespace {
 
-// Four consecutive elements from shared memory.
-__device__ __forceinline__ void load4_shared(const float* p, float v[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = x.z;
-  v[3] = x.w;
-}
-__device__ __forceinline__ void load4_shared(const __nv_bfloat16* p, float v[4]) {
-  const uint2 x = *reinterpret_cast<const uint2*>(p);
-  unpack_bf16x2(x.x, v);
-  unpack_bf16x2(x.y, v + 2);
-}
-
-// Four consecutive elements as one access, their bits untouched.
-template <typename scalar_t>
-struct Row4 {
+// The kPer consecutive elements of a row that a thread owns on vec4 (4) and
+// narrow (a 16-byte vector: 4 in float32, 8 in bfloat16): `type` moves them
+// as one access, their bits untouched.
+template <typename scalar_t, int kPer>
+struct Own;
+template <>
+struct Own<float, 4> {
   using type = float4;
+  __device__ static __forceinline__ void unpack(float4 x, float v[4]) {
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  }
+  __device__ static __forceinline__ void store(float* p, const float v[4]) { store4(p, v); }
 };
 template <>
-struct Row4<__nv_bfloat16> {
+struct Own<__nv_bfloat16, 4> {
   using type = uint2;
+  __device__ static __forceinline__ void unpack(uint2 x, float v[4]) {
+    unpack_bf16x2(x.x, v);
+    unpack_bf16x2(x.y, v + 2);
+  }
+  __device__ static __forceinline__ void store(__nv_bfloat16* p, const float v[4]) {
+    store4(p, v);
+  }
+};
+template <>
+struct Own<__nv_bfloat16, 8> {
+  using type = uint4;
+  __device__ static __forceinline__ void unpack(uint4 x, float v[8]) {
+    Group<__nv_bfloat16>::unpack(x, v);
+  }
+  __device__ static __forceinline__ void store(__nv_bfloat16* p, const float v[8]) {
+    store8(p, v);
+  }
 };
 
 constexpr int kThreads = 512;
@@ -107,9 +137,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 2048;                     // b bucketed at once
 constexpr int kTiles = kChunk / kThreads;        // 32-entry tiles a warp sorts, in order
 constexpr int kWarpRows = 4;                     // rows a warp owns on the wide paths
-constexpr int kThreadRange = kThreads;           // rows a CTA owns: vec4
+constexpr int kThreadRange = kThreads;           // rows a CTA owns: vec4, narrow
 constexpr int kWarpRange = kWarps * kWarpRows;   // wide
-// vec4: a row of more than kHot terms is walked along d by 4 threads;
+// vec4, narrow: a row of more than kHot terms is walked along d, a thread an
+// element;
 // -DCCE_BWD_HOT_TERMS=2048 compiles that out (tools/probe_lookup_bwd.py
 // times the kernel with and without it)
 #ifndef CCE_BWD_HOT_TERMS
@@ -180,26 +211,32 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* s_wsum) {
   return x - v + (warp ? s_wsum[warp - 1] : 0);
 }
 
-// Shared memory of one CTA, in bytes: the sorted chunk (its dout rows on
-// vec4, padded for the hot walk's reads ahead; its b otherwise), per-warp
-// row counts, row starts and counts, warp sums, the hot rows and their sums.
-__host__ __device__ constexpr size_t smem_bytes(bool vec4, int esize, int rows) {
-  return (vec4 ? static_cast<size_t>(kChunk + kHotAhead) * 4 * esize : kChunk * sizeof(int)) +
+// Shared memory of one CTA, in bytes: the sorted chunk (on vec4 and narrow
+// its dout rows of own_bytes a thread, padded for the hot walk's reads
+// ahead; its b otherwise), per-warp row counts, row starts and counts, warp
+// sums, the hot rows and their sums.
+__host__ __device__ constexpr size_t smem_bytes(int own_bytes, int esize, int rows) {
+  return (own_bytes ? static_cast<size_t>(kChunk + kHotAhead) * own_bytes
+                    : kChunk * sizeof(int)) +
          (static_cast<size_t>(kWarps) * rows + 2 * static_cast<size_t>(rows) + kWarps + 1 +
-          kMaxHot + 4 * kMaxHot) * sizeof(int);
+          kMaxHot + own_bytes / esize * kMaxHot) * sizeof(int);
 }
 
-// Grid: x = (column*T + t) * n_ranges + range, y = slice of d (wide paths).
+// Grid: x = (column*T + t) * n_ranges + range, y = slice of d (narrow and
+// wide paths).
 template <typename scalar_t, int kPath>
 __device__ __forceinline__ void bwd(const int32_t* __restrict__ idx,
                                     const scalar_t* __restrict__ dout,
                                     scalar_t* __restrict__ dtab, int c, int B, int T, int k,
                                     int dsub, int64_t s_col, int64_t s_b, int64_t s_t) {
-  constexpr bool kByThread = kPath == kVec4;
+  constexpr bool kByThread = kPath == kVec4 || kPath == kNarrow;
   constexpr int kRange = kByThread ? kThreadRange : kWarpRange;
   using L = Lanes<scalar_t, kPath == kWideVector>;
+  // vec4, narrow: the elements of its row that a thread owns
+  constexpr int kOwn = kPath == kNarrow ? 16 / static_cast<int>(sizeof(scalar_t)) : 4;
+  using O = Own<scalar_t, kOwn>;
   constexpr int kOwned = kByThread ? 1 : kWarpRows;  // rows an owner holds
-  constexpr int kPer = kByThread ? 4 : L::kPer;
+  constexpr int kPer = kByThread ? kOwn : L::kPer;
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = static_cast<int>(threadIdx.x), lane = tid & 31, warp = tid >> 5;
@@ -211,23 +248,29 @@ __device__ __forceinline__ void bwd(const int32_t* __restrict__ idx,
   const int rows = min(kRange, k - r_lo);  // rows [r_lo, r_lo + rows), keys 0..rows-1
   const int stride = min(kRange, k);       // of the count table, as the launcher sized it
   const int nbits = 32 - __clz(rows);      // keys, the sentinel `rows` included, < 2^nbits
-  const int e0 = static_cast<int>(blockIdx.y) * L::kSlice;
-  // vec4 hot rows: hot row h's element e is walked by the thread in warp
-  // 4*(h/32) + e, lane h%32, so that its 4 chains of adds run on the 4
-  // schedulers of the SM at once
-  const int hot_h = (warp >> 2) * 32 + lane, hot_e = warp & 3;
+  // the first element of d this CTA covers: narrow's vector, the wide paths' slice
+  const int e0 =
+      kPath == kVec4 ? 0 : static_cast<int>(blockIdx.y) * (kByThread ? kOwn : L::kSlice);
+  // vec4, narrow hot rows: hot row h's element e is walked by the thread in
+  // warp 4*(h/(32/kHotLanes)) + e/kHotLanes, lane (h%(32/kHotLanes)) *
+  // kHotLanes + e%kHotLanes, so that its chains of adds run on the 4
+  // schedulers of the SM at once, kHotLanes lanes of one warp each
+  constexpr int kHotLanes = kOwn / 4;
+  static_assert(kThreads / kOwn >= kMaxHot, "kOwn threads for every hot row of a chunk");
+  const int hot_h = (warp >> 2) * (32 / kHotLanes) + lane / kHotLanes;
+  const int hot_e = (warp & 3) * kHotLanes + lane % kHotLanes;
 
-  using row4_t = typename Row4<scalar_t>::type;
-  row4_t* s_rows = reinterpret_cast<row4_t*>(smem);  // vec4: the chunk's dout rows, sorted
-  int* s_sorted = reinterpret_cast<int*>(smem);        // wide: the chunk's b, sorted
-  int* s_hist = reinterpret_cast<int*>(smem + (kByThread ? (kChunk + kHotAhead) * sizeof(row4_t)
+  using row_t = typename O::type;
+  row_t* s_rows = reinterpret_cast<row_t*>(smem);  // vec4, narrow: the chunk's dout rows, sorted
+  int* s_sorted = reinterpret_cast<int*>(smem);    // wide: the chunk's b, sorted
+  int* s_hist = reinterpret_cast<int*>(smem + (kByThread ? (kChunk + kHotAhead) * sizeof(row_t)
                                                           : kChunk * sizeof(int)));
   int* s_start = s_hist + kWarps * stride;
   int* s_count = s_start + stride;
   int* s_wsum = s_count + stride;
-  int* s_nhot = s_wsum + kWarps;  // vec4: hot rows of the chunk, then each one's row
+  int* s_nhot = s_wsum + kWarps;  // vec4, narrow: hot rows of the chunk, then each one's row
   int* s_hot = s_nhot + 1;
-  float* s_hotacc = reinterpret_cast<float*>(s_hot + kMaxHot);  // their 4 running sums
+  float* s_hotacc = reinterpret_cast<float*>(s_hot + kMaxHot);  // their kOwn running sums
 
   const int32_t* ip = idx + col * s_col + t * s_t;
   const scalar_t* dp = dout + static_cast<int64_t>(col) * dsub;  // dout[0, col, :]
@@ -246,16 +289,18 @@ __device__ __forceinline__ void bwd(const int32_t* __restrict__ idx,
     stamp(b0, 0);
     // this warp's entries: j = warp*32*kTiles + 32*i + lane, key = row - r_lo
     // or `rows` for an index outside [r_lo, r_lo + rows) (sentinels, >= k);
-    // on vec4 also their dout rows, loaded now so that the sort hides them
+    // on vec4 and narrow also their dout rows (the CTA's vector of each),
+    // loaded now so that the sort hides them
     int key[kTiles];
-    row4_t row[kTiles];
+    row_t row[kTiles];
 #pragma unroll
     for (int i = 0; i < kTiles; ++i) {
       const int j = warp * 32 * kTiles + 32 * i + lane;
       const int r = j < nb ? __ldg(ip + static_cast<int64_t>(b0 + j) * s_b) : -1;
       key[i] = r >= r_lo && r - r_lo < rows ? r - r_lo : rows;
       if (kByThread && j < nb)
-        row[i] = __ldg(reinterpret_cast<const row4_t*>(dp + static_cast<int64_t>(b0 + j) * d_b));
+        row[i] = __ldg(
+            reinterpret_cast<const row_t*>(dp + static_cast<int64_t>(b0 + j) * d_b + e0));
     }
     for (int j = tid; j < kWarps * stride; j += kThreads) s_hist[j] = 0;
     __syncthreads();
@@ -264,7 +309,8 @@ __device__ __forceinline__ void bwd(const int32_t* __restrict__ idx,
     int rank[kTiles];
 #pragma unroll
     for (int i = 0; i < kTiles; ++i) {
-      const unsigned same = match_key(key[i], nbits);
+      const unsigned same =
+          kPath == kNarrow ? __match_any_sync(0xffffffffu, key[i]) : match_key(key[i], nbits);
       const unsigned before_me = same & ((1u << lane) - 1u);
       const bool real = key[i] < rows;
       const int seen = real ? hist[key[i]] : 0;
@@ -306,24 +352,22 @@ __device__ __forceinline__ void bwd(const int32_t* __restrict__ idx,
 
     if (kByThread) {
       // a row of at most kHot terms is walked by its owner; a longer one is
-      // handed, with its running sums, to 4 threads, one per element
+      // handed, with its running sums, to kOwn threads, one per element
       const int n = tid < rows ? s_count[tid] : 0;
       int my_hot = -1;
       if (kSplit && n > kHot) {
         my_hot = atomicAdd(s_nhot, 1);  // in any order: each hot row is walked alone
         s_hot[my_hot] = tid;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s_hotacc[4 * my_hot + j] = acc[0][j];
+        for (int j = 0; j < kOwn; ++j) s_hotacc[kOwn * my_hot + j] = acc[0][j];
       } else if (n > 0) {  // the row's terms lie side by side: no index to chase
-        const scalar_t* seg = reinterpret_cast<const scalar_t*>(s_rows + s_start[tid]);
+        const row_t* seg = s_rows + s_start[tid];
 #pragma unroll 8
         for (int p = 0; p < n; ++p) {
-          float v[4];
-          load4_shared(seg + 4 * p, v);
-          acc[0][0] += v[0];
-          acc[0][1] += v[1];
-          acc[0][2] += v[2];
-          acc[0][3] += v[3];
+          float v[kOwn];
+          O::unpack(seg[p], v);
+#pragma unroll
+          for (int j = 0; j < kOwn; ++j) acc[0][j] += v[j];
         }
       }
       if (kSplit) {
@@ -331,30 +375,30 @@ __device__ __forceinline__ void bwd(const int32_t* __restrict__ idx,
         if (*s_nhot) {  // the same for the whole CTA
           if (hot_h < *s_nhot) {
             const int lr = s_hot[hot_h], m = s_count[lr];
-            // element hot_e of term p is q[4p]; kHotAhead loads stay in flight
+            // element hot_e of term p is q[kOwn*p]; kHotAhead loads stay in flight
             // ahead of the adds (reads past the segment stay inside the padded
             // shared memory and are not added)
             const scalar_t* q = reinterpret_cast<const scalar_t*>(s_rows + s_start[lr]) + hot_e;
-            float a = s_hotacc[4 * hot_h + hot_e];
+            float a = s_hotacc[kOwn * hot_h + hot_e];
             scalar_t ahead[kHotAhead];
 #pragma unroll
-            for (int u = 0; u < kHotAhead; ++u) ahead[u] = q[4 * u];
+            for (int u = 0; u < kHotAhead; ++u) ahead[u] = q[kOwn * u];
             int p = 0;
             for (; p + kHotAhead <= m; p += kHotAhead)
 #pragma unroll
               for (int u = 0; u < kHotAhead; ++u) {
                 a += to_float(ahead[u]);
-                ahead[u] = q[4 * (p + kHotAhead + u)];
+                ahead[u] = q[kOwn * (p + kHotAhead + u)];
               }
 #pragma unroll
             for (int u = 0; u < kHotAhead; ++u)
               if (p + u < m) a += to_float(ahead[u]);
-            s_hotacc[4 * hot_h + hot_e] = a;
+            s_hotacc[kOwn * hot_h + hot_e] = a;
           }
           __syncthreads();
           if (my_hot >= 0)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[0][j] = s_hotacc[4 * my_hot + j];
+            for (int j = 0; j < kOwn; ++j) acc[0][j] = s_hotacc[kOwn * my_hot + j];
         }
       }
     } else {
@@ -382,7 +426,7 @@ __device__ __forceinline__ void bwd(const int32_t* __restrict__ idx,
 #pragma unroll
   for (int o = 0; o < kOwned; ++o) {
     if (kByThread) {
-      if (tid < rows) store4(out + tid * 4, acc[0]);
+      if (tid < rows) O::store(out + static_cast<int64_t>(tid) * dsub + e0, acc[0]);
     } else {
       const int lr = warp * kWarpRows + o;
       if (lr < rows) L::store(out + static_cast<int64_t>(lr) * dsub, e0, lane, dsub, acc[o]);
@@ -418,30 +462,57 @@ cce_lookup_bwd_wide_scalar_kernel(const int32_t* __restrict__ idx,
 }
 
 template <typename scalar_t>
+__global__ void __launch_bounds__(kThreads, 1)
+cce_lookup_bwd_narrow_kernel(const int32_t* __restrict__ idx, const scalar_t* __restrict__ dout,
+                             scalar_t* __restrict__ dtab, int c, int B, int T, int k, int dsub,
+                             int64_t s_col, int64_t s_b, int64_t s_t) {
+  bwd<scalar_t, kNarrow>(idx, dout, dtab, c, B, T, k, dsub, s_col, s_b, s_t);
+}
+
+template <typename scalar_t>
 int launch(const void* idx, const void* dout, void* dtab, int c, int B, int T, int k, int dsub,
            int64_t s_col, int64_t s_b, int64_t s_t, int path, cudaStream_t stream) {
   const int32_t* ip = static_cast<const int32_t*>(idx);
   const scalar_t* gp = static_cast<const scalar_t*>(dout);
   scalar_t* op = static_cast<scalar_t*>(dtab);
-  const bool vec4 = path == kVec4;
-  if (vec4 && dsub != 4) return static_cast<int>(cudaErrorInvalidValue);
-  if (path != kVec4 && path != kWideVector && path != kWideScalar)
+  constexpr int esize = static_cast<int>(sizeof(scalar_t));
+  const int vectors = dsub * esize / 16;  // narrow: the 16-byte vectors of a row
+  if (path == kVec4 && dsub != 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (path == kNarrow && (dsub * esize != 16 * vectors || vectors < 2 || vectors > 16 ||
+                          (vectors & (vectors - 1))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int range = vec4 ? kThreadRange : kWarpRange;
+  if (path != kVec4 && path != kWideVector && path != kWideScalar && path != kNarrow)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool by_thread = path == kVec4 || path == kNarrow;
+  const int range = by_thread ? kThreadRange : kWarpRange;
+  const int own_bytes = path == kVec4 ? 4 * esize : path == kNarrow ? 16 : 0;
   const int slice = path == kWideVector ? Lanes<scalar_t, true>::kSlice
                                         : Lanes<scalar_t, false>::kSlice;
   const int n_ranges = (k + range - 1) / range;
   const dim3 grid(static_cast<unsigned>(c) * T * n_ranges,
-                  vec4 ? 1u : static_cast<unsigned>((dsub + slice - 1) / slice));
-  const size_t smem = smem_bytes(vec4, sizeof(scalar_t), range < k ? range : k);
+                  path == kVec4     ? 1u
+                  : path == kNarrow ? static_cast<unsigned>(vectors)
+                                    : static_cast<unsigned>((dsub + slice - 1) / slice));
+  const size_t smem = smem_bytes(own_bytes, esize, range < k ? range : k);
   void (*kernel)(const int32_t*, const scalar_t*, scalar_t*, int, int, int, int, int, int64_t,
                  int64_t, int64_t) =
-      vec4 ? cce_lookup_bwd_vec4_kernel<scalar_t>
-           : path == kWideVector ? cce_lookup_bwd_wide_vector_kernel<scalar_t>
-                                 : cce_lookup_bwd_wide_scalar_kernel<scalar_t>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      path == kVec4         ? cce_lookup_bwd_vec4_kernel<scalar_t>
+      : path == kNarrow     ? cce_lookup_bwd_narrow_kernel<scalar_t>
+      : path == kWideVector ? cce_lookup_bwd_wide_vector_kernel<scalar_t>
+                            : cce_lookup_bwd_wide_scalar_kernel<scalar_t>;
+  // the shared-memory opt-in, once a kernel and device, for its largest range
+  constexpr int kMaxDevices = 64;
+  static bool opted_in[4][kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!opted_in[path][dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_bytes(own_bytes, esize, range)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in[path][dev] = true;
+  }
   kernel<<<grid, kThreads, smem, stream>>>(ip, gp, op, c, B, T, k, dsub, s_col, s_b, s_t);
   return 0;
 }
@@ -451,7 +522,8 @@ int launch(const void* idx, const void* dout, void* dtab, int c, int B, int T, i
 // dtype: 0 = float32, 1 = bfloat16 (of dout and dtab).  path: 0 = vec4
 // (dsub == 4, dout and dtab aligned to 4 elements), 1 = wide_vector (dsub a
 // multiple of 16 bytes of elements, dout and dtab aligned to 16 bytes),
-// 2 = wide_scalar (any); the caller checks the conditions.  Writes every
+// 2 = wide_scalar (any), 3 = narrow (rows of 2, 4, 8 or 16 16-byte vectors,
+// dout and dtab aligned to 16 bytes); the caller checks the alignment.  Writes every
 // element of dtab (c, T, k, dsub).  Returns the cudaError_t of the launch
 // (0 on success).  c*T >= 1, k >= 1, B >= 0.
 extern "C" int cce_lookup_bwd(const void* idx, const void* dout, void* dtab, int dtype, int c,

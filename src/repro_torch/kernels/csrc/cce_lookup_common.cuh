@@ -11,7 +11,7 @@ namespace {
 
 // The layouts; the launcher (cce_lookup.py::lookup_path) picks one and
 // passes its number.
-enum Path { kVec4 = 0, kWideVector = 1, kWideScalar = 2 };
+enum Path { kVec4 = 0, kWideVector = 1, kWideScalar = 2, kNarrow = 3 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -111,6 +111,42 @@ struct Lanes {
         if (e < dsub) store1(p + e, v[j]);
       }
     }
+  }
+};
+
+// The narrow layout: a group of kG = dsub*esize/16 lanes (2, 4, 8 or 16)
+// covers one row, lane v of the group the row's v-th 16-byte vector, kPer
+// elements (4 in float32, 8 in bfloat16).  Rows and their pointers are
+// 16-byte aligned.
+template <typename scalar_t>
+struct Group {
+  static constexpr int kPer = 16 / static_cast<int>(sizeof(scalar_t));
+
+  // The kPer elements of a 16-byte vector's bits, as float32.
+  __device__ static __forceinline__ void unpack(uint4 x, float v[kPer]) {
+    if constexpr (sizeof(scalar_t) == 4) {
+      v[0] = __uint_as_float(x.x);
+      v[1] = __uint_as_float(x.y);
+      v[2] = __uint_as_float(x.z);
+      v[3] = __uint_as_float(x.w);
+    } else {
+      unpack_bf16x2(x.x, v);
+      unpack_bf16x2(x.y, v + 2);
+      unpack_bf16x2(x.z, v + 4);
+      unpack_bf16x2(x.w, v + 6);
+    }
+  }
+
+  // Vector v of the row at p (global memory), as float32.
+  __device__ static __forceinline__ void load(const scalar_t* p, int v, float x[kPer]) {
+    unpack(__ldg(reinterpret_cast<const uint4*>(p) + v), x);
+  }
+
+  __device__ static __forceinline__ void store(scalar_t* p, int v, const float x[kPer]) {
+    if constexpr (sizeof(scalar_t) == 4)
+      store4(reinterpret_cast<float*>(p) + 4 * v, x);
+    else
+      store8(reinterpret_cast<__nv_bfloat16*>(p) + 8 * v, x);
   }
 };
 

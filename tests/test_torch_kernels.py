@@ -45,6 +45,7 @@ def _case(c, B, T, k, dsub, seed):
         (6, 20, 2, 130, 2),
         (2, 5, 2, 300, 384),  # the LM token table's width (wide_vector on the card)
         (3, 9, 2, 300, 36),
+        (3, 48, 1, 50, 16),  # the hashing trick's width (narrow on the card)
     ],
 )
 def test_cce_lookup_bit_exact_vs_pallas(c, B, T, k, dsub):
@@ -106,6 +107,7 @@ def test_pad_stack_tables_matches_jax():
         (104, 6, 2, 305, 4),  # the full-Criteo supertable shape
         (6, 40, 2, 130, 2),
         (2, 24, 2, 300, 384),  # the LM token table's width (wide_vector on the card)
+        (3, 48, 1, 50, 16),  # the hashing trick's width (narrow on the card)
     ],
 )
 def test_cce_lookup_bwd_matches_pallas_vjp(c, B, T, k, dsub):
@@ -122,7 +124,7 @@ def test_cce_lookup_bwd_matches_pallas_vjp(c, B, T, k, dsub):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("dsub", [4, 384])
+@pytest.mark.parametrize("dsub", [4, 16, 384])
 def test_cce_lookup_bwd_hot_row_matches_pallas_vjp(dsub):
     """Half the batch of every (column, sub-table) names one row: the
     plain backward against ``jax.vjp`` of the Pallas lookup, and that
@@ -204,7 +206,7 @@ def test_cuda_bwd_wrapper_refuses_cpu_tensors():
         tcl.cce_lookup_bwd(torch.from_numpy(idx), torch.zeros(3, 2, 4), 5)
 
 
-@pytest.mark.parametrize("dsub", [384, 6])
+@pytest.mark.parametrize("dsub", [384, 6, 16])
 def test_cuda_wrappers_refuse_cpu_tensors_at_wide_widths(dsub):
     idx, tables = _case(2, 3, 2, 5, dsub, seed=dsub)
     with pytest.raises(ValueError, match="CUDA"):
@@ -226,6 +228,13 @@ def test_cuda_wrappers_refuse_cpu_tensors_at_wide_widths(dsub):
         (384, torch.float32, 1, "wide_scalar"),  # a view one element into its storage
         (4, torch.float32, 1, "wide_scalar"),
         (4, torch.bfloat16, 4, "vec4"),  # 8 bytes in: still aligned to its 8-byte rows
+        (8, torch.float32, 0, "narrow"),  # rows of 2, 4, 8 or 16 16-byte vectors
+        (16, torch.float32, 0, "narrow"),  # the hashing trick's supertable
+        (64, torch.float32, 0, "narrow"),
+        (16, torch.bfloat16, 0, "narrow"),
+        (128, torch.bfloat16, 0, "narrow"),
+        (16, torch.float32, 1, "wide_scalar"),  # one element off its storage
+        (128, torch.float32, 0, "wide_vector"),  # 512-byte rows: a warp's slice
     ],
 )
 def test_lookup_path_selection(dsub, dtype, offset, path):
