@@ -140,6 +140,13 @@ WIDE_LOOKUP = {
     (26, 2, 1000, 16): {"float32": "narrow", "bfloat16": "narrow"},
 }
 HASH_SHAPE = (26, 1, 500, 16)  # emb_method="hash" on CONFIG: the narrow layout's main path
+# the wide backward (a sort, then a walk) at the token tables of the LM
+# training slices still to come, on a training step's token rows
+# (lm_step_rows): name -> (architecture, (c, T, k, dsub) its table has);
+# hymba-1.5b's dsub 400 is a d tail past three 128-float slices
+WIDE_BWD_TABLES = {"hymba": ("hymba-1.5b", (4, 2, 1000, 400)),
+                   "paligemma": ("paligemma-3b", (4, 2, 8038, 512))}
+WIDE_BWD_RAGGED = 5003  # a batch that is not a whole number of sort chunks (1024)
 WIDE_BATCHES = (1, 8, TRAIN_BATCH)
 ASSIGN_SHAPES = ((1 << 18, 250, 4), (64000, 250, 4))  # an assign_all chunk; a Lloyd sample
 ASSIGN_BATCHED = (4, 1 << 18, 250, 4)  # (c, n, k, d): an assign_all chunk of a c=4 table
@@ -157,7 +164,7 @@ ASSIGN_GENERAL = (
     (2, 4096, 2457, 4, False),
 )
 ASSIGN_LM_TABLE = (4, 151936, 4748, 384)  # qwen2-1.5b's token table (c, n, k, d), timed
-ASSIGN_PALIGEMMA_TABLE = (4, 257216, 8038, 512)  # paligemma-3b's, timed (cdist on one column)
+ASSIGN_PALIGEMMA_TABLE = (4, 257216, 8038, 512)  # paligemma-3b's, timed (cdist a column a call)
 ASSIGN_RTOL = 1e-5  # the plain distance of the kernel's pick vs the plain minimum
 STEP_RTOL = 1e-4  # card vs CPU, per leaf, relative to the leaf's largest magnitude
 # (H, KVH): qwen2-1.5b, qwen3-4b/14b style, no GQA, hymba-1.5b (a group of 5)
@@ -523,7 +530,8 @@ def wide_lookup_cases(card: str, device="cuda") -> float:
 
 def narrow_ptxas(card: str) -> None:
     """Prints ptxas' registers and spill of every build of both narrow
-    kernels (one a dtype and row width) from this process' build logs."""
+    kernels (one a dtype and row width) from the build logs kept beside
+    the libraries."""
     from repro_torch.kernels import build
 
     for lib in ("cce_lookup", "cce_lookup_bwd"):
@@ -532,7 +540,21 @@ def narrow_ptxas(card: str) -> None:
         for fn, (n, spill) in sorted(regs.items()):
             print(f"[{card}] ptxas {fn}: {n} registers, {spill} bytes spill stores")
         if not regs:
-            print(f"[{card}] ptxas {lib}: no build log in this process (built earlier)")
+            print(f"[{card}] ptxas {lib}: no build log kept beside the library")
+
+
+def wide_bwd_ptxas(card: str) -> None:
+    """Prints ptxas' registers and spill of the wide backward's kernels (the
+    sort, and the walk a dtype and layout) from the build log kept beside
+    the library, and fails where one spills or the log is missing."""
+    from repro_torch.kernels import build
+
+    regs = {fn: r for fn, r in ptxas_registers(build.BUILD_LOGS.get("cce_lookup_bwd", "")).items()
+            if "sort_kernel" in fn or "wide_" in fn}
+    check(bool(regs), "no ptxas report of the wide backward's kernels kept beside the library")
+    for fn, (n, spill) in sorted(regs.items()):
+        print(f"[{card}] ptxas {fn}: {n} registers, {spill} bytes spill stores")
+        check(spill == 0, f"{fn} spills {spill} bytes")
 
 
 def kernel_phase(card: str, collection, device="cuda"):
@@ -649,6 +671,26 @@ def bwd_train_case(cfg, B: int, seed: int, device="cuda"):
     return idx, dout.to(device)
 
 
+def lm_step_rows(cfg, device="cuda"):
+    """idx (c, B, 2) as a LM training step gives it to the lookup
+    backward: the CCE token table's rows, through its initial pointers and
+    hashes, of batch 0 of the training stream (LM_TRAIN_BATCH x
+    LM_TRAIN_SEQ tokens of ``lm_token_batches`` at LM_SEED: seconds of
+    host numpy)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+
+    table = lm.make_emb(cfg)
+    b = table.init_buffers()
+    buffers = {"ptr": torch.from_numpy(b["ptr"]).to(device),
+               "hs": torch.from_numpy(b["hs"].astype(np.int64)).to(device)}
+    toks = _lm_batch(cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_SEED, 0)[0]["tokens"]
+    return table._rows(buffers, torch.from_numpy(toks).to(device).reshape(-1)).reshape(
+        table.c, -1, 2)
+
+
 def bwd_bound(idx, dout, k: int):
     """Least time for the backward on an H100: idx and dout read once, the
     (c, T, k, dsub) gradient written once, against one float add per valid
@@ -705,10 +747,10 @@ def bwd_check(card: str, label: str, idx, dout, k: int, ks=None, *, timed=True,
     names and on padding rows past a column's real k (``ks``).  With
     ``timed``, prints and returns its numbers beside its bound, its plain
     version's and (float32) ``zeros``+``index_add_``'s, and the hottest
-    row's chain floor (``chain_floor_ms``); ``plain_busy=False``
-    leaves out the plain version's device busy (a trace of tens of
-    thousands of records, ~15 s to read).  Returns (max error, numbers or
-    None)."""
+    row's chain floor (``chain_floor_ms``), its device time the sum over
+    every kernel a call launches; ``plain_busy=False`` leaves out the plain
+    version's device busy (a trace of tens of thousands of records, ~15 s
+    to read).  Returns (max error, numbers or None)."""
     import torch
 
     from repro_torch.kernels import cce_lookup as cl
@@ -740,8 +782,8 @@ def bwd_check(card: str, label: str, idx, dout, k: int, ks=None, *, timed=True,
         return err, None
     ms = time_ms(lambda: cl.cce_lookup_bwd(idx, dout, k))
     plain = time_ms(lambda: ref.cce_lookup_bwd_ref(idx, dout, k), iters=3, reps=3, warmup=1)
-    dev = device_ms(lambda: cl.cce_lookup_bwd(idx, dout, k),
-                    lookup_kernel("cce_lookup_bwd", dout))
+    # every kernel a call launches (the wide layouts: the sort and the walk)
+    dev = device_busy_ms(lambda: cl.cce_lookup_bwd(idx, dout, k), iters=TRACE_RECORDS)
     plain_dev = device_busy_ms(lambda: ref.cce_lookup_bwd_ref(idx, dout, k)) if plain_busy else None
     bound, bound_by = bwd_bound(idx, dout, k)
     line = (f"[{card}] cce_lookup_bwd {label}: max_abs_err={err!r} repeatable=True "
@@ -828,6 +870,70 @@ def bwd_kernel_phase(card: str, cfg, device="cuda"):
                 max_err = max(max_err, err)
                 if dsub == LM_DSUB:
                     at["at_lm_shape"] = nums
+    err, wide_at = wide_bwd_cases(card, device=device)
+    return max(max_err, err), {**at, **wide_at}
+
+
+def wide_bwd_cases(card: str, device="cuda"):
+    """The wide backward (a sort, then a walk; ptxas: no spill) through
+    ``bwd_check`` on a training step's token rows (``lm_step_rows``) at the
+    token tables of WIDE_BWD_TABLES (float32 timed beside its bound and
+    ``zeros``+``index_add_``, bfloat16 checked), then on qwen2-1.5b's step
+    rows at its token table's shape: the first WIDE_BWD_RAGGED of them (not
+    a whole number of sort chunks), in the serving layout's strided view,
+    with every index of a column on one row, on an unaligned dout
+    (wide_scalar) and at B=1.  Returns (max error,
+    {"at_<table>_train_shape": numbers})."""
+    import torch
+
+    from repro_torch import configs
+
+    wide_bwd_ptxas(card)
+    max_err, at = 0.0, {}
+    for n, (name, (arch, shape)) in enumerate(WIDE_BWD_TABLES.items()):
+        idx = lm_step_rows(configs.get(arch), device=device)
+        c, B, T = idx.shape
+        k, dsub = shape[2:]
+        check((c, T) == shape[:2], f"{arch}'s step rows are not (c, T) = {shape[:2]}")
+        check(int(idx.max()) < k, f"{arch}'s step rows name a row past k={k}")
+        gen = torch.Generator(device=device).manual_seed(50 + n)
+        dout32 = torch.randn((B, c, dsub), generator=gen, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            dout = dout32.to(dtype)
+            check(cl_path(dout) == "wide_vector", f"the {name} shape's {dn} dout is not wide")
+            timed = dtype == torch.float32
+            err, nums = bwd_check(card, f"{dn} B={B} {name} token table c={c} T={T} k={k} "
+                                  f"dsub={dsub} wide_vector, a step's token rows", idx, dout, k,
+                                  timed=timed, plain_busy=False)
+            max_err = max(max_err, err)
+            if timed:
+                at[f"at_{name}_train_shape"] = nums
+    step = lm_step_rows(configs.get(LM_ARCH), device=device)
+    c, B, T = step.shape
+    k = 4748
+    check(int(step.max()) < k, f"{LM_ARCH}'s step rows name a row past k={k}")
+    strided = step.movedim(1, 0).contiguous().movedim(0, 1)  # (c, B, T) of (B, c, T) rows
+    check(not strided.is_contiguous(), "the serving layout's idx view is contiguous")
+    one_row = torch.full_like(step, k - 1)
+    dout = torch.randn((B, c, LM_DSUB),
+                       generator=torch.Generator(device=device).manual_seed(61), device=device)
+    flat = torch.empty(dout.numel() + 1, device=device)[1:]
+    odd = flat.view(dout.shape).copy_(dout)
+    check(cl_path(odd) == "wide_scalar", "an unaligned dout does not take wide_scalar")
+    ragged = step[:, :WIDE_BWD_RAGGED].contiguous()
+    both = (torch.float32, torch.bfloat16)
+    for label, rows, d, dtypes in (
+            ("the first rows, not whole sort chunks", ragged, dout[:WIDE_BWD_RAGGED], both),
+            ("a strided idx view", strided, dout, both),
+            ("every index of a column on one row", one_row, dout, both),
+            ("unaligned dout, wide_scalar", step, odd, (torch.float32,)),
+            ("B=1", step[:, :1], dout[:1], (torch.float32,))):
+        for dtype in dtypes:
+            dn = str(dtype).split(".")[-1]
+            err, _ = bwd_check(card, f"{dn} B={rows.shape[1]} LM token table shape, a step's "
+                               f"token rows, {label}", rows, d.to(dtype), k, timed=False)
+            max_err = max(max_err, err)
     return max_err, at
 
 
@@ -1054,10 +1160,10 @@ def kmeans_phase(card: str, cfg, device="cuda"):
               f"{'16' if t.vec else '4'}-byte copies, (registers, spill bytes) {tiled_regs}",
               flush=True)
     at_tables = {key: tiled_assign_numbers(card, *tiled_assign_inputs(*shape, device),
-                                           "random inputs", plain=plain, library_columns=lc)
+                                           "random inputs", plain=plain, library_by_column=lc)
                  for key, shape, plain, lc in (
-                     ("at_lm_table_shape_random_inputs", ASSIGN_LM_TABLE, True, None),
-                     ("at_paligemma_table_shape", ASSIGN_PALIGEMMA_TABLE, False, 1))}
+                     ("at_lm_table_shape_random_inputs", ASSIGN_LM_TABLE, True, False),
+                     ("at_paligemma_table_shape", ASSIGN_PALIGEMMA_TABLE, False, True))}
     max_excess = max(max_excess, *(a["max_excess"] for a in at_tables.values()))
     main_path = assign_chunk_shapes(cfg)
     geometries = collections.Counter()
@@ -1114,13 +1220,14 @@ def plant_ties(x, cent):
 
 
 def tiled_assign_numbers(card: str, x, cent, inputs: str, *, plain: bool = True,
-                         library_columns=None) -> dict:
+                         library_by_column: bool = False) -> dict:
     """The tiled kernel at a token table's full shape, x (c, n, d) and cent
     (c, k, d) (``inputs`` says whose): every pick within ASSIGN_RTOL of the
     plain minimum, a second launch bit for bit, timed (device ms from a
     10-call trace) beside its bound, the plain version (where ``plain``)
-    and ``cdist``+``argmin`` (on the first ``library_columns`` columns
-    where given, else all).  Returns the numbers."""
+    and ``cdist``+``argmin`` over all c columns, in one call or, with
+    ``library_by_column``, in c calls, one a column (the sum of their
+    device times).  Returns the numbers."""
     import torch
 
     from repro_torch.kernels import kmeans_assign as ka
@@ -1147,22 +1254,29 @@ def tiled_assign_numbers(card: str, x, cent, inputs: str, *, plain: bool = True,
         nums.update(agree_with_plain=(got == plain_fn()).float().mean().item(),
                     plain_ms=time_ms(plain_fn, iters=1, reps=3, warmup=1),
                     plain_device_ms=device_busy_ms(plain_fn))
-    cols = library_columns or c
-    xl, cl = x[:cols], cent[:cols]
+    calls = c if library_by_column else 1
+
+    def column(i):
+        return torch.cdist(x[i], cent[i]).argmin(-1)
 
     def library():
-        return torch.cdist(xl, cl).argmin(-1)
+        if library_by_column:  # c distance matrices of (n, k) at a time, not one of (c, n, k)
+            return [column(i) for i in range(c)]
+        return torch.cdist(x, cent).argmin(-1)
 
-    nums.update(library_columns=cols,
-                agree_with_cdist=(library() == got[:cols].long()).float().mean().item(),
+    agree = sum((a == b.long()).float().mean().item() for a, b in zip(library(), got)) / c
+    lib_dev = (sum(device_busy_ms(lambda i=i: column(i)) for i in range(c)) if library_by_column
+               else device_busy_ms(library))
+    nums.update(library_calls=calls, agree_with_cdist=agree,
                 library_ms=time_ms(library, iters=1, reps=3, warmup=1),
-                library_device_ms=device_busy_ms(library))
+                library_device_ms=lib_dev)
     print(f"[{card}] kmeans_assign (tiled kernel) token table c={c} n={n} k={k} d={d}, {inputs}: "
           f"max_excess={excess!r}; repeats bit for bit; ms={ms!r} device_ms={dev!r} "
           f"bound_ms={bound!r} ({bound_by}), share of bound {bound / dev!r}; "
           + (f"plain_ms={nums['plain_ms']!r} plain_device_ms={nums['plain_device_ms']!r} "
              f"agree_with_plain={nums['agree_with_plain']!r}; " if plain else "")
-          + f"library_ms(cdist+argmin, {cols} of {c} columns)={nums['library_ms']!r} "
+          + f"library_ms(cdist+argmin over {c} columns in {calls} call(s))="
+          f"{nums['library_ms']!r} "
           f"library_device_ms={nums['library_device_ms']!r} "
           f"agree_with_cdist={nums['agree_with_cdist']!r}", flush=True)
     return nums

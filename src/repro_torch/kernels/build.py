@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with
 a plain C interface, ``build/repro_torch/lib<name>-<digest>.so`` under the
 repository root, loaded with ``ctypes``.  The digest covers the source and
 the flags (and every header in ``csrc``), so an edited kernel rebuilds and
-an unchanged one is reused.
+an unchanged one is reused, with nvcc's output kept beside it
+(``lib<name>-<digest>.log``).
 Nothing here runs at import: the CPU tests import every module on a host
 without ``nvcc``.
 """
@@ -30,8 +31,8 @@ NVCC_FLAGS = (
 #: through the kernels (``LAUNCHES.clear()`` before, read after).
 LAUNCHES: collections.Counter = collections.Counter()
 
-#: nvcc's output (including ptxas' register report) per library built
-#: by this process.
+#: nvcc's output (including ptxas' register report) per library loaded by
+#: this process, read back from its log where an earlier process built it.
 BUILD_LOGS: dict[str, str] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -55,8 +56,13 @@ def _target(name: str) -> pathlib.Path:
 
 def build(*names: str) -> None:
     """Compile the named kernels that are not built yet, one ``nvcc`` per
-    source, all running at once.  Raises with nvcc's output on failure."""
+    source, all running at once, and reads the kept output of those that
+    are (into BUILD_LOGS).  Raises with nvcc's output on failure."""
     todo = [n for n in names if not _target(n).exists()]
+    for n in set(names) - set(todo) - set(BUILD_LOGS):
+        log = _target(n).with_suffix(".log")
+        if log.exists():
+            BUILD_LOGS[n] = log.read_text()
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -74,6 +80,9 @@ def build(*names: str) -> None:
         if proc.returncode:
             failed.append(f"nvcc failed for {n}.cu (exit {proc.returncode}):\n{log}")
         else:
+            log_tmp = tmp.with_suffix(".log")
+            log_tmp.write_text(log)
+            os.replace(log_tmp, _target(n).with_suffix(".log"))
             os.replace(tmp, _target(n))
     if failed:
         raise RuntimeError("\n".join(failed))

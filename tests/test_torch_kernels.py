@@ -248,6 +248,126 @@ def test_lookup_path_selection(dsub, dtype, offset, path):
     assert got == path and got in tcl.PATHS
 
 
+# csrc/cce_lookup_bwd.cu's wide constants that the geometry must fit:
+# b a sort CTA ranks, rows it counts at most, (row, chunk) starts a walk
+# warp holds, warps a walk CTA, rows a hot CTA scans
+_WIDE_SOURCE = {"kSortChunk": 1024, "kSortRows": 4096, "kWalkTable": 1024, "kWalkWarps": 4,
+                "kHotScan": 128}
+
+
+@pytest.mark.parametrize("c,B,T,k,slices,want", [
+    # (n_chunks, range_rows, n_ranges, rows_per_warp, n_blocks, sort_ctas, walk_ctas,
+    #  walk_warps, st_ints, sorted_ints)
+    (4, 8192, 2, 4748, 3, (8, 2400, 2, 32, 149, 128, 304, 1192, 304000, 131072)),  # qwen2-1.5b
+    (4, 8192, 2, 1000, 4, (8, 1024, 1, 16, 63, 64, 128, 504, 64064, 65536)),  # hymba-1.5b
+    (4, 8192, 2, 8038, 4, (8, 4032, 2, 32, 252, 128, 504, 2016, 514560, 131072)),  # paligemma-3b
+    (104, 2048, 2, 129, 2, (2, 160, 1, 32, 5, 416, 416, 1040, 54080, 425984)),  # 1 past 128 rows
+    (1, 1024, 2, 4097, 8, (1, 2080, 2, 32, 129, 4, 66, 258, 8198, 4096)),  # 1 past a sort range
+    (4, 1, 2, 4748, 3, (1, 2400, 2, 32, 149, 16, 304, 1192, 38000, 16384)),  # B=1
+    (4, 0, 2, 4748, 3, (1, 2400, 2, 32, 149, 16, 304, 1192, 38000, 16384)),  # B=0: zeros written
+    (2, 5003, 2, 4748, 3, (5, 2400, 2, 32, 149, 40, 152, 596, 95000, 40960)),  # ragged
+    (26, 2048, 2, 305, 1, (2, 320, 1, 8, 39, 104, 520, 2028, 31824, 106496)),  # dsub 36: 8 rows
+    (16, 40000, 2, 4748, 3, (40, 2400, 2, 16, 297, 2560, 2400, 9504, 6080000, 2621440)),  # table
+    (1, tcl.WIDE_MAX_B, 1, 3, 1, (1024, 32, 1, 1, 3, 1024, 1, 3, 4096, 1 << 20)),  # largest B
+])
+def test_wide_bwd_geometry(c, B, T, k, slices, want):
+    """The wide backward's geometry (one group of lanes a warp) and what the
+    source launches from it: B in chunks of 1024, k in even 32-row-aligned
+    ranges of at most 4096, walk warps of the fewest rows (a power of two
+    up to 32) that bring them over all slices down to 2048, unless their
+    starts in every chunk would pass 1024 ints, 4 warps a CTA, a hot CTA for
+    every 128 rows of a (column, sub-table); the scratch holds every range's
+    row starts and sorted b; every range and block inside one range, every
+    shared memory within what a CTA may use."""
+    src = _WIDE_SOURCE
+    g = tcl.wide_bwd_geometry(c, B, T, k, slices)
+    n_ranges = -(-k // g.range_rows)
+    n_blocks = -(-k // g.rows_per_warp)
+    lists = c * T * g.n_chunks
+    st_ints, sorted_ints = lists * (k + n_ranges), lists * n_ranges * src["kSortChunk"]
+    assert (g.n_chunks, g.range_rows, n_ranges, g.rows_per_warp, n_blocks, lists * n_ranges,
+            c * T * -(-n_blocks // src["kWalkWarps"]), c * T * n_blocks, st_ints,
+            sorted_ints) == want
+    assert g.scratch_ints == st_ints + sorted_ints
+    assert (tcl.WIDE_SORT_CHUNK, tcl.WIDE_SORT_ROWS, tcl.WIDE_WALK_TABLE) == (
+        src["kSortChunk"], src["kSortRows"], src["kWalkTable"])
+    assert g.n_chunks * 1024 >= max(B, 1) > (g.n_chunks - 1) * 1024
+    assert n_ranges * g.range_rows >= k > (n_ranges - 1) * g.range_rows
+    assert g.range_rows <= 4096 and g.range_rows % 32 == 0 and 32 % g.rows_per_warp == 0
+    assert g.rows_per_warp * g.n_chunks <= 1024
+    assert g.groups == 1
+
+    def warps(r):
+        return c * T * slices * -(-k // r)
+
+    assert g.rows_per_warp == 1 or warps(g.rows_per_warp // 2) > 2048
+    assert (g.rows_per_warp == 32 or 2 * g.rows_per_warp * g.n_chunks > 1024
+            or warps(g.rows_per_warp) <= 2048)
+    assert tcl.WIDE_WALK_LOAD == 2048
+    rows_pad = -(-g.range_rows // 8) * 8  # 16-bit counts of 8 warps, row starts, warp sums
+    assert 8 * rows_pad * 2 + (rows_pad + 1 + 8) * 4 <= tka.SMEM_LIMIT
+    walk_ints = 4 * (2 * g.rows_per_warp + 1) * g.n_chunks  # a walk CTA's tables
+    hot_ints = src["kHotScan"] + 8 + 2 * g.n_chunks + 2048  # a hot CTA's lists
+    assert max(walk_ints, hot_ints) * 4 <= 48 * 1024  # no opt-in
+
+
+def test_wide_bwd_constants_match_the_source():
+    """The constants the geometry and its test take from
+    csrc/cce_lookup_bwd.cu are the source's."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(tcl.__file__).parent / "csrc" / "cce_lookup_bwd.cu").read_text()
+    consts = {m[1]: m[2] for m in re.finditer(r"constexpr int (k\w+) = ([^;]+);", src)}
+
+    def value(name):
+        return eval(re.sub(r"k\w+", lambda m: str(value(m[0])), consts[name]))
+
+    assert {name: value(name) for name in _WIDE_SOURCE} == _WIDE_SOURCE
+
+
+@pytest.mark.parametrize("c,B,T,k,dsub,esize,path,want", [
+    # (groups, rows_per_warp): one group wherever a row needs more than 16 lanes
+    (4, 8192, 2, 4748, 384, 4, "wide_vector", (1, 32)),  # qwen2-1.5b
+    (4, 2048, 2, 4748, 384, 4, "wide_vector", (1, 32)),  # a prefill's rows
+    (4, 8192, 2, 8038, 512, 2, "wide_vector", (1, 32)),  # paligemma-3b, bfloat16
+    (26, 2048, 2, 305, 36, 4, "wide_vector", (2, 8)),  # 9 lanes: 2 groups of 16, 4 rows each
+    (26, 2048, 2, 305, 6, 4, "wide_scalar", (4, 8)),  # 2 lanes: 4 groups of 8, 2 rows each
+    (26, 2048, 2, 305, 36, 2, "wide_scalar", (2, 8)),  # 9 lanes of 4 elements
+    (26, 2048, 2, 305, 130, 4, "wide_scalar", (1, 32)),  # 33 lanes: 2 slices, 32 rows a warp
+    (1, 1 << 20, 1, 3, 6, 4, "wide_scalar", (1, 1)),  # 1024 chunks: one group fits the table
+    (1, 1 << 19, 1, 3, 6, 4, "wide_scalar", (2, 2)),  # 512 chunks: two groups of a row
+])
+def test_wide_bwd_geometry_groups(c, B, T, k, dsub, esize, path, want):
+    """A walk warp splits into the most groups (1, 2, 4) whose lanes still
+    cover a row, as many as the starts table of every chunk allows, each
+    group walking rows_per_warp / groups rows: narrow tables walk two or
+    four rows at once."""
+    g = tcl.wide_bwd_geometry(c, B, T, k, tcl.wide_slices(dsub, esize, path),
+                              tcl.wide_groups(dsub, esize, path))
+    assert (g.groups, g.rows_per_warp) == want
+    lanes = 32 // g.groups
+    assert -(-dsub // (16 // esize if path == "wide_vector" else 4)) <= lanes or g.groups == 1
+    assert g.rows_per_warp % g.groups == 0 and g.groups * g.n_chunks <= 1024
+
+
+def test_wide_bwd_geometry_refuses_past_the_largest_batch():
+    with pytest.raises(ValueError, match="B <="):
+        tcl.wide_bwd_geometry(1, tcl.WIDE_MAX_B + 1, 1, 3, 1)
+
+
+@pytest.mark.parametrize("dsub,esize,path,want", [
+    (384, 4, "wide_vector", 3),  # qwen2-1.5b: 512-byte slices of 128 floats
+    (384, 2, "wide_vector", 2),  # bfloat16: 256 elements a slice
+    (400, 4, "wide_vector", 4),  # hymba-1.5b: a tail of 16 floats
+    (512, 4, "wide_vector", 4),  # paligemma-3b
+    (36, 2, "wide_scalar", 1),  # 128 elements a slice, one a lane and step
+    (129, 4, "wide_scalar", 2),
+])
+def test_wide_slices(dsub, esize, path, want):
+    assert tcl.wide_slices(dsub, esize, path) == want
+
+
 # --- k-means assignment ---------------------------------------------------------
 
 
