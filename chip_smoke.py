@@ -65,7 +65,16 @@
    itself in the batch by its prefill logits, a 2-layer cut's prefill, 4
    decode steps and a forward with 256 patch embeddings prepended
    against CPU copies, and the lookup at paligemma's table (dsub 512).
-11. Trains full-width qwen2-1.5b through ``launch.train.build_lm_trainer``
+11. Serves full-width xlstm-1.3b (48 blocks: 6 superblocks of 7 chunkwise
+   mLSTM blocks and one recurrent sLSTM block, no attention, CCE token
+   table and factored CCE head, random weights from a seed) the same way,
+   prompts unpadded, the recurrent states in the cache: no flash; holds
+   each request alone against itself in the batch, a cut of the first
+   mLSTM and sLSTM blocks (a 300-token prefill, the last mLSTM chunk
+   ragged, then 4 decode steps: logits and every state) against CPU
+   copies; times the sLSTM blocks' share of a prefill and the lookup at
+   xlstm's table (dsub 512).
+12. Trains full-width qwen2-1.5b through ``launch.train.build_lm_trainer``
    (adamw, cosine schedule, remat, a dense token tracker): 6 steps of 2 x
    4096 tokens, the CCE token table's transition (the assignment kernel
    over all 151,936 ids at d=384), 2 steps; holds the lookup backward at a
@@ -80,8 +89,8 @@ after.  Prints the kernels' JSON line, the card line and, last,
     python3 chip_smoke.py --phases flash,lm_serve
 
 runs only the named phases (of lookup, bwd, kmeans, train, loop, serve,
-methods, flash, lm_serve, hybrid_serve, vlm_serve, lm_train) and prints
-neither result line.
+methods, flash, lm_serve, hybrid_serve, vlm_serve, xlstm_serve, lm_train)
+and prints neither result line.
 
 Exits non-zero, with no result line, when there is no CUDA device, when the
 port is missing, or when any phase fails.  Imports nothing of JAX.
@@ -202,6 +211,10 @@ HYBRID_CHECK_DECODE = 4  # decode steps of the cut after its prefill
 VLM_ARCH = "paligemma-3b"  # served like LM_ARCH (LM_PROMPTS, LM_MAX_SEQ, slots, tokens)
 VLM_CHECK_DECODE = 4  # decode steps of the cut after its LM_CHECK_PROMPT prefill
 HYBRID_IDLE_PREFILLS = (1024, 1900)  # the longest flash prefill; one past the window
+XLSTM_ARCH = "xlstm-1.3b"  # served like LM_ARCH (LM_PROMPTS, LM_MAX_SEQ, slots, tokens)
+XLSTM_CHECK_PROMPT = 300  # the cut's prompt: a 256-token mLSTM chunk and a ragged one
+XLSTM_CHECK_DECODE = 4
+XLSTM_IDLE_PREFILLS = (256, 1900)  # one mLSTM chunk; about the longest prompt
 # card vs CPU prefill logits, relative to the largest logit: float32 sums
 # in other orders; bfloat16 also rounds every activation (8 mantissa bits)
 LM_LOGIT_RTOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -378,6 +391,37 @@ def device_busy_ms(fn, *, iters: int = 5, cold: bool = False) -> float:
         if time.perf_counter() - t0 < 1.0:  # a second or more of calls: take as many again
             n_calls = max(4 * n_calls, -(-TRACE_RECORDS * n_calls // want) if want else 0)
     check(False, "five traces without nine tenths of their records")
+
+
+def device_busy_long_ms(fn) -> float:
+    """Device time of every CUDA kernel and copy in one call of ``fn``
+    (the caller has made one before: no warm-up here), summed from the
+    profiler's raw records: for calls of 10^5 launches (an xLSTM
+    prefill's sLSTM loops), whose ``key_averages`` would take minutes to
+    build.  Prints the trace's kernel records beside the launches the host
+    made, and fails where it holds fewer than nine tenths of them or none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cuda = torch.autograd.DeviceType.CUDA
+    ns = kernels = launches = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            if not getattr(e, "is_user_annotation", lambda: False)():
+                ns += e.duration_ns()
+                kernels += "memcpy" not in e.name().lower() and "memset" not in e.name().lower()
+        elif "LaunchKernel" in e.name():
+            launches += 1
+    check(kernels > 0 and kernels >= launches - launches // 10,
+          f"a one-call trace holds {kernels} kernel records of {launches} launches")
+    print(f"chip_smoke: one-call trace of {kernels} kernel records ({launches} launches), "
+          f"read in {time.perf_counter() - t0:.3f} s", flush=True)
+    return ns / 1e6
 
 
 def cl_path(t) -> str:
@@ -671,12 +715,12 @@ def bwd_train_case(cfg, B: int, seed: int, device="cuda"):
     return idx, dout.to(device)
 
 
-def lm_step_rows(cfg, device="cuda"):
+def lm_step_rows(cfg, device="cuda", toks=None):
     """idx (c, B, 2) as a LM training step gives it to the lookup
     backward: the CCE token table's rows, through its initial pointers and
     hashes, of batch 0 of the training stream (LM_TRAIN_BATCH x
     LM_TRAIN_SEQ tokens of ``lm_token_batches`` at LM_SEED: seconds of
-    host numpy)."""
+    host numpy), or of ``toks``, that batch made elsewhere."""
     import numpy as np
     import torch
 
@@ -686,7 +730,8 @@ def lm_step_rows(cfg, device="cuda"):
     b = table.init_buffers()
     buffers = {"ptr": torch.from_numpy(b["ptr"]).to(device),
                "hs": torch.from_numpy(b["hs"].astype(np.int64)).to(device)}
-    toks = _lm_batch(cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_SEED, 0)[0]["tokens"]
+    if toks is None:
+        toks = _lm_batch(cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_SEED, 0)[0]["tokens"]
     return table._rows(buffers, torch.from_numpy(toks).to(device).reshape(-1)).reshape(
         table.c, -1, 2)
 
@@ -748,9 +793,11 @@ def bwd_check(card: str, label: str, idx, dout, k: int, ks=None, *, timed=True,
     ``timed``, prints and returns its numbers beside its bound, its plain
     version's and (float32) ``zeros``+``index_add_``'s, and the hottest
     row's chain floor (``chain_floor_ms``), its device time the sum over
-    every kernel a call launches; ``plain_busy=False`` leaves out the plain
-    version's device busy (a trace of tens of thousands of records, ~15 s
-    to read).  Returns (max error, numbers or None)."""
+    every kernel a call launches; the plain version is timed over one call
+    after one warm-up (it takes 20-470 ms a call, and its time is no
+    yardstick); ``plain_busy=False`` leaves out the plain version's device
+    busy (a trace of tens of thousands of records, ~35 s to read).
+    Returns (max error, numbers or None)."""
     import torch
 
     from repro_torch.kernels import cce_lookup as cl
@@ -781,7 +828,7 @@ def bwd_check(card: str, label: str, idx, dout, k: int, ks=None, *, timed=True,
               f"rows; hottest row {hot!r} of the batch, chain_floor_ms={chain!r}", flush=True)
         return err, None
     ms = time_ms(lambda: cl.cce_lookup_bwd(idx, dout, k))
-    plain = time_ms(lambda: ref.cce_lookup_bwd_ref(idx, dout, k), iters=3, reps=3, warmup=1)
+    plain = time_ms(lambda: ref.cce_lookup_bwd_ref(idx, dout, k), iters=1, reps=1, warmup=1)
     # every kernel a call launches (the wide layouts: the sort and the walk)
     dev = device_busy_ms(lambda: cl.cce_lookup_bwd(idx, dout, k), iters=TRACE_RECORDS)
     plain_dev = device_busy_ms(lambda: ref.cce_lookup_bwd_ref(idx, dout, k)) if plain_busy else None
@@ -831,21 +878,23 @@ def bwd_kernel_phase(card: str, cfg, device="cuda"):
         dn = str(dtype).split(".")[-1]
         for B in BWD_BATCHES:
             idx, dout = bwd_case(collection, B, dtype, seed=100 + B, device=device)
-            # the plain version's device busy (a long trace) at the train batch only
-            err, nums = bwd_check(card, f"{dn} B={B}", idx, dout, k, ks,
-                                  plain_busy=B == TRAIN_BATCH)
+            # no trace of the plain version's device busy (PERF.md section 6
+            # keeps one at the train batch: 21.4 ms)
+            err, nums = bwd_check(card, f"{dn} B={B}", idx, dout, k, ks, plain_busy=False)
             max_err = max(max_err, err)
             if dtype == torch.float32 and B == TRAIN_BATCH:
                 at.update(nums)
                 uniform = idx
     idx, dout = bwd_train_case(cfg, TRAIN_BATCH, seed=3, device=device)
     err, at["at_skewed_train_batch"] = bwd_check(
-        card, f"float32 B={TRAIN_BATCH} skewed (a train batch's rows)", idx, dout, k, ks)
+        card, f"float32 B={TRAIN_BATCH} skewed (a train batch's rows)", idx, dout, k, ks,
+        plain_busy=False)
     max_err = max(max_err, err)
     valid = (uniform >= 0) & (uniform < ks[:, None, None])
     one_row = torch.where(valid, (ks - 1).to(torch.int32)[:, None, None], uniform)
     err, at["at_one_row"] = bwd_check(
-        card, f"float32 B={TRAIN_BATCH} one row a column", one_row, dout, k, ks)
+        card, f"float32 B={TRAIN_BATCH} one row a column", one_row, dout, k, ks,
+        plain_busy=False)
     max_err = max(max_err, err)
     flat = torch.empty(dout.numel() + 1, device=device)[1:]
     odd = flat.view(dout.shape).copy_(dout)
@@ -889,9 +938,17 @@ def wide_bwd_cases(card: str, device="cuda"):
     from repro_torch import configs
 
     wide_bwd_ptxas(card)
+    # each vocabulary's batch 0 of the token stream, made in parallel: each
+    # takes seconds of numpy
+    archs = [arch for arch, _ in WIDE_BWD_TABLES.values()] + [LM_ARCH]
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=len(archs), mp_context=multiprocessing.get_context("spawn")) as pool:
+        made = pool.map(_lm_batch, *zip(*[(configs.get(a).vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                            LM_SEED, 0) for a in archs]))
+        toks = {a: b["tokens"] for a, (b, _) in zip(archs, made)}
     max_err, at = 0.0, {}
     for n, (name, (arch, shape)) in enumerate(WIDE_BWD_TABLES.items()):
-        idx = lm_step_rows(configs.get(arch), device=device)
+        idx = lm_step_rows(configs.get(arch), device=device, toks=toks[arch])
         c, B, T = idx.shape
         k, dsub = shape[2:]
         check((c, T) == shape[:2], f"{arch}'s step rows are not (c, T) = {shape[:2]}")
@@ -909,7 +966,7 @@ def wide_bwd_cases(card: str, device="cuda"):
             max_err = max(max_err, err)
             if timed:
                 at[f"at_{name}_train_shape"] = nums
-    step = lm_step_rows(configs.get(LM_ARCH), device=device)
+    step = lm_step_rows(configs.get(LM_ARCH), device=device, toks=toks[LM_ARCH])
     c, B, T = step.shape
     k = 4748
     check(int(step.max()) < k, f"{LM_ARCH}'s step rows name a row past k={k}")
@@ -969,12 +1026,12 @@ def hash_bwd_cases(card: str, cfg, device="cuda"):
         f32 = dtype == torch.float32
         for key, what, rows in (("at_hash_train_batch", "a train batch's rows", idx),
                                 ("at_hash_one_row", "one row a column", one_row)):
-            # the plain version's device busy on the train batch only: one row
-            # a column is 2048 rounds of index_add_, a trace of ~10^5 records
+            # no trace of the plain version's device busy: one row a column is
+            # 2048 rounds of index_add_, a trace of ~10^5 records, and PERF.md
+            # section 6 keeps the train batch's (31.2 ms)
             err, nums = bwd_check(
                 card, f"{dn} B={TRAIN_BATCH} hash shape c={grp.n_cols} T=1 k={k} dsub={grp.dsub} "
-                f"narrow, {what}", rows, dout, k, ks, timed=f32,
-                plain_busy=key == "at_hash_train_batch")
+                f"narrow, {what}", rows, dout, k, ks, timed=f32, plain_busy=False)
             max_err = max(max_err, err)
             if f32:
                 at[key] = nums
@@ -2646,10 +2703,31 @@ def _max_rel(got, want) -> float:
     return ((got.float().cpu() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
+def lm_cut(cfg, params):
+    """(config, params) of a LM_CHECK_LAYERS cut of the model (views of its
+    params).  The xlstm family's stacks are (n_super, n_m, ...): its cut
+    is one superblock of the model's first mLSTM block and first sLSTM
+    block (n_layers 2, slstm_every 2), so both kinds run at full width."""
+    import dataclasses
+
+    from repro_torch.tree import tree_map
+
+    blocks = params["blocks"]
+    if cfg.family == "xlstm":
+        first = {"mlstm": tree_map(lambda t: t[:1, :1], blocks["mlstm"]),
+                 "slstm": tree_map(lambda t: t[:1], blocks["slstm"]),
+                 "norms": {"m": tree_map(lambda t: t[:1, :1], blocks["norms"]["m"]),
+                           "s": tree_map(lambda t: t[:1], blocks["norms"]["s"])}}
+        return (dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS, slstm_every=LM_CHECK_LAYERS),
+                dict(params, blocks=first))
+    return (dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS),
+            dict(params, blocks=tree_map(lambda t: t[:LM_CHECK_LAYERS], blocks)))
+
+
 def lm_cut_check(card: str, label: str, cfg, params, buffers, prompt, n_decode: int,
                  device="cuda") -> dict:
-    """A LM_CHECK_LAYERS cut of the served model on the card against CPU
-    copies, in float32 and bfloat16: a prefill of ``prompt``, then
+    """A LM_CHECK_LAYERS cut of the served model (``lm_cut``) on the card
+    against CPU copies, in float32 and bfloat16: a prefill of ``prompt``, then
     ``n_decode`` greedy decode steps (the CPU's picks fed to both), the
     logits and every cache leaf after each call within LM_LOGIT_RTOL of the
     CPU's largest magnitude; for the vlm family also ``forward`` with
@@ -2664,7 +2742,7 @@ def lm_cut_check(card: str, label: str, cfg, params, buffers, prompt, n_decode: 
     from repro_torch.models import lm
     from repro_torch.tree import tree_map
 
-    cut_p = dict(params, blocks=tree_map(lambda t: t[:LM_CHECK_LAYERS], params["blocks"]))
+    cut_cfg, cut_p = lm_cut(cfg, params)
     cpu_p = tree_map(lambda t: t.detach().to("cpu", copy=True), cut_p)
     cpu_b = tree_map(lambda t: t.detach().to("cpu", copy=True), buffers)
     S = len(prompt)
@@ -2672,7 +2750,7 @@ def lm_cut_check(card: str, label: str, cfg, params, buffers, prompt, n_decode: 
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        cut = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS, dtype=dtype)
+        cut = dataclasses.replace(cut_cfg, dtype=dtype)
         card_c, cpu_c = (lm.init_cache(cut, 1, S + n_decode, device=d) for d in (device, "cpu"))
         errs = {}
 
@@ -2720,10 +2798,12 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
     over LM_MAX_BATCH slots, greedy, LM_MAX_TOKENS tokens each, with the
     launch counts reset just before the run and read just after (flash
     once a layer for each prefill that takes it: all but those past a
-    sliding window); then a request served alone against itself in the
+    sliding window, and none for the xlstm family, which has no
+    attention); then a request served alone against itself in the
     batch, the host time, device busy and idle share of one decode tick and
     of a prefill of each of ``idle_prefills`` tokens (for the hybrid
-    family also the SSM scan's share), the lookup kernel at the model's
+    family also the SSM scan's share, for the xlstm family the sLSTM
+    blocks' share of its busy and host time), the lookup kernel at the model's
     table, and a LM_CHECK_LAYERS cut on the card against CPU copies
     (``lm_cut_check``: a ``check_prompt``-token prefill, then
     ``check_decode`` decode steps).  Returns (launches, lookup numbers,
@@ -2735,6 +2815,7 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import xlstm as xlstm_lib
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.tree import tree_leaves
 
@@ -2748,12 +2829,18 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
     if cfg.family == "vlm":
         extra = (f" act={cfg.act} tied={cfg.tie_embeddings} emb_scale={cfg.emb_scale} "
                  f"patches {cfg.n_patches}")
+    counted = "without biases, branch norms and patch_proj"
+    if cfg.family == "xlstm":
+        n_super, n_m = lm._xlstm_shape(cfg)
+        extra = (f" {n_super} superblocks of {n_m} mLSTM (head dim "
+                 f"{2 * cfg.d_model // cfg.n_heads}, chunk {xlstm_lib.MLSTM_CHUNK}) and 1 sLSTM (ffn "
+                 f"{xlstm_lib.slstm_ffn_dim(cfg)})")
+        counted = "every block as an mLSTM block, its gates as 2 di"
     print(f"[{card}] {label} init: {cfg.name} {cfg.n_layers}L d={cfg.d_model} {cfg.n_heads}H/"
           f"{cfg.n_kv_heads}KV hd={cfg.head_dim} ff={cfg.d_ff} vocab={cfg.vocab} "
           f"window={cfg.sliding_window}{extra} emb={cfg.emb_method}: {n_params} params "
-          f"(analytic, as the JAX package counts them, without biases, branch norms and "
-          f"patch_proj: {cfg.n_params()}), {on_card:.2f} GiB "
-          f"on the card, {time.perf_counter() - t0:.3f} s", flush=True)
+          f"(analytic, as the JAX package counts them, {counted}: {cfg.n_params()}), "
+          f"{on_card:.2f} GiB on the card, {time.perf_counter() - t0:.3f} s", flush=True)
     prompts = _lm_prompts(cfg)
 
     def engine():
@@ -2788,7 +2875,8 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
 
     eng._prefill_one, eng._decode = timed_prefill, timed_decode
     reqs = [Request(uid=i, prompt=p, max_tokens=LM_MAX_TOKENS) for i, p in enumerate(prompts)]
-    n_flash = sum(1 for p in prompts if not cfg.sliding_window or len(p) <= cfg.sliding_window)
+    n_flash = 0 if cfg.family == "xlstm" else sum(
+        1 for p in prompts if not cfg.sliding_window or len(p) <= cfg.sliding_window)
     torch.cuda.reset_peak_memory_stats()
     ops.LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -2801,7 +2889,7 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
     n_dec = len(decode_ms)
     check(len(done) == LM_REQUESTS and eng.prefills == LM_REQUESTS,
           f"served {len(done)} requests with {eng.prefills} prefills")
-    check(launches.get("flash_attention") == cfg.n_layers * n_flash,
+    check(launches.get("flash_attention", 0) == cfg.n_layers * n_flash,
           f"flash_attention launches {launches} != {cfg.n_layers} x {n_flash} prefills")
     check(launches.get("cce_lookup_fwd") == eng.prefills + n_dec,
           f"cce_lookup_fwd launches {launches} != {eng.prefills} prefills + {n_dec} decodes")
@@ -2864,19 +2952,51 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
             toks = np.resize(flat, (1, n)).astype(np.int64)
             cases.append((f"prefill {n}", lambda t=toks: orig_prefill(0, t, t.shape[1] - 1),
                           toks))
+        inner_slstm = xlstm_lib.slstm_seq
         for name, fn, toks in cases:
             fn()
-            host = []
-            for _ in range(3):
-                torch.cuda.synchronize()
+            host, in_slstm = [], []  # a run's host ms, and its host ms inside slstm_seq
+
+            def timed_slstm(*a, **kw):
                 t = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                host.append((time.perf_counter() - t) * 1e3)
-            busy = device_busy_ms(fn)
+                out = inner_slstm(*a, **kw)
+                in_slstm[-1] += (time.perf_counter() - t) * 1e3
+                return out
+
+            xlstm_lib.slstm_seq = timed_slstm  # lm calls it through the module
+            try:
+                for _ in range(3):
+                    in_slstm.append(0.0)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    host.append((time.perf_counter() - t) * 1e3)
+            finally:
+                xlstm_lib.slstm_seq = inner_slstm
+            # an xlstm prefill launches ~10^5 kernels (the sLSTM loops): one call's raw trace
+            long = toks is not None and cfg.family == "xlstm"
+            busy = device_busy_long_ms(fn) if long else device_busy_ms(fn)
             h = statistics.median(host)
             numbers[name] = dict(host_ms=h, busy_ms=busy, idle_share=1 - busy / h)
             ssm = ""
+            if long:
+                # the sLSTM blocks' host time inside the timed prefills (the host
+                # enqueues while the card idles); their busy time from superblock 0's
+                # block alone on its normed input (here the embedding: the cost does
+                # not depend on the values), times the superblocks
+                n_s = lm._xlstm_shape(cfg)[0]
+                s_host = statistics.median(in_slstm)
+                s_share = statistics.median(a / b for a, b in zip(in_slstm, host))
+                sp = lm.layer_params(params["blocks"]["slstm"], 0)
+                x = lm.embed(params, buffers, cfg, torch.from_numpy(toks).to(device))
+                hin = L.apply_norm(lm.layer_params(params["blocks"]["norms"]["s"], 0), x)
+                xlstm_lib.slstm_seq(sp, cfg, hin)
+                s_busy = n_s * device_busy_long_ms(lambda: xlstm_lib.slstm_seq(sp, cfg, hin))
+                numbers[name].update(slstm_host_ms=s_host, slstm_busy_ms=s_busy,
+                                     slstm_host_share=s_share, slstm_busy_share=s_busy / busy)
+                ssm = (f"; the {n_s} sLSTM blocks host {s_host!r} ms inside it ({s_share!r} of "
+                       f"host), busy {s_busy!r} ms ({s_busy / busy!r} of busy)")
             if toks is not None and cfg.family == "hybrid":
                 # layer 0's SSM branch and its chunked scan alone, on that layer's
                 # own input, times the layers
@@ -2921,6 +3041,15 @@ def vlm_serve_phase(card: str, cfg, device="cuda"):
     adds 4 decode steps and a forward with patch embeddings prepended."""
     return lm_serve_phase(card, cfg, device, label="vlm", check_decode=VLM_CHECK_DECODE,
                           idle_prefills=(LM_MAX_SEQ,))
+
+
+def xlstm_serve_phase(card: str, cfg, device="cuda"):
+    """``lm_serve_phase`` on the xlstm family (xlstm-1.3b): prompts
+    unpadded, no attention (flash 0), the recurrent states in the cache;
+    the cut (the first mLSTM and sLSTM blocks) prefills a prompt of one
+    whole and one ragged mLSTM chunk, then takes 4 decode steps."""
+    return lm_serve_phase(card, cfg, device, label="xlstm", check_prompt=XLSTM_CHECK_PROMPT,
+                          check_decode=XLSTM_CHECK_DECODE, idle_prefills=XLSTM_IDLE_PREFILLS)
 
 
 def lm_table_assign_numbers(card: str, x, cent, ptr) -> tuple[float, dict]:
@@ -3274,7 +3403,7 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call it replaces)
                         "src/repro/kernels/flash_attention.py:97"),
 }
 PHASES = ("lookup", "bwd", "kmeans", "train", "loop", "serve", "methods", "flash", "lm_serve",
-          "hybrid_serve", "vlm_serve", "lm_train")
+          "hybrid_serve", "vlm_serve", "xlstm_serve", "lm_train")
 
 
 def main(argv=None) -> int:
@@ -3344,6 +3473,9 @@ def main(argv=None) -> int:
     vlm = phase("vlm_serve", vlm_serve_phase, card, configs.get(VLM_ARCH))
     if vlm is not None:
         launches["vlm_serve"] = vlm[0]
+    xlstm = phase("xlstm_serve", xlstm_serve_phase, card, configs.get(XLSTM_ARCH))
+    if xlstm is not None:
+        launches["xlstm_serve"] = xlstm[0]
     lm_train = phase("lm_train", lm_train_phase, card, configs.get(LM_ARCH))
     if lm_train is not None:
         launches.update(lm_train[0])
@@ -3353,7 +3485,7 @@ def main(argv=None) -> int:
         return 0
     (fwd_err, fwd_at), (bwd_err, bwd_at), (assign_err, assign_at) = fwd, bwd, assign
     flash_err, flash_at, flash_hymba_at, flash_paligemma_at, flash_paligemma_err = flash
-    lm_lookup, hybrid_lookup, vlm_lookup = lm_out[1], hybrid[1], vlm[1]
+    lm_lookup, hybrid_lookup, vlm_lookup, xlstm_lookup = lm_out[1], hybrid[1], vlm[1], xlstm[1]
     _, methods_err, methods_at, _ = methods
     _, lm_fwd_at, lm_bwd_err, lm_bwd_at, lm_assign_err, lm_assign_at = lm_train
 
@@ -3369,12 +3501,13 @@ def main(argv=None) -> int:
     steps = ("train", "train_after_transition", "loop", "methods", "lm_train")
     S = FLASH_TIMED[-1]
     kernels = [
-        entry("cce_lookup_fwd", steps + ("lm_serve", "hybrid_serve", "vlm_serve"),
+        entry("cce_lookup_fwd", steps + ("lm_serve", "hybrid_serve", "vlm_serve", "xlstm_serve"),
               max(fwd_err, methods_err, lm_fwd_at["max_abs_err"],
-                  *(v["max_abs_err"] for v in (*hybrid_lookup.values(), *vlm_lookup.values()))),
+                  *(v["max_abs_err"] for v in (*hybrid_lookup.values(), *vlm_lookup.values(),
+                                                *xlstm_lookup.values()))),
               fwd_at[TRAIN_BATCH], batch=TRAIN_BATCH, at_serve_batch=fwd_at[SERVE_BATCH],
               at_lm_shape=lm_lookup, at_lm_train_shape=lm_fwd_at, at_hymba_shape=hybrid_lookup,
-              at_paligemma_shape=vlm_lookup,
+              at_paligemma_shape=vlm_lookup, at_xlstm_shape=xlstm_lookup,
               **{f"at_{m}_shape": methods_at[m]["fwd"] for m in METHOD_KERNEL_SHAPES}),
         entry("cce_lookup_bwd", steps, max(bwd_err, methods_err, lm_bwd_err), bwd_at,
               batch=TRAIN_BATCH, at_lm_train_shape=lm_bwd_at,

@@ -1,15 +1,22 @@
 """LM config registry: ``get(name)`` -> full-size ModelConfig,
 ``get_reduced(name)`` -> its CPU test variant.  ``ARCHS`` lists the
 architectures the port runs (the dense family, the hybrid family's
-hymba-1.5b and the vlm family's paligemma-3b); ``UNPORTED`` names the JAX
-package's other configurations by family, and both functions raise on
-them.  The DLRM
+hymba-1.5b, the xlstm family's xlstm-1.3b, served only, and the vlm
+family's paligemma-3b); ``UNPORTED`` names the JAX package's other
+configurations by family, and both functions raise on them.  The DLRM
 configuration lives in ``configs/dlrm_criteo.py``."""
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import hymba_1_5b, paligemma_3b, qwen2_1_5b, qwen3_4b, qwen3_14b
+from repro_torch.configs import (
+    hymba_1_5b,
+    paligemma_3b,
+    qwen2_1_5b,
+    qwen3_4b,
+    qwen3_14b,
+    xlstm_1_3b,
+)
 
 ARCHS = {
     "qwen2-1.5b": qwen2_1_5b.CONFIG,
@@ -17,6 +24,7 @@ ARCHS = {
     "qwen3-14b": qwen3_14b.CONFIG,
     "hymba-1.5b": hymba_1_5b.CONFIG,
     "paligemma-3b": paligemma_3b.CONFIG,
+    "xlstm-1.3b": xlstm_1_3b.CONFIG,
 }
 
 #: The JAX package's configurations that the port lacks -> their family
@@ -26,7 +34,6 @@ UNPORTED = {
     "musicgen-medium": "audio",
     "phi3.5-moe-42b-a6.6b": "moe",
     "qwen3-moe-235b-a22b": "moe",
-    "xlstm-1.3b": "xlstm",
 }
 
 

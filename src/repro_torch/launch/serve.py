@@ -3,6 +3,7 @@ stream a few requests through it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b --device cpu
 
 Runs on the card unless ``--device`` names another; on the CPU every
 kernel's plain version runs instead.

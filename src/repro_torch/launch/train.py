@@ -19,6 +19,7 @@ checkpoint and resumes.  ``--arch <lm>`` (a key of
 the synthetic token stream (``--batch`` sequences of ``--seq`` tokens)
 with adamw and a cosine schedule (``--warmup``); with a CCE token table a
 dense token-frequency tracker feeds the transition of the token table.
+The xlstm family serves only: ``build_lm_trainer`` refuses it.
 Runs on the card unless ``--device`` names another; on the CPU every
 kernel's plain version runs instead.  ``--obs RUN.jsonl`` writes a run
 log and turns on the in-step telemetry (``python -m repro_torch.obs
@@ -150,6 +151,9 @@ def build_lm_trainer(cfg, args, *, data_from=None):
     vocabulary in chunks of 2^18 ids, with the adamw moments remapped.
     Weights are drawn by a generator on the device.  ``data_from(start_step)``
     gives the batches (default ``lm_data``)."""
+    if cfg.family == "xlstm":
+        raise NotImplementedError(f"{cfg.name}: training the xlstm family is not ported "
+                                  f"(it serves: repro_torch.launch.serve --arch {cfg.name})")
     device = getattr(args, "device", "cuda")
     params, buffers = lm.init(cfg, torch.Generator(device=device).manual_seed(args.seed),
                               device=device)

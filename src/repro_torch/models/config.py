@@ -3,7 +3,8 @@
 
 One frozen dataclass carries every field of the JAX package's, so a
 config crosses between the packages field by field; the port serves the
-dense, hybrid and vlm families so far (``models/lm.py`` raises on the rest).  Configs are
+dense, hybrid, xlstm and vlm families so far (``models/lm.py`` raises on
+the rest).  Configs are
 built in ``repro_torch/configs/<arch>.py``; ``reduced()`` gives the
 small same-family variant the CPU tests run.
 """
@@ -111,14 +112,17 @@ class ModelConfig:
         )
 
     def n_params(self) -> int:
-        """Total parameter count of a dense-, hybrid- or vlm-family model,
-        analytic and as the JAX package counts it: biases, the hybrid
-        branch norms and the vlm's ``patch_proj`` are left out."""
-        if self.family not in ("dense", "hybrid", "vlm"):
+        """Total parameter count of a dense-, hybrid-, xlstm- or vlm-family
+        model, analytic and as the JAX package counts it: biases, the
+        hybrid branch norms and the vlm's ``patch_proj`` are left out, and
+        every xlstm block is counted by ``_xlstm_params``."""
+        if self.family not in ("dense", "hybrid", "xlstm", "vlm"):
             raise NotImplementedError(f"n_params of family {self.family!r} is not ported")
         d, L, hd = self.d_model, self.n_layers, self.head_dim
         attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
-        if self.family == "hybrid":
+        if self.family == "xlstm":
+            blocks = L * _xlstm_params(self)
+        elif self.family == "hybrid":
             blocks = L * (attn + _ssm_params(self) + 3 * d * self.d_ff + 2 * d)
         else:
             ffn = (3 if self.act == "swiglu" else 2) * d * self.d_ff
@@ -165,3 +169,15 @@ def _ssm_params(cfg: ModelConfig) -> int:
         + di
         + di * d
     )
+
+
+def _xlstm_params(cfg: ModelConfig) -> int:
+    """The JAX package's count of one xlstm block (every block counted as
+    an mLSTM block, its two gate projections as 2·di): the formula as it
+    stands there, so that ``n_params`` equals the JAX package's.  The
+    true count of xlstm-1.3b's init is lower (``chip_smoke.py`` prints
+    both)."""
+    d = cfg.d_model
+    di = 2 * d  # mLSTM up-projection factor 2
+    m = 2 * d * di + 3 * di * di // cfg.n_heads * cfg.n_heads + 2 * di + di * d
+    return m + 2 * d

@@ -1,8 +1,10 @@
 """Decoder LM of the dense family (qwen2/qwen3 style), the hybrid family
 (hymba: sliding-window attention beside a selective-SSM branch in each
-layer) and the vlm family (paligemma: a dense gemma backbone whose
-``forward`` prepends projected patch embeddings to the text), the
-counterpart of the JAX package's ``repro/models/lm.py``.
+layer), the xlstm family (xlstm-1.3b: superblocks of mLSTM blocks and
+one sLSTM block, no attention, a recurrent cache) and the vlm family
+(paligemma: a dense gemma backbone whose ``forward`` prepends projected
+patch embeddings to the text), the counterpart of the JAX package's
+``repro/models/lm.py``.
 
 The input embedding and the output head are the paper's integration
 points: ``cfg.emb_method`` "cce" makes the token table a CCE table, looked
@@ -11,17 +13,20 @@ factored form (k-sized matmuls and integer gathers instead of a vocab by
 d matmul); "full" keeps both uncompressed.
 
 Params are stacked ``(L, ...)`` per leaf, as the JAX package stacks them
-for ``lax.scan``, so ``convert`` carries a JAX state across leaf by leaf;
+for ``lax.scan`` (the xlstm family's ``(n_super, n_m, ...)`` and
+``(n_super, ...)``), so ``convert`` carries a JAX state across leaf by leaf;
 Python loops over the layers replace the scans.  The cache is written
 in place (``prefill`` into the slice it is given, ``decode_step`` at each
 row's position, or its ring slot under a sliding window; the hybrid
-family's SSM and conv states row by row), where the JAX functions return
-a new cache.  ``forward`` takes each layer's params through one
-``unbind`` a leaf, whose backward stacks the layers' gradients once, and
-checkpoints each block under ``cfg.remat="full"`` (the JAX package's
-``nothing_saveable``): the backward recomputes the block, so the forward
-keeps only each block's input.  ``next_token_loss`` is the training loss.  Not ported: the MoE,
-xLSTM and audio families, sinusoidal positions and ``remat="dots"``.
+family's SSM and conv states and the xlstm family's recurrent states row
+by row), where the JAX functions return a new cache.  ``forward`` takes
+each layer's params through one ``unbind`` a leaf, whose backward stacks
+the layers' gradients once, and checkpoints each block under
+``cfg.remat="full"`` (the JAX package's ``nothing_saveable``): the
+backward recomputes the block, so the forward keeps only each block's
+input.  ``next_token_loss`` is the training loss.  The xlstm family
+serves only: its ``forward`` refuses to run under autograd.  Not ported:
+the MoE and audio families, sinusoidal positions and ``remat="dots"``.
 """
 from __future__ import annotations
 
@@ -36,13 +41,14 @@ from repro_torch.core import embeddings as emb_lib
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.config import ModelConfig
 
 
 def _check(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "hybrid", "vlm"):
+    if cfg.family not in ("dense", "hybrid", "xlstm", "vlm"):
         raise NotImplementedError(f"LM family {cfg.family!r} is not ported "
-                                  f"(dense, hybrid and vlm only)")
+                                  f"(dense, hybrid, xlstm and vlm only)")
     if cfg.pos_emb not in ("rope", "none"):
         raise NotImplementedError(f"pos_emb={cfg.pos_emb!r} is not ported")
     L.check_attention(cfg)
@@ -101,7 +107,11 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     emb_params, emb_buffers = emb.init(generator, device=device)
     params: dict[str, Any] = {"emb": emb_params}
     buffers: dict[str, Any] = {"emb": emb_buffers}
-    params["blocks"] = _stack([_init_layer(generator, cfg, device) for _ in range(cfg.n_layers)])
+    if cfg.family == "xlstm":
+        params["blocks"] = _init_xlstm_stack(generator, cfg, device)
+    else:
+        params["blocks"] = _stack([_init_layer(generator, cfg, device)
+                                   for _ in range(cfg.n_layers)])
     params["ln_f"] = L.init_norm(cfg, device=device)
     if cfg.tie_embeddings:
         pass  # head reuses emb params
@@ -119,6 +129,32 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
             generator, (cfg.d_model, cfg.d_model), 1.0 / math.sqrt(cfg.d_model),
             cfg.param_dtype).to(device)
     return params, buffers
+
+
+def _xlstm_shape(cfg: ModelConfig) -> tuple[int, int]:
+    """(superblocks, mLSTM blocks in each) under ``slstm_every``."""
+    return cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
+
+
+def _init_xlstm_stack(generator: torch.Generator, cfg: ModelConfig, device):
+    """{"mlstm": (n_super, n_m, ...), "slstm": (n_super, ...), "norms":
+    {"m": (n_super, n_m, d), "s": (n_super, d)}} under ``slstm_every``,
+    else {"mlstm": (L, ...), "norms": (L, d)}: the JAX package's layout."""
+
+    def stacked_norm(*lead):
+        return {"scale": torch.ones((*lead, cfg.d_model), dtype=cfg.param_dtype,
+                                    device=device)}
+
+    def mlstm(n):
+        return _stack([xlstm_lib.init_mlstm(generator, cfg, device=device) for _ in range(n)])
+
+    if cfg.slstm_every:
+        n_super, n_m = _xlstm_shape(cfg)
+        return {"mlstm": _stack([mlstm(n_m) for _ in range(n_super)]),
+                "slstm": _stack([xlstm_lib.init_slstm(generator, cfg, device=device)
+                                 for _ in range(n_super)]),
+                "norms": {"m": stacked_norm(n_super, n_m), "s": stacked_norm(n_super)}}
+    return {"mlstm": mlstm(cfg.n_layers), "norms": stacked_norm(cfg.n_layers)}
 
 
 def init_buffers(cfg: ModelConfig):
@@ -225,6 +261,13 @@ def forward(params, buffers, cfg: ModelConfig, batch):
     if patches:
         pe = batch["patch_emb"].to(cfg.dtype) @ params["patch_proj"].to(cfg.dtype)
         x = torch.cat([pe, x], dim=1)
+    if cfg.family == "xlstm":
+        if torch.is_grad_enabled():
+            raise NotImplementedError("training the xlstm family is not ported: its forward "
+                                      "runs under torch.no_grad() or inference_mode()")
+        x = L.apply_norm(params["ln_f"], _xlstm_forward(params["blocks"], cfg, x))
+        return logits_fn(params, buffers, cfg, x), torch.zeros((), dtype=torch.float32,
+                                                               device=x.device)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     freqs = L.rope_freqs(cfg, device=x.device)
@@ -241,6 +284,41 @@ def forward(params, buffers, cfg: ModelConfig, batch):
         x = x[:, -tokens.shape[1]:]
     return logits_fn(params, buffers, cfg, x), torch.zeros((), dtype=torch.float32,
                                                            device=x.device)
+
+
+_XLSTM_STATE = {"m": ("C", "n", "m"), "s": ("s_c", "s_n", "s_h", "s_m")}  # cache keys a block
+
+
+def _xlstm_blocks(blocks, cfg: ModelConfig):
+    """The xlstm stack in block order: ("m", (s, j), params, norm) for
+    mLSTM block j of superblock s, ("s", s, params, norm) for its sLSTM
+    block; without ``slstm_every``, ("m", i, params, norm) a layer."""
+    if not cfg.slstm_every:
+        for i in range(cfg.n_layers):
+            yield "m", i, layer_params(blocks["mlstm"], i), layer_params(blocks["norms"], i)
+        return
+    n_super, n_m = _xlstm_shape(cfg)
+    for s in range(n_super):
+        sp = layer_params(blocks, s)
+        for j in range(n_m):
+            yield ("m", (s, j), layer_params(sp["mlstm"], j),
+                   layer_params(sp["norms"]["m"], j))
+        yield "s", s, sp["slstm"], sp["norms"]["s"]
+
+
+def _xlstm_forward(blocks, cfg: ModelConfig, x, cache=None):
+    """The xlstm stack over a whole sequence (the chunkwise mLSTM, the
+    sequential sLSTM), each block ``x + block(norm(x))``.  With ``cache``
+    every block's terminal state is copied into it (prefill), every leaf
+    whole."""
+    for kind, at, p, norm in _xlstm_blocks(blocks, cfg):
+        block = xlstm_lib.mlstm_train if kind == "m" else xlstm_lib.slstm_seq
+        y, state = block(p, cfg, L.apply_norm(norm, x))
+        if cache is not None:
+            for key, t in zip(_XLSTM_STATE[kind], state):
+                cache[key][at].copy_(t)
+        x = x + y
+    return x
 
 
 def next_token_loss(params, buffers, cfg: ModelConfig, batch):
@@ -265,8 +343,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     """Decode cache of zeros: "k", "v" (L, batch, S, KVH, D) in
     ``cfg.dtype``, S = max_seq, or min(max_seq, window), a ring, under a
     sliding window; the hybrid family adds "ssm" (L, batch, di, ds) and
-    "conv" (L, batch, K-1, di), both float32."""
+    "conv" (L, batch, K-1, di), both float32.  The xlstm family's cache is
+    its recurrent state (``_init_xlstm_cache``), whatever ``max_seq``."""
     _check(cfg)
+    if cfg.family == "xlstm":
+        return _init_xlstm_cache(cfg, batch, device)
     S = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
     Lc = cfg.n_layers
     shape = (Lc, batch, S, cfg.n_kv_heads, cfg.head_dim)
@@ -280,8 +361,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     return cache
 
 
+def _init_xlstm_cache(cfg: ModelConfig, batch: int, device):
+    """The mLSTM states "C" (..., batch, H, hd, hd), "n" (..., batch, H,
+    hd), "m" (..., batch, H) at -inf, float32, the leading dims (n_super,
+    n_m) under ``slstm_every``, else (L,); under ``slstm_every`` also the
+    sLSTM states "s_c", "s_n", "s_h" and "s_m" (at -inf), each (n_super,
+    batch, d) float32."""
+    lead = _xlstm_shape(cfg) if cfg.slstm_every else (cfg.n_layers,)
+    cache = {key: t.expand(*lead, *t.shape).clone() for key, t in
+             zip(_XLSTM_STATE["m"], xlstm_lib.init_mlstm_state(cfg, batch, device=device))}
+    if cfg.slstm_every:
+        cache |= {key: t.expand(lead[0], *t.shape).clone() for key, t in
+                  zip(_XLSTM_STATE["s"], xlstm_lib.init_slstm_state(cfg, batch, device=device))}
+    return cache
+
+
 def cache_batch_axis(cfg: ModelConfig):
     """The batch-dimension index of each cache leaf."""
+    if cfg.family == "xlstm" and cfg.slstm_every:
+        return {"C": 2, "n": 2, "m": 2, "s_c": 1, "s_n": 1, "s_h": 1, "s_m": 1}
+    if cfg.family == "xlstm":
+        return {"C": 1, "n": 1, "m": 1}
     base = {"k": 1, "v": 1}
     if cfg.family == "hybrid":
         base |= {"ssm": 1, "conv": 1}
@@ -292,9 +392,13 @@ def decode_step(params, buffers, cfg: ModelConfig, tokens, pos, cache):
     """One-token decode.  tokens (B,), pos (B,) integer positions; the
     token's k/v go into ``cache`` in place at ``pos`` (its ring slot under
     a sliding window), and the hybrid family's SSM and conv states move on
-    by one token in place.  Returns (logits (B, vocab), cache)."""
+    by one token in place, as do the xlstm family's recurrent states
+    (which ignore ``pos``).  Returns (logits (B, vocab), cache)."""
     _check(cfg)
     x = embed(params, buffers, cfg, tokens[:, None])
+    if cfg.family == "xlstm":
+        x = L.apply_norm(params["ln_f"], _xlstm_decode(params["blocks"], cfg, x, cache))
+        return logits_fn(params, buffers, cfg, x[:, 0]), cache
     freqs = L.rope_freqs(cfg, device=x.device)
     pos = pos.to(torch.int64)
     for i in range(cfg.n_layers):
@@ -303,6 +407,22 @@ def decode_step(params, buffers, cfg: ModelConfig, tokens, pos, cache):
                          decode_cache=lc)
     x = L.apply_norm(params["ln_f"], x)
     return logits_fn(params, buffers, cfg, x[:, 0]), cache
+
+
+def _xlstm_decode(blocks, cfg: ModelConfig, x, cache):
+    """One token through the xlstm stack, every block's state in
+    ``cache`` moved on by one token in place."""
+    for kind, at, p, norm in _xlstm_blocks(blocks, cfg):
+        h = L.apply_norm(norm, x)
+        state = tuple(cache[key][at] for key in _XLSTM_STATE[kind])
+        if kind == "m":  # C, n and m move on in place
+            y, _ = xlstm_lib.mlstm_decode(p, cfg, h, state)
+        else:
+            y, state = xlstm_lib.slstm_seq(p, cfg, h, state)
+            for key, t in zip(_XLSTM_STATE[kind], state):
+                cache[key][at].copy_(t)
+        x = x + y
+    return x
 
 
 def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None):
@@ -320,10 +440,16 @@ def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None):
     token's index, and causal attention keeps every position up to it
     blind to the padding (only families without a window or a recurrent
     state pad: ring and recurrent caches would take the pads in).  The vlm
-    family prefills text only, as in the JAX package."""
+    family prefills text only, as in the JAX package.  The xlstm family
+    runs its chunkwise and sequential forms and writes every block's
+    terminal state into ``cache``, every leaf of the slice whole."""
     _check(cfg)
     B, S = tokens.shape
     x = embed(params, buffers, cfg, tokens)
+    last = S - 1 if last_idx is None else int(last_idx)
+    if cfg.family == "xlstm":
+        x = _xlstm_forward(params["blocks"], cfg, x, cache=cache)
+        return logits_fn(params, buffers, cfg, L.apply_norm(params["ln_f"], x[:, last])), cache
     positions = torch.arange(S, device=x.device).expand(B, S)
     freqs = L.rope_freqs(cfg, device=x.device)
     for i in range(cfg.n_layers):
@@ -360,6 +486,5 @@ def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None):
         x = x + attn
         if cfg.d_ff:
             x = x + L.apply_mlp(lp["mlp"], cfg, L.apply_norm(lp["ln2"], x))
-    last = S - 1 if last_idx is None else int(last_idx)
     x = L.apply_norm(params["ln_f"], x[:, last])
     return logits_fn(params, buffers, cfg, x), cache

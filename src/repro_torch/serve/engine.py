@@ -7,10 +7,11 @@ each request owns a slot.  Per tick:
   1. admit queued requests into every free slot: one prefill per request
      (prompts are ragged), right-padded into a power-of-two length bucket,
      writing its k/v straight into its slot of the cache (and, for the
-     hybrid family, its SSM and conv states).  Every family but the
-     hybrid one pads, unless it has a sliding window: a ring or a recurrent
-     state would take the pads in, so those prompts prefill at their own
-     length, as in the JAX engine;
+     hybrid family, its SSM and conv states; for the xlstm family, whose
+     cache is its recurrent state, every block's state).  Every family
+     but the hybrid and xlstm ones pads, unless it has a sliding window:
+     a ring or a recurrent state would take the pads in, so those prompts
+     prefill at their own length, as in the JAX engine;
   2. one decode step over all ``max_batch`` slots;
   3. retire finished requests (eos, ``max_tokens``, or the cache's end).
 
@@ -74,8 +75,9 @@ class ServeEngine:
         self.latency = LatencyHistogram()
         self.runlog = runlog
         # padded prefill is only sound when no cache state is a function of
-        # the whole padded sequence: the hybrid family's SSM folds pads into
-        # its terminal state, a sliding window rotates the ring by S
+        # the whole padded sequence: the hybrid family's SSM and the xlstm
+        # family's recurrences fold pads into their terminal states, a
+        # sliding window rotates the ring by S
         self._pad_prompts = cfg.family not in ("xlstm", "hybrid") and not cfg.sliding_window
 
     # --- public API ---------------------------------------------------------
@@ -100,9 +102,13 @@ class ServeEngine:
 
     def _prefill_one(self, slot: int, tokens: np.ndarray, last_idx: int) -> torch.Tensor:
         """Prefill one prompt (1, L), bucketed or not, into ``slot`` of every
-        cache leaf (the rest of the slot zeroed, as a fresh cache would be);
-        returns the logits (1, vocab) at ``last_idx``."""
-        view = {k: c[:, slot: slot + 1] for k, c in self.cache.items()}
+        cache leaf, along each leaf's own batch axis (``lm.cache_batch_axis``);
+        returns the logits (1, vocab) at ``last_idx``.  The slot is zeroed
+        first, so the rest of an attention cache's slot is as a fresh cache
+        would be; the xlstm family's prefill writes every leaf whole (its
+        fresh m is -inf, not 0)."""
+        axes = lm.cache_batch_axis(self.cfg)
+        view = {k: c.narrow(axes[k], slot, 1) for k, c in self.cache.items()}
         for c in view.values():
             c.zero_()
         toks = torch.from_numpy(tokens).to(self.device)

@@ -10,8 +10,11 @@ window, decoding past it) at two slot counts, and on reduced paligemma-3b
 (the vlm family: tied CCE head, MQA; prompts padded into buckets), where
 each prefill's logits are held too: with random tied weights greedy
 decoding repeats each prompt's last token, so equal tokens alone would
-pass most faults in the layers.  Also drives the port's serve launcher on
-the CPU, dense, hybrid and vlm."""
+pass most faults in the layers.  On reduced xlstm-1.3b (the xlstm family:
+a recurrent cache whose mLSTM states carry the batch on axis 2; prompts
+unpadded, up to JAX's 256-token limit) at one and three slots, the tokens
+and each prefill's logits.  Also drives the port's serve launcher on the
+CPU, dense, hybrid, xlstm and vlm."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -60,6 +63,14 @@ def paligemma():
     params, buffers = jax.jit(jlm.init, static_argnums=1)(jax.random.PRNGKey(2), jcfg)
     tp, tb = convert.lm_to_torch(*jax.tree.map(np.asarray, (params, buffers)), "cpu")
     return (jcfg, params, buffers), (tconfigs.get_reduced("paligemma-3b"), tp, tb)
+
+
+@pytest.fixture(scope="module")
+def xlstm():
+    jcfg = jconfigs.get_reduced("xlstm-1.3b")
+    params, buffers = jax.jit(jlm.init, static_argnums=1)(jax.random.PRNGKey(3), jcfg)
+    tp, tb = convert.lm_to_torch(*jax.tree.map(np.asarray, (params, buffers)), "cpu")
+    return (jcfg, params, buffers), (tconfigs.get_reduced("xlstm-1.3b"), tp, tb)
 
 
 def _serve(engine_cls, request_cls, state, requests, **kw):
@@ -122,6 +133,23 @@ def _prefill_calls(eng, attr):
     return calls
 
 
+def _tokens_and_prefill_logits(jstate, tstate, reqs, max_batch, max_seq):
+    """Both engines over ``reqs``: ({uid: tokens}, [(prefill length,
+    logits)]) for JAX's and the port's."""
+    out = {}
+    for side, (cls, rcls, state, attr) in {
+            "jax": (JEngine, JRequest, jstate, "_prefill"),
+            "port": (TEngine, TRequest, tstate, "_prefill_one")}.items():
+        cfg, params, buffers = state
+        eng = cls(cfg, params, buffers, max_batch=max_batch, max_seq=max_seq)
+        calls = _prefill_calls(eng, attr)
+        for uid, prompt, max_tokens, eos in reqs:
+            eng.submit(rcls(uid=uid, prompt=prompt, max_tokens=max_tokens, eos=eos))
+        done = eng.run()
+        out[side] = ({r.uid: r.generated for r in done}, calls)
+    return out["jax"], out["port"]
+
+
 @pytest.mark.parametrize("max_batch", [2, 3])
 def test_vlm_engine_tokens_and_prefill_logits_match_jax(paligemma, max_batch):
     """Five requests of 3..13 prompt tokens over fewer slots: each prompt
@@ -131,20 +159,29 @@ def test_vlm_engine_tokens_and_prefill_logits_match_jax(paligemma, max_batch):
     rng = np.random.default_rng(5)
     reqs = [(i, rng.integers(0, 257, s).astype(np.int32), 5, None)
             for i, s in enumerate((3, 13, 8, 5, 9))]
-    out = {}
-    for side, (cls, rcls, state, attr) in {
-            "jax": (JEngine, JRequest, jstate, "_prefill"),
-            "port": (TEngine, TRequest, tstate, "_prefill_one")}.items():
-        cfg, params, buffers = state
-        eng = cls(cfg, params, buffers, max_batch=max_batch, max_seq=32)
-        calls = _prefill_calls(eng, attr)
-        for uid, prompt, max_tokens, eos in reqs:
-            eng.submit(rcls(uid=uid, prompt=prompt, max_tokens=max_tokens, eos=eos))
-        done = eng.run()
-        out[side] = ({r.uid: r.generated for r in done}, calls)
-    (want, jcalls), (got, tcalls) = out["jax"], out["port"]
+    (want, jcalls), (got, tcalls) = _tokens_and_prefill_logits(jstate, tstate, reqs, max_batch,
+                                                                32)
     assert got == want
     assert [n for n, _ in tcalls] == [n for n, _ in jcalls] == [4, 16, 8, 8, 16]
+    for (_, a), (_, b) in zip(tcalls, jcalls):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("max_batch", [1, 3])
+def test_xlstm_engine_tokens_and_prefill_logits_match_jax(xlstm, max_batch):
+    """Four requests of 6, 256, 6 and 19 prompt tokens (past 256 JAX
+    prefills only multiples of its 256-token chunk) over fewer slots, each
+    prefilled at its own length into its slot of every state, the others'
+    states left as they are: each prefill's logits within rtol 1e-4 /
+    atol 1e-5 of JAX's, and the same tokens."""
+    jstate, tstate = xlstm
+    rng = np.random.default_rng(6)
+    reqs = [(i, rng.integers(0, 257, s).astype(np.int32), 4, None)
+            for i, s in enumerate((6, 256, 6, 19))]
+    (want, jcalls), (got, tcalls) = _tokens_and_prefill_logits(jstate, tstate, reqs, max_batch,
+                                                                272)
+    assert got == want
+    assert [n for n, _ in tcalls] == [n for n, _ in jcalls] == [6, 256, 6, 19]
     for (_, a), (_, b) in zip(tcalls, jcalls):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
 
@@ -174,7 +211,7 @@ def test_prefill_count_latency_histogram_and_run_log(model, tmp_path):
     assert events == ["manifest"] + ["request"] * 7 + ["latency_hist"]
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "hymba-1.5b", "paligemma-3b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "hymba-1.5b", "paligemma-3b", "xlstm-1.3b"])
 def test_launch_serve_runs_on_the_cpu(capsys, arch):
     done = tserve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
                         "--max-tokens", "3"])
