@@ -23,9 +23,9 @@
    ``launch.train.build_dlrm_trainer``: a ``Trainer`` with the sketch
    frequency tracker (cell count in the step, host fold on a background
    thread), the entropy/drift trigger beside a periodic fallback,
-   telemetry, a run log and async checkpoints, for 48 steps (windows of 8
+   telemetry, a run log and async checkpoints, for 32 steps (windows of 8
    batches) with up to 2 transitions.  Holds one step's in-step sketch
-   delta against the host cell count; crashes a second run at step 40,
+   delta against the host cell count; crashes a second run at step 28,
    restores and resumes it, and holds it bit for bit against the first;
    restores the card's last checkpoint into a CPU Trainer; serves a batch
    with the trained tracker's heads in the hot cache.  Then times the
@@ -75,13 +75,20 @@
    copies; times the sLSTM blocks' share of a prefill and the lookup at
    xlstm's table (dsub 512).
 12. Trains full-width qwen2-1.5b through ``launch.train.build_lm_trainer``
-   (adamw, cosine schedule, remat, a dense token tracker): 6 steps of 2 x
+   (adamw, cosine schedule, remat, a dense token tracker): 3 steps of 2 x
    4096 tokens, the CCE token table's transition (the assignment kernel
    over all 151,936 ids at d=384), 2 steps; holds the lookup backward at a
    step's token rows and the assignment at the transition's inputs
    against their plain versions; holds a 2-layer cut's first loss and
    gradients against CPU copies, and its runs (one crashed and resumed)
    against each other bit for bit.
+13. Trains full-width xlstm-1.3b the same way: 1 step of 2 x 4096 tokens
+   (traced), the token table's transition (the assignment over all 50,304
+   ids at d=512), 1 step (timed); the sLSTM blocks' share of the step; the
+   kernels at the step's token rows and the transition's inputs; the
+   first mLSTM and sLSTM blocks' first loss and gradients against CPU
+   copies (bfloat16 against the CPU's float32), and their runs against
+   each other bit for bit.
 Each path runs with the launch counts reset just before it and read just
 after.  Prints the kernels' JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -89,8 +96,8 @@ after.  Prints the kernels' JSON line, the card line and, last,
     python3 chip_smoke.py --phases flash,lm_serve
 
 runs only the named phases (of lookup, bwd, kmeans, train, loop, serve,
-methods, flash, lm_serve, hybrid_serve, vlm_serve, xlstm_serve, lm_train)
-and prints neither result line.
+methods, flash, lm_serve, hybrid_serve, vlm_serve, xlstm_serve, lm_train,
+xlstm_train) and prints neither result line.
 
 Exits non-zero, with no result line, when there is no CUDA device, when the
 port is missing, or when any phase fails.  Imports nothing of JAX.
@@ -99,6 +106,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import gc
 import json
 import math
 import multiprocessing
@@ -123,13 +131,13 @@ TRAIN_BATCH = 2048
 TRAIN_STEPS = 8  # before the transition
 POST_STEPS = 4  # after it
 TRAIN_LR = 0.05  # constant, with momentum 0.9 and clip 1.0
-LOOP_STEPS = 48  # the loop phase's run, cut in depth
+LOOP_STEPS = 32  # the loop phase's run, cut in depth
 LOOP_WINDOW = 8  # tracker window in batches (the deployment's STREAM has 256)
-LOOP_CLUSTER_EVERY = 24  # the periodic fallback beside the trigger
+LOOP_CLUSTER_EVERY = 16  # the periodic fallback beside the trigger
 LOOP_CLUSTER_MAX = 2
-LOOP_CKPT_EVERY = 16
+LOOP_CKPT_EVERY = 8
 LOOP_KEEP_LAST = 2
-LOOP_FAIL_AT = 40  # the crash run's injected failure
+LOOP_FAIL_AT = 28  # the crash run's injected failure: restores step 24
 LOOP_SEED = 4
 LOOP_TIMED_STEPS = 16  # each unsynchronised Trainer run of the loop's timing
 LOOKUP_BATCHES = (1, 7, SERVE_BATCH, TRAIN_BATCH, 4096)
@@ -223,12 +231,19 @@ LM_LOGIT_RTOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # microbatch of 2: at 32 the float32 logits alone take 80 GB
 LM_TRAIN_BATCH = 2
 LM_TRAIN_SEQ = 4096
-LM_TRAIN_STEPS = 6  # then the token table's transition
+LM_TRAIN_STEPS = 3  # then the token table's transition
 LM_TRAIN_POST = 2  # steps after it
 LM_TRAIN_LR = 1e-3  # adamw's peak under the cosine schedule (the launcher's default)
 LM_TRAIN_WARMUP = 2
 LM_CUT_SEQ = 256  # the LM_CHECK_LAYERS cut's sequences: card vs CPU, repeats
 LM_CUT_STEPS = 4  # the cut's runs: 4 steps, a transition, 2 steps
+# xlstm-1.3b's training (the xlstm_train phase): train_4k's length, one
+# microbatch; a step is ~20 s of host (the sLSTM's loops over 6 x 4096
+# steps), so few steps: the first traced (the step's busy and top kernels),
+# the one after the transition timed
+XLSTM_TRAIN_BATCH = 2
+XLSTM_TRAIN_STEPS = 1  # then the token table's transition
+XLSTM_TRAIN_POST = 1
 # card vs CPU loss of the cut's first step, relative, and every gradient
 # leaf, relative to the leaf's largest magnitude: float32 sums in other
 # orders; bfloat16 rounds every activation.  The bfloat16 limits stand
@@ -236,11 +251,37 @@ LM_CUT_STEPS = 4  # the cut's runs: 4 steps, a transition, 2 steps
 # 8.6e-3, about one bfloat16 rounding (2^-7)
 LM_LOSS_RTOL = {"float32": STEP_RTOL, "bfloat16": 1e-3}
 LM_GRAD_RTOL = {"float32": STEP_RTOL, "bfloat16": 3e-2}
+# the xlstm family's bfloat16 gradients: its recurrences carry each
+# rounding through every later step, so the card's and the CPU's bfloat16
+# drift apart by more than LM_GRAD_RTOL (wq 0.0378 on an H100) while each
+# stays near float32.  A leaf of the card's bfloat16 is held against the
+# CPU's float32 within the larger of LM_GRAD_RTOL and this many times the
+# CPU's own bfloat16 error of that leaf: the card about as accurate as the
+# CPU.  An H100's leaves read 0.91-1.27 times the CPU's (1.45 with cuBLAS's
+# reduced-precision reductions off; tools/probe_bf16_grads.py), and both
+# sides repeat bit for bit
+BF16_OWN_RATIO = 1.5
+# a gradient leaf that is float noise -> the leaf whose largest magnitude it
+# is held against instead of its own: the mLSTM's output is invariant to a
+# shift of every input gate (the normaliser divides it out), so the
+# input-gate bias's gradient sum_t dL/di_t vanishes but for rounding, while
+# the input-gate weights' sum_t x_t dL/di_t does not
+NOISE_GRAD_SCALE = {"['blocks']['mlstm']['bi']": "['blocks']['mlstm']['wi']"}
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def reset_peak() -> int:
+    """Resets the card's peak-memory counter and returns the bytes
+    allocated at the reset: a peak is reported less it (what earlier
+    phases left allocated would count otherwise), beside the raw peak."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
 
 
 def card_line() -> str:
@@ -393,13 +434,14 @@ def device_busy_ms(fn, *, iters: int = 5, cold: bool = False) -> float:
     check(False, "five traces without nine tenths of their records")
 
 
-def device_busy_long_ms(fn) -> float:
+def device_busy_long(fn) -> tuple[float, dict]:
     """Device time of every CUDA kernel and copy in one call of ``fn``
     (the caller has made one before: no warm-up here), summed from the
-    profiler's raw records: for calls of 10^5 launches (an xLSTM
-    prefill's sLSTM loops), whose ``key_averages`` would take minutes to
-    build.  Prints the trace's kernel records beside the launches the host
-    made, and fails where it holds fewer than nine tenths of them or none."""
+    profiler's raw records: for calls of 10^5-10^6 launches (an xLSTM
+    prefill's or training step's sLSTM loops), whose ``key_averages``
+    would take minutes to build.  Prints the trace's kernel records beside
+    the launches the host made, and fails where it holds fewer than nine
+    tenths of them or none.  Returns (ms, {name: (ms, records)})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -410,18 +452,27 @@ def device_busy_long_ms(fn) -> float:
     t0 = time.perf_counter()
     cuda = torch.autograd.DeviceType.CUDA
     ns = kernels = launches = 0
+    by_name = collections.defaultdict(lambda: [0, 0])
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == cuda:
             if not getattr(e, "is_user_annotation", lambda: False)():
+                name = e.name()
                 ns += e.duration_ns()
-                kernels += "memcpy" not in e.name().lower() and "memset" not in e.name().lower()
+                by_name[name][0] += e.duration_ns()
+                by_name[name][1] += 1
+                kernels += "memcpy" not in name.lower() and "memset" not in name.lower()
         elif "LaunchKernel" in e.name():
             launches += 1
     check(kernels > 0 and kernels >= launches - launches // 10,
           f"a one-call trace holds {kernels} kernel records of {launches} launches")
     print(f"chip_smoke: one-call trace of {kernels} kernel records ({launches} launches), "
           f"read in {time.perf_counter() - t0:.3f} s", flush=True)
-    return ns / 1e6
+    return ns / 1e6, {k: (v[0] / 1e6, v[1]) for k, v in by_name.items()}
+
+
+def device_busy_long_ms(fn) -> float:
+    """``device_busy_long``'s ms."""
+    return device_busy_long(fn)[0]
 
 
 def cl_path(t) -> str:
@@ -1413,11 +1464,13 @@ def _leaf_errors(got, want) -> list[tuple[float, float]]:
     return out
 
 
-def _check_close(errs, what: str, rtol: float = STEP_RTOL) -> float:
-    """Every leaf within ``rtol`` of its largest magnitude; returns the
-    largest relative error."""
+def _check_close(errs, what: str, rtol: float = STEP_RTOL, floors=None) -> float:
+    """Every leaf within ``rtol`` of its largest magnitude, or within its
+    ``floors`` entry where that is larger; returns the largest relative
+    error."""
+    floors = floors or [0.0] * len(errs)
     rel = max(e / max(m, 1e-30) for e, m in errs)
-    check(all(e <= rtol * m + 1e-7 for e, m in errs),
+    check(all(e <= max(rtol, f) * m + 1e-7 for (e, m), f in zip(errs, floors)),
           f"{what}: card vs CPU beyond {rtol} relative (largest {rel})")
     return rel
 
@@ -2320,7 +2373,7 @@ def methods_phase(card: str, cfg, device="cuda"):
         mcfg = dataclasses.replace(cfg, emb_method=m)
         coll = mcfg.collection
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        left = reset_peak()  # earlier phases' and methods' leftovers
         params, buffers = dlrm.init(mcfg, torch.Generator(device=device).manual_seed(1), device)
 
         def loss_fn(p, b, mb, mcfg=mcfg):
@@ -2371,8 +2424,8 @@ def methods_phase(card: str, cfg, device="cuda"):
         param_rel = _check_close(_leaf_errors(first_params, cpu_state.params),
                                  f"{m}: first-step params")
         del cpu_state, first_params
-        peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        held_gb = torch.cuda.memory_allocated() / 2**30
+        peak_gb = (torch.cuda.max_memory_allocated() - left) / 2**30
+        held_gb = (torch.cuda.memory_allocated() - left) / 2**30
         host_ms = statistics.median(step_ms[1:])
         busy_ms = device_busy_ms(lambda: step(state, batches[-1]))
         top = top_kernels(lambda: step(state, batches[-1]))
@@ -2388,7 +2441,8 @@ def methods_phase(card: str, cfg, device="cuda"):
               f"{loss_dev.item()!r}, gradients max rel err {grad_rel!r}, params max rel err "
               f"{param_rel!r}; step host {host_ms!r} ms (median of steps 2-{METHOD_STEPS}; "
               f"first {step_ms[0]!r} ms), device busy {busy_ms!r} ms (idle share "
-              f"{1 - busy_ms / host_ms!r}); allocated {held_gb!r} GB, peak {peak_gb!r} GB; "
+              f"{1 - busy_ms / host_ms!r}); allocated {held_gb!r} GB, peak {peak_gb!r} GB "
+              f"(each less the {left / 2**30!r} GB allocated before the init); "
               f"top device time a step: " + "; ".join(f"{k} {v!r} ms" for k, v in top),
               flush=True)
         t_steps = time.perf_counter() - t_m
@@ -2708,8 +2762,6 @@ def lm_cut(cfg, params):
     params).  The xlstm family's stacks are (n_super, n_m, ...): its cut
     is one superblock of the model's first mLSTM block and first sLSTM
     block (n_layers 2, slstm_every 2), so both kinds run at full width."""
-    import dataclasses
-
     from repro_torch.tree import tree_map
 
     blocks = params["blocks"]
@@ -2718,10 +2770,18 @@ def lm_cut(cfg, params):
                  "slstm": tree_map(lambda t: t[:1], blocks["slstm"]),
                  "norms": {"m": tree_map(lambda t: t[:1, :1], blocks["norms"]["m"]),
                            "s": tree_map(lambda t: t[:1], blocks["norms"]["s"])}}
-        return (dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS, slstm_every=LM_CHECK_LAYERS),
-                dict(params, blocks=first))
-    return (dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS),
+        return lm_cut_config(cfg), dict(params, blocks=first)
+    return (lm_cut_config(cfg),
             dict(params, blocks=tree_map(lambda t: t[:LM_CHECK_LAYERS], blocks)))
+
+
+def lm_cut_config(cfg):
+    """The configuration of ``lm_cut``'s cut."""
+    import dataclasses
+
+    if cfg.family == "xlstm":
+        return dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS, slstm_every=LM_CHECK_LAYERS)
+    return dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
 
 
 def lm_cut_check(card: str, label: str, cfg, params, buffers, prompt, n_decode: int,
@@ -2820,10 +2880,11 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
     from repro_torch.tree import tree_leaves
 
     t0 = time.perf_counter()
+    left = torch.cuda.memory_allocated()  # what earlier phases left allocated
     gen = torch.Generator(device=device).manual_seed(LM_SEED)
     params, buffers = lm.init(cfg, gen, device=device)
     n_params = sum(t.numel() for t in tree_leaves(params))
-    on_card = torch.cuda.memory_allocated() / 2**30 if device == "cuda" else 0.0
+    on_card = (torch.cuda.memory_allocated() - left) / 2**30 if device == "cuda" else 0.0
     extra = (f" ssm inner {cfg.ssm_inner} state {cfg.ssm_state} conv {cfg.ssm_conv}"
              if cfg.family == "hybrid" else "")
     if cfg.family == "vlm":
@@ -2877,7 +2938,7 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
     reqs = [Request(uid=i, prompt=p, max_tokens=LM_MAX_TOKENS) for i, p in enumerate(prompts)]
     n_flash = 0 if cfg.family == "xlstm" else sum(
         1 for p in prompts if not cfg.sliding_window or len(p) <= cfg.sliding_window)
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     ops.LAUNCHES.clear()
     t0 = time.perf_counter()
     for r in reqs:
@@ -2885,7 +2946,8 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
     done = eng.run()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    raw_peak = torch.cuda.max_memory_allocated()
+    peak = (raw_peak - left) / 1e9
     n_dec = len(decode_ms)
     check(len(done) == LM_REQUESTS and eng.prefills == LM_REQUESTS,
           f"served {len(done)} requests with {eng.prefills} prefills")
@@ -2904,7 +2966,8 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
           f"{sorted(len(p) for p in prompts)}) over {LM_MAX_BATCH} slots, max_seq {LM_MAX_SEQ}, "
           f"{n_tok} tokens in {wall!r} s ({n_tok / wall!r} tokens/s), {eng.prefills} prefills "
           f"({n_flash} through flash), {n_dec} decode ticks; launches {launches}; peak "
-          f"{peak!r} GB allocated", flush=True)
+          f"{peak!r} GB allocated ({raw_peak / 1e9!r} GB less the {left / 1e9!r} GB earlier "
+          f"phases left)", flush=True)
     print(f"[{card}] {label} serve prefill host ms by prefill length (median, count): "
           + ", ".join(f"{b}: {by_len[b]!r} ({counts[b]})" for b in by_len)
           + f"; decode tick host ms median {statistics.median(decode_ms)!r} "
@@ -3052,7 +3115,8 @@ def xlstm_serve_phase(card: str, cfg, device="cuda"):
                           check_decode=XLSTM_CHECK_DECODE, idle_prefills=XLSTM_IDLE_PREFILLS)
 
 
-def lm_table_assign_numbers(card: str, x, cent, ptr) -> tuple[float, dict]:
+def lm_table_assign_numbers(card: str, x, cent, ptr, *,
+                            library_by_column: bool = False) -> tuple[float, dict]:
     """The assignment kernel at the LM token table's transition: x the
     materialised vocabulary (c, d1, dsub) and cent the centroids (c, k,
     dsub) that ``assign_all`` took, ptr the pointers it wrote.  The kernel
@@ -3064,7 +3128,8 @@ def lm_table_assign_numbers(card: str, x, cent, ptr) -> tuple[float, dict]:
 
     check(torch.equal(ka.kmeans_assign(x, cent), ptr),
           "the assignment kernel on the transition's inputs != its ptr")
-    nums = tiled_assign_numbers(card, x, cent, "the transition's own inputs, equal to its ptr")
+    nums = tiled_assign_numbers(card, x, cent, "the transition's own inputs, equal to its ptr",
+                                library_by_column=library_by_column)
     return nums["max_excess"], nums
 
 
@@ -3078,27 +3143,35 @@ def _lm_batch(vocab: int, batch: int, seq: int, seed: int, step: int):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def lm_train_phase(card: str, cfg, device="cuda"):
+def lm_train_phase(card: str, cfg, device="cuda", *, label="lm", batch=LM_TRAIN_BATCH,
+                   steps=LM_TRAIN_STEPS, post=LM_TRAIN_POST, user_step=True):
     """Full-width LM training through ``launch.train.build_lm_trainer``:
-    LM_TRAIN_STEPS steps of LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens, the CCE
-    token table's transition from the dense token counts (moments
-    remapped), LM_TRAIN_POST more steps, with the launch counts reset just
-    before and read just after; the transition's invariants, its by-phase
-    host ms and device busy (a second run from the same inputs, bitwise
-    equal), the step's host ms, device busy and top kernels, the peak
-    memory, and one more step as a user runs it (the token generator
-    inline).  Then the lookup backward at a step's own token rows and the
-    assignment at the transition's own inputs against their plain
-    versions, timed, and the lookup forward at the same rows on the
-    tables before the transition; and on a LM_CHECK_LAYERS cut of the
-    configuration:
-    the first loss and gradients on the card against CPU copies (float32
-    and bfloat16), two runs of LM_CUT_STEPS steps, a
-    transition and 2 steps from one seed equal bit for bit, and a run
-    crashed after its checkpoint at LM_CUT_STEPS and resumed equal to
-    them.  Returns ({path: launches}, the lookup forward's numbers, max
-    lookup-backward error, its numbers, max assignment excess, its
-    numbers)."""
+    ``steps`` steps of ``batch`` x LM_TRAIN_SEQ tokens, the CCE token
+    table's transition from the dense token counts (moments remapped),
+    ``post`` more steps, with the launch counts reset just before and read
+    just after; the transition's invariants, its by-phase host ms and
+    device busy (a second run from the same inputs, bitwise equal), the
+    step's host ms, device busy and top kernels, the peak memory less what
+    was allocated at the reset and at the phase's start, and, with
+    ``user_step``, one more step as a user runs it (the token generator
+    inline).  For the xlstm family the step's busy and top kernels come
+    from the first step's raw trace, its host from the steps after it, and
+    the 6 sLSTM blocks' share of the step's host (summed inside the timed
+    steps: ``slstm_seq``'s forwards and the recurrence's backward) and of
+    its busy (superblock 0's block alone, forward twice and backward as
+    remat runs it, times the superblocks).  Then the lookup backward at a
+    step's own token rows and the assignment at the transition's own
+    inputs against their plain versions, timed, and the lookup forward at
+    the same rows on the tables before the transition; and on a
+    LM_CHECK_LAYERS cut of the configuration (``lm_cut``): the first loss
+    and gradients on the card against CPU copies (float32 and bfloat16;
+    the xlstm family's bfloat16 gradients against the CPU's float32 ones,
+    BF16_OWN_RATIO),
+    two runs of LM_CUT_STEPS steps, a transition and 2 steps from one seed
+    equal bit for bit, and a run crashed after its checkpoint at
+    LM_CUT_STEPS and resumed equal to them.  Returns ({label_train:
+    launches}, the lookup forward's numbers, max lookup-backward error,
+    its numbers, max assignment excess, its numbers, step numbers)."""
     import argparse
     import dataclasses
     import shutil
@@ -3113,59 +3186,71 @@ def lm_train_phase(card: str, cfg, device="cuda"):
     from repro_torch.core import kmeans as km
     from repro_torch.kernels import ops
     from repro_torch.launch.train import build_lm_trainer, lm_data, run_with_restart
+    from repro_torch.models import layers as L
     from repro_torch.models import lm
+    from repro_torch.models import xlstm as xlstm_lib
     from repro_torch.train import loop
     from repro_torch.tree import jax_leaves, jax_leaves_with_paths, tree_leaves, tree_map
 
-    n_steps = LM_TRAIN_STEPS + LM_TRAIN_POST
-    print(f"[{card}] lm train: {cfg.name} {cfg.n_layers}L d={cfg.d_model} vocab={cfg.vocab} "
+    path = f"{label}_train"
+    xlstm = cfg.family == "xlstm"
+    left = torch.cuda.memory_allocated()  # what earlier phases left allocated
+    n_steps = steps + post
+    print(f"[{card}] {label} train: {cfg.name} {cfg.n_layers}L d={cfg.d_model} vocab={cfg.vocab} "
           f"emb={cfg.emb_method} remat={cfg.remat} attn={cfg.attn_impl}; train_4k's 256 x "
           f"4096 tokens in microbatches of {cfg.train_microbatch} cut to one microbatch of "
-          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} (accum 1), {LM_TRAIN_STEPS} steps, the token "
-          f"table's transition, {LM_TRAIN_POST} steps", flush=True)
+          f"{batch} x {LM_TRAIN_SEQ} (accum 1), {steps} steps, the token table's transition, "
+          f"{post} step(s)", flush=True)
 
-    def make_args(seq, steps, cluster_every, **kw):
+    def make_args(seq, n, cluster_every, **kw):
         return argparse.Namespace(**dict(dict(
-            device=device, seed=LM_SEED, lr=LM_TRAIN_LR, warmup=LM_TRAIN_WARMUP, steps=steps,
-            batch=LM_TRAIN_BATCH, seq=seq, accum=1, emb="cce", ckpt_dir=None, ckpt_every=0,
+            device=device, seed=LM_SEED, lr=LM_TRAIN_LR, warmup=LM_TRAIN_WARMUP, steps=n,
+            batch=batch, seq=seq, accum=1, emb="cce", ckpt_dir=None, ckpt_every=0,
             cluster_every=cluster_every, fail_at=[]), **kw))
 
-    def cut_batches(n):  # 2 x LM_CUT_SEQ tokens take milliseconds
-        return [_lm_batch(cfg.vocab, LM_TRAIN_BATCH, LM_CUT_SEQ, LM_SEED, st)[0]
-                for st in range(n)]
+    def cut_batches(n):  # batch x LM_CUT_SEQ tokens take milliseconds
+        return [_lm_batch(cfg.vocab, batch, LM_CUT_SEQ, LM_SEED, st)[0] for st in range(n)]
 
     # batches 0..n_steps-1 of the run's token stream, made in parallel: a
     # full-width batch takes seconds of numpy
-    args = make_args(LM_TRAIN_SEQ, n_steps, LM_TRAIN_STEPS)
+    args = make_args(LM_TRAIN_SEQ, n_steps, steps, cluster_max=1)
     t0 = time.perf_counter()
     with concurrent.futures.ProcessPoolExecutor(
             max_workers=min(n_steps, os.cpu_count() or 1),
             mp_context=multiprocessing.get_context("spawn")) as pool:
         made = list(pool.map(_lm_batch, *zip(*[
-            (cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_SEED, st) for st in range(n_steps)])))
+            (cfg.vocab, batch, LM_TRAIN_SEQ, LM_SEED, st) for st in range(n_steps)])))
     data_wall = (time.perf_counter() - t0) * 1e3
     raw, data_ms = [b for b, _ in made], statistics.mean(ms for _, ms in made)
     check([b["step"] for b in raw] == list(range(n_steps)), "token batches out of order")
-    print(f"[{card}] lm train data: {n_steps} batches of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} "
+    print(f"[{card}] {label} train data: {n_steps} batches of {batch} x {LM_TRAIN_SEQ} "
           f"tokens (lm_token_batches, host numpy), {data_ms!r} ms a batch in its process "
           f"({data_wall!r} ms for all, in parallel)", flush=True)
     t0 = time.perf_counter()
     trainer = build_lm_trainer(cfg, args, data_from=lambda s: iter(raw[s:]))
     n_params = sum(t.numel() for t in tree_leaves(trainer.state.params))
-    print(f"[{card}] lm train init: {n_params} params, "
-          f"{torch.cuda.memory_allocated() / 1e9!r} GB allocated with the adamw moments, "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"[{card}] {label} train init: {n_params} params, "
+          f"{(torch.cuda.memory_allocated() - left) / 1e9!r} GB allocated with the adamw "
+          f"moments, {time.perf_counter() - t0:.3f} s", flush=True)
     table = lm.make_emb(cfg)
 
     # the first loss and gradients of a LM_CHECK_LAYERS cut, card vs CPU copies
     toks = torch.from_numpy(cut_batches(1)[0]["tokens"]).to(torch.int64)
     params, buffers = trainer.state.params, trainer.state.ebuf
-    cut_p = dict(params, blocks=tree_map(lambda t: t[:LM_CHECK_LAYERS], params["blocks"]))
+    cut_cfg, cut_p = lm_cut(cfg, params)
     cpu_p = tree_map(lambda t: t.detach().to("cpu", copy=True), cut_p)
     cpu_b = tree_map(lambda t: t.detach().to("cpu", copy=True), buffers)
+    paths, cpu_f32 = None, None  # the CPU's float32 gradients
+
+    def rel_errors(got, want):  # (max |got - want|, the leaf's or NOISE_GRAD_SCALE's largest)
+        errs = _leaf_errors(got, want)
+        scale = {p: m for p, (_, m) in zip(paths, errs)}
+        return [(e, max(m, scale.get(NOISE_GRAD_SCALE.get(p), 0.0)))
+                for p, (e, m) in zip(paths, errs)]
+
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        cut = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS, dtype=dtype)
+        cut = dataclasses.replace(cut_cfg, dtype=dtype)
 
         def loss_fn(p, b, mb, cut=cut):
             return lm.next_token_loss(p, b, cut, mb)
@@ -3175,34 +3260,63 @@ def lm_train_phase(card: str, cfg, device="cuda"):
         l_cpu, g_cpu = loop.value_and_grad(loss_fn, cpu_p, cpu_b, {"tokens": toks})
         cpu_s = time.perf_counter() - t0
         rel = abs(l_dev.item() - l_cpu.item()) / abs(l_cpu.item())
-        paths = [path for path, _ in jax_leaves_with_paths(g_cpu)]
-        errs = _leaf_errors(jax_leaves(g_dev), jax_leaves(g_cpu))
-        worst = sorted(zip((e / max(m, 1e-30) for e, m in errs), paths), reverse=True)[:3]
-        print(f"[{card}] lm train, {LM_CHECK_LAYERS}-layer cut, {LM_TRAIN_BATCH} x "
+        paths = [p for p, _ in jax_leaves_with_paths(g_cpu)]
+        g_dev, g_cpu = jax_leaves(g_dev), jax_leaves(g_cpu)
+        errs, floors = rel_errors(g_dev, g_cpu), None
+        what = "card vs CPU"
+        if cpu_f32 is not None:
+            # bfloat16 rounding alone on the CPU: its bfloat16 against its float32
+            own = [e / max(m, 1e-30) for e, m in rel_errors(g_cpu, cpu_f32)]
+            worst_own = max(zip(own, paths))
+            what += (f" (the CPU's own {dn} against its float32: largest {worst_own[0]!r}, "
+                     f"{worst_own[1]})")
+            if xlstm:
+                vs_cpu = max(e / max(m, 1e-30) for e, m in errs)
+                errs, floors = rel_errors(g_dev, cpu_f32), [BF16_OWN_RATIO * o for o in own]
+                what = (f"card {dn} vs CPU float32, each within the larger of "
+                        f"{LM_GRAD_RTOL[dn]} and {BF16_OWN_RATIO} x the CPU's own {dn} error "
+                        f"against its float32 (card vs CPU {dn}: largest {vs_cpu!r})")
+        worst = sorted(zip((e / max(m, 1e-30) for e, m in errs), paths,
+                           floors or [0.0] * len(errs)), reverse=True)[:3]
+        print(f"[{card}] {label} train, {LM_CHECK_LAYERS}-layer cut, {batch} x "
               f"{LM_CUT_SEQ} tokens, {dn}: first loss card {l_dev.item()!r} vs CPU "
               f"{l_cpu.item()!r} (relative {rel!r}, tolerance {LM_LOSS_RTOL[dn]}; CPU "
-              f"{cpu_s:.1f} s); gradient leaves, card vs CPU relative to the leaf's largest "
-              f"magnitude (tolerance {LM_GRAD_RTOL[dn]}), worst: "
-              + ", ".join(f"{path} {r!r}" for r, path in worst), flush=True)
+              f"{cpu_s:.1f} s); gradient leaves relative to the leaf's largest magnitude "
+              f"(NOISE_GRAD_SCALE's to another's), {what}, tolerance {LM_GRAD_RTOL[dn]}; worst: "
+              + ", ".join(f"{p} {r!r}" + (f" (limit {max(LM_GRAD_RTOL[dn], f)!r})" if f else "")
+                          for r, p, f in worst),
+              flush=True)
         check(math.isfinite(l_dev.item()) and rel <= LM_LOSS_RTOL[dn],
               f"{LM_CHECK_LAYERS}-layer cut's loss card {l_dev.item()} vs CPU {l_cpu.item()} "
               f"({dn})")
-        _check_close(errs, f"{dn} cut gradients", LM_GRAD_RTOL[dn])
+        _check_close(errs, f"{dn} cut gradients", LM_GRAD_RTOL[dn], floors)
+        if cpu_f32 is None:
+            cpu_f32 = g_cpu
         del g_dev, g_cpu
-    del cut_p, cpu_p, cpu_b, params, buffers
+    del cut_p, cpu_p, cpu_b, params, buffers, cpu_f32
 
-    # the main run: steps timed between synchronisations, the transition by phase
-    step_ms, seen = [], {}
+    # the main run: steps timed between synchronisations, the transition by
+    # phase; for the xlstm family the host time inside the sLSTM blocks and
+    # the mLSTM blocks' forwards, and the first step traced, not timed (its
+    # ~10^6 launches make a step of its own too dear)
+    step_ms, slstm_ms, mlstm_ms, seen, traced = [], [], [], {}, {}
     orig_step, orig_cluster = trainer.train_step, trainer.cluster_fn
     phases = [(cce_lib.CCE, "materialize", "sample materialize"),
               (km, "kmeans", "kmeans++/Lloyd"),
               (cce_lib.CCE, "assign_all", "assign_all"),
               (cce_lib.CCE, "remap_moments", "moment remap")]
 
-    def timed_step(state, batch):
+    def timed_step(state, mb):
         torch.cuda.synchronize()
+        slstm_ms.append(0.0)
+        mlstm_ms.append(0.0)
+        if xlstm and len(slstm_ms) == 1:  # the first step: one raw trace
+            out = []
+            traced.update(zip(("busy", "by_name"),
+                              device_busy_long(lambda: out.append(orig_step(state, mb)))))
+            return out[0]
         t = time.perf_counter()
-        out = orig_step(state, batch)
+        out = orig_step(state, mb)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
         return out
@@ -3244,22 +3358,44 @@ def lm_train_phase(card: str, cfg, device="cuda"):
                     clock=dict(clock.ms), busy=dict(busy.ms), distinct=distinct)
         return out
 
+    inner = (xlstm_lib.slstm_seq, xlstm_lib._Recurrence.backward, xlstm_lib.mlstm_train)
+
+    def add_ms(fn, to):  # adds fn's host ms to the current step's entry of ``to``
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if to:
+                    to[-1] += (time.perf_counter() - t) * 1e3
+        return timed
+
     trainer.train_step, trainer.cluster_fn = timed_step, cluster
     ops.LAUNCHES.clear()
-    torch.cuda.reset_peak_memory_stats()
-    trainer.run(n_steps)
-    launches = {"lm_train": dict(ops.LAUNCHES)}
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    at_reset = reset_peak()
+    # lm calls the blocks through the module, autograd the backward through its class
+    xlstm_lib.slstm_seq = add_ms(inner[0], slstm_ms)
+    xlstm_lib._Recurrence.backward = staticmethod(add_ms(inner[1], slstm_ms))
+    xlstm_lib.mlstm_train = add_ms(inner[2], mlstm_ms)
+    try:
+        trainer.run(n_steps)
+    finally:
+        xlstm_lib.slstm_seq, xlstm_lib.mlstm_train = inner[0], inner[2]
+        xlstm_lib._Recurrence.backward = staticmethod(inner[1])
+    launches = {path: dict(ops.LAUNCHES)}
+    raw_peak = torch.cuda.max_memory_allocated()
     losses = [h["loss"] for h in trainer.history]
     check(len(losses) == n_steps and all(math.isfinite(x) for x in losses),
-          f"lm train losses {losses}")
+          f"{label} train losses {losses}")
     check(trainer.clusters_done == 1, f"{trainer.clusters_done} transitions, not 1")
     want = {"cce_lookup_fwd": n_steps, "cce_lookup_bwd": n_steps,
             "kmeans_assign": -(-table.d1 // (1 << 18))}
-    check(launches["lm_train"] == want, f"lm train launches {launches['lm_train']} != {want}")
-    print(f"[{card}] lm train: {n_steps} steps of {LM_TRAIN_BATCH * LM_TRAIN_SEQ} tokens, "
-          f"losses {losses!r}; launches {launches['lm_train']}; peak "
-          f"{peak!r} GB allocated (torch.cuda.max_memory_allocated)", flush=True)
+    check(launches[path] == want, f"{label} train launches {launches[path]} != {want}")
+    print(f"[{card}] {label} train: {n_steps} steps of {batch * LM_TRAIN_SEQ} tokens, "
+          f"losses {losses!r}; launches {launches[path]}; peak {(raw_peak - at_reset) / 1e9!r} "
+          f"GB over the {(at_reset - left) / 1e9!r} GB of params, moments and buffers at the "
+          f"reset, {(raw_peak - left) / 1e9!r} GB in all (max_memory_allocated "
+          f"{raw_peak / 1e9!r} GB less the {left / 1e9!r} GB earlier phases left)", flush=True)
 
     # the transition's invariants
     new_tables, new_m, new_v = seen["new"]
@@ -3291,11 +3427,12 @@ def lm_train_phase(card: str, cfg, device="cuda"):
     lloyd = device_busy_ms(lambda: km._lloyd_step(x0, cent0, table.k, False, w0))
     seen["busy"]["kmeans++/Lloyd"] = table.c * ((table.k - 1) * pp_iter + niter * lloyd)
     phase_ms = seen["clock"]
-    print(f"[{card}] lm transition: {seen['distinct']} distinct tokens observed (k={table.k}), "
-          f"epoch {epoch} -> {epoch + 1}, ptr in [0, k) for all {table.d1} ids, hs on the key "
-          f"schedule, helper table and its m/v zero, m/v finite of the table's shape; a second "
-          f"run from the same inputs is bitwise equal; {seen['total']!r} ms host", flush=True)
-    print(f"[{card}] lm transition by phase: " + ", ".join(
+    print(f"[{card}] {label} transition: {seen['distinct']} distinct tokens observed "
+          f"(k={table.k}), epoch {epoch} -> {epoch + 1}, ptr in [0, k) for all {table.d1} ids, "
+          f"hs on the key schedule, helper table and its m/v zero, m/v finite of the table's "
+          f"shape; a second run from the same inputs is bitwise equal; {seen['total']!r} ms "
+          f"host", flush=True)
+    print(f"[{card}] {label} transition by phase: " + ", ".join(
         f"{k}: host {v!r} ms, device busy {seen['busy'].get(k, 0.0)!r} ms"
         for k, v in phase_ms.items()) + f"; other host {seen['total'] - sum(phase_ms.values())!r}"
         f" ms (host: the first run; device busy: the second, each call profiled, but "
@@ -3309,33 +3446,79 @@ def lm_train_phase(card: str, cfg, device="cuda"):
     def one_step():
         orig_step(trainer.state, mb)
 
-    # one trace of 2 steps (after a warm-up step) gives the busy and the top
-    # kernels: a step launches thousands of kernels, and reading a trace
-    # costs about a second a few thousand records
-    events = [e for e in _profile(one_step, 2) if _device_us(e)]
-    busy = sum(_device_us(e) for e in events) / 1e3 / 2
-    top = sorted(events, key=_device_us, reverse=True)[:4]
-    host = statistics.median(step_ms[1:])
-    print(f"[{card}] lm train step, {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens: host {host!r} ms "
-          f"(synchronised, median of steps 2-{n_steps}; first {step_ms[0]!r}), device busy "
-          f"{busy!r} ms (idle share {1 - busy / host!r}; one trace of 2 steps, "
-          f"{sum(e.count for e in events)} kernel records); top kernels: "
-          + "; ".join(f"{e.key[:60]} {_device_us(e) / 1e3 / 2!r} ms x{e.count / 2:g}"
-                      for e in top), flush=True)
+    if xlstm:
+        # the first step's raw trace (~10^6 kernel records: key_averages would
+        # take minutes); the steps after it timed
+        host, first, timed = statistics.median(step_ms), None, f"steps 2-{n_steps}"
+        busy, by_name = traced["busy"], traced["by_name"]
+        top = sorted(((v[0], v[1], k) for k, v in by_name.items()), reverse=True)[:4]
+        top_txt = "; ".join(f"{k[:60]} {ms!r} ms x{n}" for ms, n, k in top)
+        n_rec = sum(n for _, n in by_name.values())
+        trace = f"step 1's raw trace, {n_rec} records"
+    else:
+        # one trace of 2 steps (after a warm-up step) gives the busy and the top
+        # kernels: a step launches thousands of kernels, and reading a trace
+        # costs about a second a few thousand records
+        events = [e for e in _profile(one_step, 2) if _device_us(e)]
+        busy = sum(_device_us(e) for e in events) / 1e3 / 2
+        top_txt = "; ".join(f"{e.key[:60]} {_device_us(e) / 1e3 / 2!r} ms x{e.count / 2:g}"
+                            for e in sorted(events, key=_device_us, reverse=True)[:4])
+        trace = f"one trace of 2 steps, {sum(e.count for e in events)} kernel records"
+        host, first = statistics.median(step_ms[1:]), step_ms[0]
+        timed = f"steps 2-{len(step_ms)}; first {first!r}"
+    step_at = dict(host_ms=host, first_ms=first, busy_ms=busy, idle_share=1 - busy / host,
+                   peak_gb=(raw_peak - left) / 1e9, peak_over_reset_gb=(raw_peak - at_reset) / 1e9)
+    print(f"[{card}] {label} train step, {batch} x {LM_TRAIN_SEQ} tokens: host {host!r} ms "
+          f"(synchronised, median of {timed}), device busy {busy!r} ms (idle share "
+          f"{1 - busy / host!r}; {trace}); top kernels: {top_txt}", flush=True)
 
-    # a step as a user of build_lm_trainer runs it: the default lm_data
-    # generator inline on the host, not overlapped with the step
-    trainer.train_step, trainer.cluster_every = orig_step, 0
-    trainer.data_iter = lm_data(cfg, args)(int(trainer.state.step))
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    trainer.run(1)
-    torch.cuda.synchronize()
-    user_ms = (time.perf_counter() - t) * 1e3
-    check(math.isfinite(trainer.history[-1]["loss"]), "the user's step gave a non-finite loss")
-    print(f"[{card}] lm train step as users run it (lm_data's generator inline, then the step, "
-          f"synchronised): {user_ms!r} ms host (the step alone {host!r} ms, a batch alone "
-          f"{data_ms!r} ms in its process)", flush=True)
+    if xlstm:
+        # the sLSTM blocks: host inside the timed steps; busy of superblock 0's
+        # block alone on its normed input (the step's shape: the cost does not
+        # depend on the values), as a remat step runs it, times the superblocks
+        n_s, n_m = lm._xlstm_shape(cfg)
+        s_host = statistics.median(slstm_ms[1:])  # the timed steps: all but the traced first
+        s_share = statistics.median(a / b for a, b in zip(slstm_ms[1:], step_ms))
+        m_host = statistics.median(mlstm_ms[1:])
+        sp = {k: v.detach().requires_grad_(True)
+              for k, v in lm.layer_params(trainer.state.params["blocks"]["slstm"], 0).items()}
+        with torch.no_grad():
+            x = lm.embed(trainer.state.params, trainer.state.ebuf, cfg, mb["tokens"][0])
+            hin = L.apply_norm(lm.layer_params(trainer.state.params["blocks"]["norms"]["s"], 0),
+                               x)
+        w = torch.randn(hin.shape, generator=torch.Generator(device=device).manual_seed(1),
+                        device=device, dtype=hin.dtype)
+
+        def slstm_block(x=hin):  # forward twice (the checkpointed superblock's, its recompute)
+            xlstm_lib.slstm_seq(sp, cfg, x)
+            y, _ = xlstm_lib.slstm_seq(sp, cfg, x)
+            torch.autograd.grad((y * w[:, :x.shape[1]]).sum(), list(sp.values()))
+
+        s_busy = n_s * device_busy_long_ms(slstm_block)  # the step ran its kernels: warm
+        step_at.update(slstm_host_ms=s_host, slstm_host_share=s_share, slstm_busy_ms=s_busy,
+                       slstm_busy_share=s_busy / busy, mlstm_forward_host_ms=m_host)
+        print(f"[{card}] {label} train step: the {n_s} sLSTM blocks host {s_host!r} ms inside "
+              f"it ({s_share!r} of host: slstm_seq's forwards and the recurrence's backward), "
+              f"busy {s_busy!r} ms ({s_busy / busy!r} of busy: superblock 0's block alone, "
+              f"forward twice and backward, x{n_s}); the {n_s * n_m} mLSTM blocks' forwards "
+              f"(3 a block under remat) host {m_host!r} ms", flush=True)
+        del sp, x, hin, w
+
+    if user_step:
+        # a step as a user of build_lm_trainer runs it: the default lm_data
+        # generator inline on the host, not overlapped with the step
+        trainer.train_step, trainer.cluster_every = orig_step, 0
+        trainer.data_iter = lm_data(cfg, args)(int(trainer.state.step))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.run(1)
+        torch.cuda.synchronize()
+        user_ms = (time.perf_counter() - t) * 1e3
+        check(math.isfinite(trainer.history[-1]["loss"]),
+              "the user's step gave a non-finite loss")
+        print(f"[{card}] {label} train step as users run it (lm_data's generator inline, then "
+              f"the step, synchronised): {user_ms!r} ms host (the step alone {host!r} ms, a "
+              f"batch alone {data_ms!r} ms in its process)", flush=True)
 
     # the kernels at this slice's shapes, on the path's own inputs
     toks = torch.from_numpy(raw[0]["tokens"]).to(device).reshape(-1)
@@ -3343,19 +3526,18 @@ def lm_train_phase(card: str, cfg, device="cuda"):
     g = torch.Generator(device=device).manual_seed(LM_SEED)
     dout = torch.randn((idx.shape[1], table.c, table.dsub), generator=g, device=device)
     bwd_err, bwd_at = bwd_check(
-        card, f"float32 LM train B={idx.shape[1]} c={table.c} T=2 k={table.k} "
+        card, f"float32 {label} train B={idx.shape[1]} c={table.c} T=2 k={table.k} "
         f"dsub={table.dsub} (a step's token rows)", idx, dout, table.k, plain_busy=False)
     old_p, cent = seen["old_p"], new_tables[:, 0].contiguous()
-    fwd_at = lm_fwd_numbers(card, "LM train, a step's token rows", idx,
+    fwd_at = lm_fwd_numbers(card, f"{label} train, a step's token rows", idx,
                             old_p["tables"].contiguous())
     del trainer, mb, seen, dout, new_tables, new_m, new_v
     x = table.materialize(old_p, old_b, torch.arange(table.d1, device=device))
-    assign_err, assign_at = lm_table_assign_numbers(card, x, cent, ptr)
+    assign_err, assign_at = lm_table_assign_numbers(card, x, cent, ptr, library_by_column=xlstm)
     del x, cent, old_p, old_b
 
     # repeats on the cut: runs A and B from one seed, and C crashed after its
     # checkpoint at LM_CUT_STEPS and resumed, all equal bit for bit
-    cut = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
     cut_steps = LM_CUT_STEPS + 2
     cut_raw = cut_batches(cut_steps)
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_lm_"))
@@ -3364,7 +3546,7 @@ def lm_train_phase(card: str, cfg, device="cuda"):
         for tag, fail_at in (("A", []), ("B", []), ("C", [LM_CUT_STEPS + 1])):
             a = make_args(LM_CUT_SEQ, cut_steps, LM_CUT_STEPS, ckpt_dir=str(tmp / tag),
                           ckpt_every=LM_CUT_STEPS, fail_at=fail_at)
-            tr = build_lm_trainer(cut, a, data_from=lambda st: iter(cut_raw[st:]))
+            tr = build_lm_trainer(cut_cfg, a, data_from=lambda st: iter(cut_raw[st:]))
             restored = run_with_restart(tr, cut_steps, lambda st: iter(cut_raw[st:]))
             check(restored == ([LM_CUT_STEPS] if fail_at else []), f"run {tag} restored "
                   f"at {restored}")
@@ -3381,16 +3563,25 @@ def lm_train_phase(card: str, cfg, device="cuda"):
         for part in ("params", "opt", "ebuf"):
             check(all(torch.equal(a, b) for a, b in zip(tree_leaves(getattr(state, part)),
                                                         tree_leaves(getattr(ref_state, part)))),
-                  f"lm cut run {tag} differs from run A in {part}")
+                  f"{label} cut run {tag} differs from run A in {part}")
         check(loss == ref_loss and np.array_equal(counts, ref_counts),
-              f"lm cut run {tag}: losses or token counts differ from run A")
-    print(f"[{card}] lm train, {LM_CHECK_LAYERS}-layer cut, {LM_TRAIN_BATCH} x {LM_CUT_SEQ} "
+              f"{label} cut run {tag}: losses or token counts differ from run A")
+    print(f"[{card}] {label} train, {LM_CHECK_LAYERS}-layer cut, {batch} x {LM_CUT_SEQ} "
           f"tokens: runs A and B ({LM_CUT_STEPS} steps, a transition, 2 steps) equal bit for "
           f"bit; run C crashed at step {LM_CUT_STEPS + 1} after its checkpoint at "
           f"{LM_CUT_STEPS}, resumed, equals them (params, adamw state, ptr/hs/epoch, losses, "
           f"token counts)", flush=True)
-    return launches, fwd_at, bwd_err, bwd_at, assign_err, assign_at
+    return launches, fwd_at, bwd_err, bwd_at, assign_err, assign_at, step_at
 
+
+def xlstm_train_phase(card: str, cfg, device="cuda"):
+    """``lm_train_phase`` on the xlstm family (xlstm-1.3b): XLSTM_TRAIN_STEPS
+    steps of XLSTM_TRAIN_BATCH x LM_TRAIN_SEQ tokens, the transition,
+    XLSTM_TRAIN_POST step(s), the first traced; no step with the generator
+    inline (the sLSTM's host loops make a step ~20 s); the cut is the
+    first mLSTM and first sLSTM block."""
+    return lm_train_phase(card, cfg, device, label="xlstm", batch=XLSTM_TRAIN_BATCH,
+                          steps=XLSTM_TRAIN_STEPS, post=XLSTM_TRAIN_POST, user_step=False)
 
 KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call it replaces)
     "cce_lookup_fwd": ("src/repro_torch/kernels/csrc/cce_lookup.cu",
@@ -3403,7 +3594,7 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call it replaces)
                         "src/repro/kernels/flash_attention.py:97"),
 }
 PHASES = ("lookup", "bwd", "kmeans", "train", "loop", "serve", "methods", "flash", "lm_serve",
-          "hybrid_serve", "vlm_serve", "xlstm_serve", "lm_train")
+          "hybrid_serve", "vlm_serve", "xlstm_serve", "lm_train", "xlstm_train")
 
 
 def main(argv=None) -> int:
@@ -3447,6 +3638,10 @@ def main(argv=None) -> int:
     def phase(name, fn, *a):
         if name not in phases:
             return None
+        # free what earlier phases left in reference cycles (tens of GB of them
+        # can still be allocated when a phase begins)
+        gc.collect()
+        torch.cuda.empty_cache()
         t = time.perf_counter()
         out = fn(*a)
         print(f"[{card}] phase {name}: {time.perf_counter() - t:.1f} s", flush=True)
@@ -3479,6 +3674,9 @@ def main(argv=None) -> int:
     lm_train = phase("lm_train", lm_train_phase, card, configs.get(LM_ARCH))
     if lm_train is not None:
         launches.update(lm_train[0])
+    xlstm_train = phase("xlstm_train", xlstm_train_phase, card, configs.get(XLSTM_ARCH))
+    if xlstm_train is not None:
+        launches.update(xlstm_train[0])
     if set(phases) != set(PHASES):
         print(f"chip_smoke: phases {phases} passed in {time.perf_counter() - t_run:.1f} s "
               f"(a partial run: no result line)")
@@ -3487,7 +3685,8 @@ def main(argv=None) -> int:
     flash_err, flash_at, flash_hymba_at, flash_paligemma_at, flash_paligemma_err = flash
     lm_lookup, hybrid_lookup, vlm_lookup, xlstm_lookup = lm_out[1], hybrid[1], vlm[1], xlstm[1]
     _, methods_err, methods_at, _ = methods
-    _, lm_fwd_at, lm_bwd_err, lm_bwd_at, lm_assign_err, lm_assign_at = lm_train
+    _, lm_fwd_at, lm_bwd_err, lm_bwd_at, lm_assign_err, lm_assign_at, _ = lm_train
+    _, xl_fwd_at, xl_bwd_err, xl_bwd_at, xl_assign_err, xl_assign_at, _ = xlstm_train
 
     def by_path(name):
         return {path: counts.get(name, 0) for path, counts in launches.items()}
@@ -3498,22 +3697,24 @@ def main(argv=None) -> int:
                 "launches": sum(launches[p].get(name, 0) for p in main_paths),
                 "launches_by_path": by_path(name), "max_abs_err": err, **at, **extra}
 
-    steps = ("train", "train_after_transition", "loop", "methods", "lm_train")
+    steps = ("train", "train_after_transition", "loop", "methods", "lm_train", "xlstm_train")
     S = FLASH_TIMED[-1]
     kernels = [
         entry("cce_lookup_fwd", steps + ("lm_serve", "hybrid_serve", "vlm_serve", "xlstm_serve"),
-              max(fwd_err, methods_err, lm_fwd_at["max_abs_err"],
+              max(fwd_err, methods_err, lm_fwd_at["max_abs_err"], xl_fwd_at["max_abs_err"],
                   *(v["max_abs_err"] for v in (*hybrid_lookup.values(), *vlm_lookup.values(),
                                                 *xlstm_lookup.values()))),
               fwd_at[TRAIN_BATCH], batch=TRAIN_BATCH, at_serve_batch=fwd_at[SERVE_BATCH],
               at_lm_shape=lm_lookup, at_lm_train_shape=lm_fwd_at, at_hymba_shape=hybrid_lookup,
               at_paligemma_shape=vlm_lookup, at_xlstm_shape=xlstm_lookup,
+              at_xlstm_train_shape=xl_fwd_at,
               **{f"at_{m}_shape": methods_at[m]["fwd"] for m in METHOD_KERNEL_SHAPES}),
-        entry("cce_lookup_bwd", steps, max(bwd_err, methods_err, lm_bwd_err), bwd_at,
-              batch=TRAIN_BATCH, at_lm_train_shape=lm_bwd_at,
+        entry("cce_lookup_bwd", steps, max(bwd_err, methods_err, lm_bwd_err, xl_bwd_err), bwd_at,
+              batch=TRAIN_BATCH, at_lm_train_shape=lm_bwd_at, at_xlstm_train_shape=xl_bwd_at,
               **{f"at_{m}_shape": methods_at[m]["bwd"] for m in METHOD_KERNEL_SHAPES}),
-        entry("kmeans_assign", ("transition", "loop", "methods", "lm_train"),
-              max(assign_err, lm_assign_err), assign_at, at_lm_table_shape=lm_assign_at),
+        entry("kmeans_assign", ("transition", "loop", "methods", "lm_train", "xlstm_train"),
+              max(assign_err, lm_assign_err, xl_assign_err), assign_at,
+              at_lm_table_shape=lm_assign_at, at_xlstm_table_shape=xl_assign_at),
         entry("flash_attention", ("lm_serve", "hybrid_serve", "vlm_serve"), flash_err["bfloat16"],
               flash_at[S],
               max_abs_err_float32=flash_err["float32"],

@@ -1,8 +1,8 @@
 """LM config registry: ``get(name)`` -> full-size ModelConfig,
 ``get_reduced(name)`` -> its CPU test variant.  ``ARCHS`` lists the
 architectures the port runs (the dense family, the hybrid family's
-hymba-1.5b, the xlstm family's xlstm-1.3b, served only, and the vlm
-family's paligemma-3b); ``UNPORTED`` names the JAX package's other
+hymba-1.5b, the xlstm family's xlstm-1.3b and the vlm family's
+paligemma-3b, each trained and served); ``UNPORTED`` names the JAX package's other
 configurations by family, and both functions raise on them.  The DLRM
 configuration lives in ``configs/dlrm_criteo.py``."""
 from __future__ import annotations

@@ -7,6 +7,8 @@ comparison methods), the paper's loop, and the dense LMs.
     PYTHONPATH=src python -m repro_torch.launch.train --emb hash --device cpu --steps 40
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --device cpu \
         --steps 12 --cluster-every 6
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b --device cpu \
+        --steps 6 --cluster-every 3
 
 ``--arch dlrm`` trains the reduced Criteo DLRM configuration on the
 synthetic clickstream with the sketch frequency tracker (cell count in
@@ -18,8 +20,8 @@ checkpoint and resumes.  ``--arch <lm>`` (a key of
 ``repro_torch.configs.ARCHS``) trains that LM's reduced configuration on
 the synthetic token stream (``--batch`` sequences of ``--seq`` tokens)
 with adamw and a cosine schedule (``--warmup``); with a CCE token table a
-dense token-frequency tracker feeds the transition of the token table.
-The xlstm family serves only: ``build_lm_trainer`` refuses it.
+dense token-frequency tracker feeds the transition of the token table
+(every ported family: dense, hybrid, vlm and xlstm).
 Runs on the card unless ``--device`` names another; on the CPU every
 kernel's plain version runs instead.  ``--obs RUN.jsonl`` writes a run
 log and turns on the in-step telemetry (``python -m repro_torch.obs
@@ -151,9 +153,6 @@ def build_lm_trainer(cfg, args, *, data_from=None):
     vocabulary in chunks of 2^18 ids, with the adamw moments remapped.
     Weights are drawn by a generator on the device.  ``data_from(start_step)``
     gives the batches (default ``lm_data``)."""
-    if cfg.family == "xlstm":
-        raise NotImplementedError(f"{cfg.name}: training the xlstm family is not ported "
-                                  f"(it serves: repro_torch.launch.serve --arch {cfg.name})")
     device = getattr(args, "device", "cuda")
     params, buffers = lm.init(cfg, torch.Generator(device=device).manual_seed(args.seed),
                               device=device)

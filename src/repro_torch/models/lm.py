@@ -24,9 +24,12 @@ each layer's params through one ``unbind`` a leaf, whose backward stacks
 the layers' gradients once, and checkpoints each block under
 ``cfg.remat="full"`` (the JAX package's ``nothing_saveable``): the
 backward recomputes the block, so the forward keeps only each block's
-input.  ``next_token_loss`` is the training loss.  The xlstm family
-serves only: its ``forward`` refuses to run under autograd.  Not ported:
-the MoE and audio families, sinusoidal positions and ``remat="dots"``.
+input.  The xlstm family's forward under autograd walks its stack the
+same way, two levels deep (superblocks, then their mLSTM blocks), and
+under ``remat="full"`` checkpoints each mLSTM block and, around them,
+each superblock, as the JAX package does.  ``next_token_loss`` is the
+training loss.  Not ported: the MoE and audio families, sinusoidal
+positions and ``remat="dots"``.
 """
 from __future__ import annotations
 
@@ -261,19 +264,17 @@ def forward(params, buffers, cfg: ModelConfig, batch):
     if patches:
         pe = batch["patch_emb"].to(cfg.dtype) @ params["patch_proj"].to(cfg.dtype)
         x = torch.cat([pe, x], dim=1)
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(f"remat={cfg.remat!r} is not ported (none, full)")
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
     if cfg.family == "xlstm":
-        if torch.is_grad_enabled():
-            raise NotImplementedError("training the xlstm family is not ported: its forward "
-                                      "runs under torch.no_grad() or inference_mode()")
-        x = L.apply_norm(params["ln_f"], _xlstm_forward(params["blocks"], cfg, x))
+        walk = _xlstm_train_forward if torch.is_grad_enabled() else _xlstm_forward
+        x = L.apply_norm(params["ln_f"], walk(params["blocks"], cfg, x))
         return logits_fn(params, buffers, cfg, x), torch.zeros((), dtype=torch.float32,
                                                                device=x.device)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     freqs = L.rope_freqs(cfg, device=x.device)
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(f"remat={cfg.remat!r} is not ported (none, full)")
-    remat = cfg.remat == "full" and torch.is_grad_enabled()
     for lp in _unstack(params["blocks"], cfg.n_layers):
         if remat:
             x = checkpoint(_block_train, lp, cfg, x, positions, freqs, use_reentrant=False)
@@ -318,6 +319,39 @@ def _xlstm_forward(blocks, cfg: ModelConfig, x, cache=None):
             for key, t in zip(_XLSTM_STATE[kind], state):
                 cache[key][at].copy_(t)
         x = x + y
+    return x
+
+
+def _maybe_checkpoint(remat: bool, fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+
+
+def _mlstm_block(p, norm, cfg: ModelConfig, x):
+    return x + xlstm_lib.mlstm_train(p, cfg, L.apply_norm(norm, x))[0]
+
+
+def _superblock(sp, cfg: ModelConfig, x, n_m: int, remat: bool):
+    """Superblock ``sp``'s n_m mLSTM blocks, then its sLSTM block."""
+    for p, norm in zip(_unstack(sp["mlstm"], n_m), _unstack(sp["norms"]["m"], n_m)):
+        x = _maybe_checkpoint(remat, _mlstm_block, p, norm, cfg, x)
+    return x + xlstm_lib.slstm_seq(sp["slstm"], cfg, L.apply_norm(sp["norms"]["s"], x))[0]
+
+
+def _xlstm_train_forward(blocks, cfg: ModelConfig, x):
+    """The xlstm stack under autograd: the params through one ``unbind``
+    a stacked leaf and level (superblocks, then their mLSTM blocks), no
+    state kept; under ``remat="full"`` each mLSTM block and each
+    superblock checkpointed (JAX's ``nothing_saveable`` on ``m_body`` and
+    ``super_body``)."""
+    remat = cfg.remat == "full"
+    if not cfg.slstm_every:
+        for p, norm in zip(_unstack(blocks["mlstm"], cfg.n_layers),
+                           _unstack(blocks["norms"], cfg.n_layers)):
+            x = _maybe_checkpoint(remat, _mlstm_block, p, norm, cfg, x)
+        return x
+    n_super, n_m = _xlstm_shape(cfg)
+    for sp in _unstack(blocks, n_super):
+        x = _maybe_checkpoint(remat, _superblock, sp, cfg, x, n_m, remat)
     return x
 
 

@@ -2,6 +2,7 @@ from repro_torch.optim.optimizers import (  # noqa: F401
     Optimizer,
     adamw,
     clip_by_global_norm,
+    clip_by_global_norm_,
     cosine_schedule,
     sgd,
 )

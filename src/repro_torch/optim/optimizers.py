@@ -89,6 +89,18 @@ def clip_by_global_norm(grads: Pytree, max_norm: float) -> tuple[Pytree, torch.T
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), gnorm
 
 
+def clip_by_global_norm_(grads: Pytree, max_norm: float) -> tuple[Pytree, torch.Tensor]:
+    """``clip_by_global_norm`` in place: each leaf of ``grads`` (no two
+    sharing memory) is scaled where it lies, the same values without a
+    second copy of the gradients.  Returns ``grads`` and the norm."""
+    leaves = tree_leaves(grads)
+    gnorm = torch.sqrt(sum((g.to(torch.float32) ** 2).sum() for g in leaves))
+    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+    for g in leaves:
+        g.mul_(scale)
+    return grads, gnorm
+
+
 def cosine_schedule(base_lr: float, warmup: int, total: int, min_frac: float = 0.1):
     """step -> float32 learning rate: linear warm-up, then cosine decay to
     ``min_frac * base_lr`` at ``total``."""

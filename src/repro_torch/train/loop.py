@@ -6,7 +6,8 @@ Pieces:
     divided by ``accum``), optional int8 gradient compression with error
     feedback, global-norm clipping and the optimizer update.  The JAX step
     is jitted and donates its state; this one runs eagerly and updates
-    params and moments in place (``Optimizer.update``).  Its ``sketch_fn``
+    params and moments in place (``Optimizer.update``), and sums, divides
+    and clips the gradients in place: it holds one copy of them.  Its ``sketch_fn``
     hook counts the tracker's sketch cells in the step and its
     ``telemetry`` hook computes health metrics from the averaged pre-clip
     grads, both as tensors left on the device.
@@ -41,7 +42,7 @@ from repro_torch import random as jr
 from repro_torch.checkpoint import CheckpointManager, list_checkpoints, load_checkpoint
 from repro_torch.obs.pump import MetricsPump
 from repro_torch.obs.trace import ProfileWindow, span
-from repro_torch.optim import Optimizer, clip_by_global_norm
+from repro_torch.optim import Optimizer, clip_by_global_norm_
 from repro_torch.optim.compression import compressed_grad_transform, init_error_feedback
 from repro_torch.tree import drop_static, fill_static, jax_leaves, tree_leaves, tree_map
 
@@ -85,6 +86,22 @@ def value_and_grad(loss_fn, params, buffers, mb):
     return loss.detach(), tree_map(lambda _: next(it), params)
 
 
+def _owned_float32(grads):
+    """``grads`` as float32 leaves that the step may write in place: a
+    leaf that is another dtype, not contiguous (an expanded gradient) or
+    the memory of a leaf before it (autograd hands one tensor to both
+    inputs of an add) is copied; every other leaf is taken as it is."""
+    seen = set()
+
+    def own(g):
+        if g.dtype != torch.float32 or not g.is_contiguous() or g.data_ptr() in seen:
+            g = g.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+        seen.add(g.data_ptr())
+        return g
+
+    return tree_map(own, grads)
+
+
 def make_train_step(
     loss_fn: Callable[[Pytree, Pytree, Pytree], tuple[torch.Tensor, dict]],
     optimizer: Optimizer,
@@ -114,19 +131,23 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Pytree):
         params = state.params
-        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                        params)
+        grads = None  # the float32 sum over the microbatches, then their mean
         loss_sum = 0.0
         delta = None
         for a in range(accum):
             mb = tree_map(lambda x: x[a], batch)
-            loss, grads = value_and_grad(loss_fn, params, state.ebuf, mb)
-            gsum = tree_map(lambda s, g: s + g.to(s.dtype), gsum, grads)
+            loss, g = value_and_grad(loss_fn, params, state.ebuf, mb)
+            if grads is None:
+                grads = _owned_float32(g)
+            else:
+                tree_map(lambda s, x: s.add_(x), grads, g)
+            del g
             loss_sum = loss_sum + loss.to(torch.float32)
             if sketch_fn is not None:
                 d = sketch_fn(mb)
                 delta = d if delta is None else delta + d
-        grads = tree_map(lambda g: g / accum, gsum)
+        if accum > 1:
+            tree_map(lambda g: g.div_(accum), grads)
         loss = loss_sum / accum
 
         health = None
@@ -140,7 +161,7 @@ def make_train_step(
         err = state.err
         if compress_grads:
             grads, err = compressed_grad_transform(grads, err)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        grads, gnorm = clip_by_global_norm_(grads, clip_norm)
         # a 0-d CPU tensor: it scales CUDA tensors without a copy
         lr = torch.as_tensor(lr_fn(state.step), dtype=torch.float32)
         new_params, new_opt = optimizer.update(grads, state.opt, params, lr)

@@ -261,6 +261,7 @@ _WIDE_SOURCE = {"kSortChunk": 1024, "kSortRows": 4096, "kWalkTable": 1024, "kWal
     (4, 8192, 2, 4748, 3, (8, 2400, 2, 32, 149, 128, 304, 1192, 304000, 131072)),  # qwen2-1.5b
     (4, 8192, 2, 1000, 4, (8, 1024, 1, 16, 63, 64, 128, 504, 64064, 65536)),  # hymba-1.5b
     (4, 8192, 2, 8038, 4, (8, 4032, 2, 32, 252, 128, 504, 2016, 514560, 131072)),  # paligemma-3b
+    (4, 8192, 2, 1572, 4, (8, 1600, 1, 32, 50, 64, 104, 400, 100672, 65536)),  # xlstm-1.3b
     (104, 2048, 2, 129, 2, (2, 160, 1, 32, 5, 416, 416, 1040, 54080, 425984)),  # 1 past 128 rows
     (1, 1024, 2, 4097, 8, (1, 2080, 2, 32, 129, 4, 66, 258, 8198, 4096)),  # 1 past a sort range
     (4, 1, 2, 4748, 3, (1, 2400, 2, 32, 149, 16, 304, 1192, 38000, 16384)),  # B=1
@@ -331,6 +332,7 @@ def test_wide_bwd_constants_match_the_source():
     (4, 8192, 2, 4748, 384, 4, "wide_vector", (1, 32)),  # qwen2-1.5b
     (4, 2048, 2, 4748, 384, 4, "wide_vector", (1, 32)),  # a prefill's rows
     (4, 8192, 2, 8038, 512, 2, "wide_vector", (1, 32)),  # paligemma-3b, bfloat16
+    (4, 8192, 2, 1572, 512, 4, "wide_vector", (1, 32)),  # xlstm-1.3b's training step
     (26, 2048, 2, 305, 36, 4, "wide_vector", (2, 8)),  # 9 lanes: 2 groups of 16, 4 rows each
     (26, 2048, 2, 305, 6, 4, "wide_scalar", (4, 8)),  # 2 lanes: 4 groups of 8, 2 rows each
     (26, 2048, 2, 305, 36, 2, "wide_scalar", (2, 8)),  # 9 lanes of 4 elements

@@ -24,7 +24,7 @@ from repro_torch.data.translate import HostTranslator
 from repro_torch.models import dlrm as tdlrm
 from repro_torch.optim import compression as tcomp
 from repro_torch.train import loop as tloop
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -155,6 +155,42 @@ def test_clip_and_schedule_match_jax():
     jl, tl = joptim.cosine_schedule(0.1, 10, 100), toptim.cosine_schedule(0.1, 10, 100)
     for s in (0, 1, 5, 10, 11, 50, 99, 100, 150):
         np.testing.assert_allclose(float(tl(s)), float(jl(s)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("max_norm", [0.1, 1.0, 100.0])
+def test_clip_in_place_equals_clip(dtype, max_norm):
+    """``clip_by_global_norm_`` (the step's: the gradients scaled where they
+    lie) gives ``clip_by_global_norm``'s norm and values bit for bit."""
+    gen = torch.Generator().manual_seed(3)
+    grads = {"a": (torch.randn((50, 3), generator=gen) * 4).to(dtype),
+             "b": [torch.randn(7, generator=gen), torch.randn((2, 5), generator=gen).to(dtype)]}
+    want, wn = toptim.clip_by_global_norm(grads, max_norm)
+    copies = tree_map(torch.clone, grads)
+    got, gn = toptim.clip_by_global_norm_(copies, max_norm)
+    assert got is copies and torch.equal(gn, wn)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_step_owns_the_gradients_it_scales():
+    """Autograd hands one tensor to both params of ``a + b`` (and an
+    expanded one to a param summed whole): the step copies those before it
+    adds, divides and clips in place, so each param's update is its own
+    gradient's, accumulated over 2 microbatches and clipped once."""
+    params = {"a": torch.full((4,), 2.0), "b": torch.full((4,), 3.0), "c": torch.ones(4)}
+
+    def loss_fn(p, _b, mb):
+        return ((p["a"] + p["b"]) * mb["x"]).sum() + 5.0 * p["c"].sum(), {}
+
+    x = torch.stack([torch.arange(4.0), torch.arange(4.0) + 2])[:, None]  # (accum, micro=1, 4)
+    step = tloop.make_train_step(loss_fn, toptim.sgd(), lambda s: 0.5, accum=2, clip_norm=1.0)
+    state, m = step(tloop.init_state(params, toptim.sgd(), {}), {"x": x})
+    g = {"a": x.mean(0)[0], "b": x.mean(0)[0], "c": torch.full((4,), 5.0)}
+    gnorm = torch.sqrt(sum((v ** 2).sum() for v in g.values()))
+    torch.testing.assert_close(m["gnorm"], gnorm)
+    for key, start in (("a", 2.0), ("b", 3.0), ("c", 1.0)):
+        torch.testing.assert_close(state.params[key], start - 0.5 * g[key] / gnorm)
 
 
 def test_int8_compression_matches_jax():

@@ -26,12 +26,18 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
+from repro import optim as joptim
+from repro.data.synthetic import lm_token_batches as jbatches
 from repro.models import lm as jlm
+from repro.train import loop as jloop
 from repro.models import xlstm as jxlstm
 from repro_torch import configs as tconfigs
 from repro_torch import convert
+from repro_torch import optim as toptim
 from repro_torch.models import lm as tlm
 from repro_torch.models import xlstm as txlstm
+from repro_torch.train import loop as tloop
+from repro_torch.tree import jax_leaves_with_paths, tree_leaves
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -42,6 +48,23 @@ CHUNK_TOL = dict(rtol=2e-3, atol=2e-4)  # JAX's own chunk-vs-chunk tolerance
 # random blocks amplify a change of 1e-7 in their input 5-10 times (JAX
 # against itself), so float noise reaches ~1.6e-5 on logits of ~4.5
 FORWARD_TOL = dict(rtol=1e-4, atol=3e-5)
+GRAD_TOL = TOL  # every gradient leaf of the LM's loss against JAX's
+BODY_TOL = 1e-6  # the sLSTM recurrence's backward vs plain autograd, of each leaf's largest
+# a block's gradients of a weighted sum of its output (values up to ~17):
+# atol 1e-5 per unit of the leaf's largest magnitude (measured: 1.1e-5 of
+# it, wq's at chunk 12)
+BLOCK_GRAD_RTOL = 1e-4
+# a param entry whose gradient RMS (JAX's adam sqrt(v)) is below this is
+# float noise beside its leaf's, and adam's first steps move it ~lr whatever
+# its size
+NOISE_RMS = 1e-6
+# the leaves (and their entries) that may be noise: the input-gate biases,
+# the mLSTM's bi and the sLSTM's b[d:2d] (the mLSTM's h and, where n > 1,
+# the sLSTM's c / n are invariant to a shift of every input gate: the
+# normaliser divides it out); those under NOISE_RMS are held within
+# lr x steps
+NOISE_ENTRIES = {"['blocks']['mlstm']['bi']": lambda d: np.s_[...],
+                 "['blocks']['slstm']['b']": lambda d: np.s_[..., d:2 * d]}
 ARCH = "xlstm-1.3b"
 # the JAX side jitted with the config static: eagerly, its scans take
 # several times as long
@@ -55,6 +78,17 @@ JFORWARD = jax.jit(lambda p, b, cfg, toks: jlm.forward(p, b, cfg, {"tokens": tok
 JDECODE = jax.jit(lambda p, b, cfg, toks, pos, cache: jlm.decode_step(p, b, cfg, toks, pos, cache,
                                                                       batch_axes=None),
                   static_argnums=2)
+
+
+JLOSS_GRAD = jax.jit(jax.value_and_grad(
+    lambda p, b, cfg, toks: jlm.next_token_loss(p, b, cfg, {"tokens": toks}, batch_axes=None)[0]),
+    static_argnums=2)
+
+
+def _weighted(fn, w):
+    """The weighted sum of ``fn``'s first output: a scalar whose
+    gradients reach every input."""
+    return lambda *a, **kw: (fn(*a, **kw)[0] * w).sum()
 
 
 def _jprefill(p, b, cfg, toks, cache):
@@ -100,6 +134,39 @@ def _mlstm(params, s=0, j=0):
 
 def _close(got, want, tol=TOL):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), **tol)
+
+
+def _close_trees(got, want, tol, *, noise=None, noise_atol=0.0):
+    """Every leaf within ``tol``; with ``noise`` ({leaf path: a boolean
+    array}) those entries within ``noise_atol`` absolute instead."""
+    g, w = jax_leaves_with_paths(convert.to_numpy(got)), jax.tree.leaves(_np(want))
+    assert len(g) == len(w)
+    noise = noise or {}
+    assert set(noise) <= {path for path, _ in g}
+    for (path, a), b in zip(g, w):
+        b = np.asarray(b)
+        at = noise.get(path, np.zeros(b.shape, bool))
+        _close(a[at], b[at], dict(rtol=0, atol=noise_atol))
+        _close(a[~at], b[~at], tol)
+
+
+def _close_block_grads(got, want):
+    want = np.asarray(want)
+    _close(got, want, dict(rtol=BLOCK_GRAD_RTOL, atol=1e-5 * max(1.0, np.abs(want).max())))
+
+
+def _torch_grads(fn, tree, x):
+    """Gradients of the scalar ``fn(params, x)`` with respect to every leaf
+    of ``tree`` and to ``x``: ({leaf: grad}, d x)."""
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in tree.items()}
+    xt = torch.from_numpy(x).requires_grad_(True)
+    grads = torch.autograd.grad(fn(leaves, xt), [*leaves.values(), xt])
+    return dict(zip(leaves, grads[:-1])), grads[-1]
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over the largest |b|."""
+    return float((a - b).abs().max() / b.abs().max())
 
 
 def test_registry_and_n_params_match_the_jax_package():
@@ -228,6 +295,9 @@ def test_slstm_seq_at_eight_heads_matches_jax():
 
 @pytest.mark.parametrize("which", ["xlstm", "mlstm_only"])
 def test_forward_matches_jax_and_refuses_autograd(which, request):
+    """``forward`` under no_grad gives JAX's logits; under autograd (it
+    refused before training was ported) ``next_token_loss`` gives JAX's
+    loss and every gradient leaf ``jax.value_and_grad`` gives."""
     jcfg, tcfg, params, buffers, tp, tb = request.getfixturevalue(which)
     toks = _tokens(jcfg.vocab, 2, 11, seed=1)
     want = JFORWARD(params, buffers, jcfg, jnp.asarray(toks))
@@ -236,8 +306,11 @@ def test_forward_matches_jax_and_refuses_autograd(which, request):
         got, aux = tlm.forward(tp, tb, tcfg, batch)
     assert float(aux) == 0.0
     _close(got, want, FORWARD_TOL)
-    with pytest.raises(NotImplementedError, match="xlstm family"):
-        tlm.forward(tp, tb, tcfg, batch)
+    want_loss, want_grads = JLOSS_GRAD(params, buffers, jcfg, jnp.asarray(toks))
+    loss, grads = tloop.value_and_grad(lambda p, b, mb: tlm.next_token_loss(p, b, tcfg, mb),
+                                       tp, tb, batch)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+    _close_trees(grads, want_grads, GRAD_TOL)
 
 
 def _prefill_and_decode(model, S, steps, seed, B=1):
@@ -288,3 +361,154 @@ def test_ragged_prefill_matches_jax_at_a_dividing_chunk(xlstm, monkeypatch):
     # a config JAX has not compiled yet, so that its prefill traces the patched chunk
     model = (dataclasses.replace(jcfg, name="xlstm-ragged"), *xlstm[1:])
     _prefill_and_decode(model, 300, 2, seed=11)
+
+
+# --- training ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("chunk", [4, 12])
+def test_mlstm_train_grads_match_jax(xlstm, chunk):
+    """The gradients of a weighted sum of ``mlstm_train``'s output (S=12
+    in chunks of ``chunk``) with respect to x and every param, against
+    JAX's at the same chunk."""
+    jcfg, tcfg, params, _, _, _ = xlstm
+    p = _mlstm(params, 1, 0)
+    x = _x(2, 12, jcfg.d_model, seed=20 + chunk)
+    w = _x(2, 12, jcfg.d_model, seed=30 + chunk)
+    jfn = _weighted(lambda p, x: jxlstm.mlstm_train(p, jcfg, x, chunk=chunk), w)
+    want_p, want_x = jax.jit(jax.grad(jfn, argnums=(0, 1)))(p, jnp.asarray(x))
+    got_p, got_x = _torch_grads(
+        _weighted(lambda p, x: txlstm.mlstm_train(p, tcfg, x, chunk=chunk), torch.from_numpy(w)),
+        convert.to_torch(p, "cpu"), x)
+    _close_block_grads(got_x, want_x)
+    assert set(got_p) == set(want_p)
+    for key in got_p:
+        _close_block_grads(got_p[key], want_p[key])
+
+
+def test_slstm_seq_grads_match_jax_from_zero_state(xlstm):
+    """The gradients of a weighted sum of ``slstm_seq``'s output with
+    respect to x and every param against JAX's.  From the zero state the
+    first step's n is exactly 1, a tie in ``maximum(n, 1)`` where JAX
+    passes half the gradient to n; that gradient cancels (the first step's
+    i_s = exp(i - max(-inf, i)) is 1 whatever i), so no rule at the tie
+    moves these gradients, and the test holds the tie's existence, not
+    its rule."""
+    jcfg, tcfg, params, _, _, _ = xlstm
+    p = jax.tree.map(lambda t: t[0], params["blocks"]["slstm"])
+    x = _x(2, 9, jcfg.d_model, seed=40)
+    w = _x(2, 9, jcfg.d_model, seed=41)
+    tp = convert.to_torch(p, "cpu")
+    with torch.no_grad():  # the tie is there: the first step's n
+        _, (_, n, _, _) = txlstm.slstm_seq(tp, tcfg, torch.from_numpy(x[:, :1]))
+    assert bool((n == 1.0).all())
+    jfn = _weighted(lambda p, x: jxlstm.slstm_seq(p, jcfg, x), w)
+    want_p, want_x = jax.jit(jax.grad(jfn, argnums=(0, 1)))(p, jnp.asarray(x))
+    got_p, got_x = _torch_grads(
+        _weighted(lambda p, x: txlstm.slstm_seq(p, tcfg, x), torch.from_numpy(w)), tp, x)
+    _close_block_grads(got_x, want_x)
+    assert set(got_p) == set(want_p)
+    for key in got_p:
+        _close_block_grads(got_p[key], want_p[key])
+
+
+def _plain_recurrence(zx_t, wr, c, n, h, m):
+    """``_Recurrence.apply`` through plain autograd over ``_slstm_steps``."""
+    hs, (c, n, _, m) = txlstm._slstm_steps(zx_t, wr, (c, n, h, m))
+    return hs, c, n, m
+
+
+@pytest.mark.parametrize("block,heads", [("mlstm", 4), ("slstm", 4), ("slstm", 8)])
+def test_no_grad_and_autograd_bodies_agree(xlstm, block, heads, monkeypatch):
+    """Each block's serving body (no_grad: state and steps in place) and
+    its training body (autograd) give the same output and terminal state
+    bit for bit; the sLSTM recurrence's reverse-time backward gives plain
+    autograd's gradients over its steps (of every param and of the state
+    before the first step, from the output and the state after the last)
+    within BODY_TOL of each leaf's largest (at 8 heads the gates' split is
+    a copy, not a view).  The sLSTM runs from a carried state, as decode's
+    continuation would."""
+    jcfg, tcfg, params, _, _, _ = xlstm
+    tcfg = dataclasses.replace(tcfg, n_heads=heads)
+    fn = txlstm.mlstm_train if block == "mlstm" else txlstm.slstm_seq
+    gen = torch.Generator().manual_seed(heads)
+    if block == "mlstm":
+        tp, kw = convert.to_torch(_mlstm(params, 0, 0), "cpu"), dict(chunk=5)
+    else:
+        tp, kw = txlstm.init_slstm(gen, tcfg, device="cpu"), {}
+        with torch.no_grad():
+            _, kw["state"] = fn(tp, tcfg, torch.randn((3, 4, tcfg.d_model), generator=gen))
+    x = torch.randn((3, 12, tcfg.d_model), generator=gen)
+    with torch.no_grad():
+        want, want_state = fn(tp, tcfg, x, **kw)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    got, state = fn(leaves, tcfg, x, **kw)
+    assert got.requires_grad and torch.equal(got.detach(), want)
+    assert all(torch.equal(a.detach(), b) for a, b in zip(state, want_state))
+    if block == "mlstm":
+        return
+    w = torch.randn(got.shape, generator=gen)
+    state0 = tuple(t.clone().requires_grad_(True) for t in kw["state"])
+    wrt = [*leaves.values(), *state0]
+
+    def grads():  # of the output and of every state after the last step
+        out, state = fn(leaves, tcfg, x, state=state0)
+        return torch.autograd.grad((out * w).sum() + sum((0.1 * (i + 1)) * t.sum()
+                                                         for i, t in enumerate(state)), wrt)
+
+    got = grads()
+    monkeypatch.setattr(txlstm._Recurrence, "apply", _plain_recurrence)
+    for key, a, b in zip([*leaves, "c", "n", "h", "m"], got, grads()):
+        assert _rel(a, b) <= BODY_TOL, key
+
+
+@pytest.mark.parametrize("which", ["xlstm", "mlstm_only"])
+def test_remat_full_equals_none_bit_for_bit(which, request):
+    """Checkpointing each mLSTM block and each superblock changes no bit of
+    the loss or of any gradient."""
+    _, tcfg, _, _, tp, tb = request.getfixturevalue(which)
+    batch = {"tokens": torch.from_numpy(_tokens(tcfg.vocab, 2, 9, seed=2)).long()}
+    (l0, g0), (l1, g1) = (tloop.value_and_grad(
+        lambda p, b, mb, c=dataclasses.replace(tcfg, remat=r): tlm.next_token_loss(p, b, c, mb),
+        tp, tb, batch) for r in ("none", "full"))
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g0), tree_leaves(g1)))
+
+
+def test_two_adamw_cosine_steps_track_jax(xlstm):
+    """Two adamw + cosine steps of the port's ``make_train_step`` against
+    the JAX package's jitted step from the same state: the losses, norms
+    and rates, then every param and moment within rtol 1e-4 / atol 1e-6,
+    the input-gate biases' entries whose gradients are float noise within
+    lr x steps (NOISE_RMS)."""
+    jcfg, tcfg, params, buffers, _, _ = xlstm
+    lr = 3e-3
+    data = jbatches(jcfg.vocab, 2, 16, seed=5)
+    batches = [{"tokens": next(data)["tokens"][None]} for _ in range(2)]
+    jopt, topt = joptim.adamw(weight_decay=0.1), toptim.adamw(weight_decay=0.1)
+    dyn, static = jloop.split_buffers(buffers)
+    jstep = jax.jit(jloop.make_train_step(
+        lambda p, b, mb: jlm.next_token_loss(p, b, jcfg, mb, batch_axes=None), jopt,
+        joptim.cosine_schedule(lr, 1, 4), static))
+    tstep = tloop.make_train_step(lambda p, b, mb: tlm.next_token_loss(p, b, tcfg, mb), topt,
+                                  toptim.cosine_schedule(lr, 1, 4))
+    js = jloop.init_state(params, jopt, dyn)
+    tp, tb = convert.lm_to_torch(params, buffers, "cpu")
+    ts = tloop.init_state(tp, topt, tb)
+    for batch in batches:
+        js, jm = jstep(js, batch)
+        ts, tm = tstep(ts, {"tokens": torch.from_numpy(batch["tokens"])})
+        for key in ("loss", "gnorm", "lr"):
+            np.testing.assert_allclose(float(tm[key]), float(jm[key]), rtol=1e-5, atol=1e-6)
+    assert ts.step == int(js.step) == 2
+    paths = [p for p, _ in jax_leaves_with_paths(convert.to_numpy(ts.params))]
+    rms = dict(zip(paths, (np.sqrt(np.asarray(v)) for v in jax.tree.leaves(js.opt["v"]))))
+    noise = {}
+    for path, entries in NOISE_ENTRIES.items():
+        noise[path] = np.zeros(rms[path].shape, bool)
+        noise[path][entries(tcfg.d_model)] = True
+        noise[path] &= rms[path] < NOISE_RMS
+        assert noise[path].any(), path  # the named entries are float noise
+    _close_trees(ts.params, js.params, dict(rtol=1e-4, atol=1e-6), noise=noise,
+                 noise_atol=lr * 2)
+    _close_trees(ts.opt, js.opt, dict(rtol=1e-4, atol=1e-6))
