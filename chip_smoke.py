@@ -46,7 +46,7 @@
    of 5 among them, D 64 and 128, ragged lengths, causal and not; and
    paligemma-3b's MQA heads at D 256, 64-row CTAs) and times it beside
    ``scaled_dot_product_attention`` at the LM's prefill buckets and at
-   hymba-1.5b's and paligemma-3b's heads.
+   hymba-1.5b's, paligemma-3b's and phi3.5-moe's heads.
 8. Serves full-width qwen2-1.5b (28 layers, CCE token table and factored
    CCE head, random weights from a seed) through the LM ``ServeEngine``:
    16 requests of 16-1900 prompt tokens over 8 slots, 16 greedy tokens
@@ -89,6 +89,20 @@
    first mLSTM and sLSTM blocks' first loss and gradients against CPU
    copies (bfloat16 against the CPU's float32), and their runs against
    each other bit for bit.
+14. Serves phi3.5-moe-42b-a6.6b at full width (d 4096, 32 query heads over
+   8 KV heads of 128, 16 experts of d_ff 6400 top-2 at capacity 1.25, CCE
+   token table and factored CCE head at dsub 1024, random weights from a
+   seed), cut to 8 of its 32 layers, through the LM ``ServeEngine`` with the
+   LM traffic, prompts padded into buckets (run before item 12, as
+   ``moe_serve``): flash in every prefill, the einsum route over the whole
+   padded prompt, every expert on every decode token; holds each request
+   alone against itself in the batch (its tokens up to its first decode
+   step routed otherwise), a cut's prefill and 4 decode steps against CPU
+   copies with every routing decision traced (2 layers in float32, every
+   decision equal; the first layer in bfloat16, the flips counted and only
+   what none reached compared), the lookup at its table in float32 and
+   bfloat16 bit for bit; times the MoE layers' share of a prefill's and a
+   tick's busy.
 Each path runs with the launch counts reset just before it and read just
 after.  Prints the kernels' JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -96,8 +110,8 @@ after.  Prints the kernels' JSON line, the card line and, last,
     python3 chip_smoke.py --phases flash,lm_serve
 
 runs only the named phases (of lookup, bwd, kmeans, train, loop, serve,
-methods, flash, lm_serve, hybrid_serve, vlm_serve, xlstm_serve, lm_train,
-xlstm_train) and prints neither result line.
+methods, flash, lm_serve, hybrid_serve, vlm_serve, xlstm_serve, moe_serve,
+lm_train, xlstm_train) and prints neither result line.
 
 Exits non-zero, with no result line, when there is no CUDA device, when the
 port is missing, or when any phase fails.  Imports nothing of JAX.
@@ -145,8 +159,9 @@ BWD_BATCHES = (256, TRAIN_BATCH, 4096)
 LM_DSUB = 384  # the LM token table's sub-row width (qwen2-1.5b: d 1536 over c=4)
 # other widths of both lookup kernels: (c, T, k, dsub) -> the layout each
 # dtype takes; the first is the LM token table's shape, the fourth the
-# hashing trick's supertable (HASH_SHAPE), the last a narrow one with two
-# sub-tables and two row ranges a column (k > 512)
+# hashing trick's supertable (HASH_SHAPE), the seventh a narrow one with two
+# sub-tables and two row ranges a column (k > 512), the last phi3.5-moe's
+# token table (rows of 4 KB in float32)
 WIDE_LOOKUP = {
     (4, 2, 4748, LM_DSUB): {"float32": "wide_vector", "bfloat16": "wide_vector"},
     (26, 2, 305, 36): {"float32": "wide_vector", "bfloat16": "wide_scalar"},
@@ -155,6 +170,7 @@ WIDE_LOOKUP = {
     (26, 1, 500, 8): {"float32": "narrow", "bfloat16": "wide_vector"},
     (26, 1, 500, 64): {"float32": "narrow", "bfloat16": "narrow"},
     (26, 2, 1000, 16): {"float32": "narrow", "bfloat16": "narrow"},
+    (4, 2, 1002, 1024): {"float32": "wide_vector", "bfloat16": "wide_vector"},
 }
 HASH_SHAPE = (26, 1, 500, 16)  # emb_method="hash" on CONFIG: the narrow layout's main path
 # the wide backward (a sort, then a walk) at the token tables of the LM
@@ -196,6 +212,7 @@ FLASH_HYMBA_TIMED = (128, 512, 1024)  # bf16, hymba-1.5b's heads at D 64: its fl
 # 256 the repo's configurations use; held over FLASH_LENGTHS and FLASH_NONCAUSAL
 # alone, not crossed with FLASH_HEADS, and timed at FLASH_TIMED
 FLASH_PALIGEMMA = (8, 1, 256)
+FLASH_MOE = (32, 8, 128)  # (H, KVH, D) of phi3.5-moe-42b-a6.6b, timed at FLASH_TIMED
 # kernel vs plain on unit-normal inputs: float32 sums in another order;
 # bfloat16 rounds P to bf16 for the tensor cores and the output once
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -223,6 +240,26 @@ XLSTM_ARCH = "xlstm-1.3b"  # served like LM_ARCH (LM_PROMPTS, LM_MAX_SEQ, slots,
 XLSTM_CHECK_PROMPT = 300  # the cut's prompt: a 256-token mLSTM chunk and a ragged one
 XLSTM_CHECK_DECODE = 4
 XLSTM_IDLE_PREFILLS = (256, 1900)  # one mLSTM chunk; about the longest prompt
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"  # served like LM_ARCH (LM_PROMPTS, LM_MAX_SEQ, slots, tokens)
+# its depth, cut from 32 layers: a layer holds 1.30 B float32 params (5.2 GB: 16
+# experts of 3 x 4096 x 6400), so 8 hold 41.6 GB and leave room on an 80 GB card for
+# each use's bf16 casts of the experts (2.5 GB a layer), the cache and what earlier
+# phases leave allocated
+MOE_LAYERS = 8
+# the depth of its card-vs-CPU cut (lm_cut_check) in each dtype: in bfloat16 a
+# routing flip at layer 0 reaches every later position from layer 1 on, the last
+# position's logits with it (on an H100 at 2 layers: 17 flips in 520 decisions, and
+# no bf16 logits left to compare), so bfloat16 runs the first layer alone
+MOE_CHECK_LAYERS = {"float32": 2, "bfloat16": 1}
+MOE_CHECK_DECODE = 4
+MOE_IDLE_PREFILLS = (LM_MAX_SEQ, 1900)  # a whole bucket; the longest prompt's length
+# bfloat16 routing decisions of the cut that may differ between the card and the
+# CPU, as a share of its (token, layer) decisions: the router's product rounds to
+# bf16 on either side after another summation order, and a near tie then picks
+# another expert.  tools/probe_moe_flips.py on an H100 (8 prompts of 256 tokens,
+# layer 0): card vs CPU 0.0117-0.0234 of the tokens, the CPU's own bf16 vs its f32
+# 0.0117-0.0430, float32 card vs CPU none; the limit is about twice the largest
+MOE_FLIP_SHARE = 0.05
 # card vs CPU prefill logits, relative to the largest logit: float32 sums
 # in other orders; bfloat16 also rounds every activation (8 mantissa bits)
 LM_LOGIT_RTOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -2587,10 +2624,11 @@ def flash_phase(card: str, device="cuda"):
     bit, the causal first row equal to v's first row; a strided
     (B, H, S, D)-layout view read in place.  Times the kernel, the plain
     version and SDPA at FLASH_TIMED with qwen2-1.5b's heads, at
-    FLASH_HYMBA_TIMED with hymba-1.5b's and at FLASH_TIMED with
-    paligemma-3b's (D 256).  Returns ({dtype: max error}, {S: numbers},
-    {S: numbers at hymba's heads}, {S: numbers at paligemma's}, {dtype: max
-    error at paligemma's})."""
+    FLASH_HYMBA_TIMED with hymba-1.5b's, at FLASH_TIMED with
+    paligemma-3b's (D 256) and with phi3.5-moe's (FLASH_MOE).  Returns
+    ({dtype: max error}, {S: numbers}, {S: numbers at hymba's heads}, {S:
+    numbers at paligemma's}, {dtype: max error at paligemma's}, {S:
+    numbers at phi3.5-moe's})."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -2671,7 +2709,8 @@ def flash_phase(card: str, device="cuda"):
                 for S in FLASH_HYMBA_TIMED}
     at_paligemma = {S: flash_timed(card, S, *FLASH_PALIGEMMA, device=device)
                     for S in FLASH_TIMED}
-    return max_err, at, at_hymba, at_paligemma, paligemma_err
+    at_moe = {S: flash_timed(card, S, *FLASH_MOE, device=device) for S in FLASH_TIMED}
+    return max_err, at, at_hymba, at_paligemma, paligemma_err, at_moe
 
 
 def _lm_prompts(cfg):
@@ -2732,12 +2771,17 @@ def lm_fwd_numbers(card: str, label: str, idx, tables) -> dict:
                 library_ms=lib, library_device_ms=lib_dev, library_device_ms_warm=lib_dev_warm)
 
 
-def lm_lookup_numbers(card: str, cfg, params, buffers, prompts, prefill_rows: int) -> dict:
+def lm_lookup_numbers(card: str, cfg, params, buffers, prompts, prefill_rows: int,
+                      bf16: bool = False) -> dict:
     """``lm_fwd_numbers`` at a prefill's ``prefill_rows`` tokens and an
-    LM_MAX_BATCH-slot decode tick."""
+    LM_MAX_BATCH-slot decode tick; with ``bf16`` also the kernel on the
+    table cast to bfloat16 at both, equal to its plain version bit for
+    bit (both sum in float32 and round once)."""
     import numpy as np
     import torch
 
+    from repro_torch.kernels import cce_lookup as cl
+    from repro_torch.kernels import ref
     from repro_torch.models import lm
 
     table = lm.make_emb(cfg)
@@ -2748,6 +2792,16 @@ def lm_lookup_numbers(card: str, cfg, params, buffers, prompts, prefill_rows: in
         ids = torch.from_numpy(np.resize(toks, n).astype(np.int64)).to(tables.device)
         idx = table._rows(buffers["emb"], ids).reshape(table.c, -1, 2)
         out[name] = lm_fwd_numbers(card, f"{cfg.name} {name}", idx, tables)
+        if bf16:
+            half = tables.to(torch.bfloat16)
+            check(cl_path(half) == out[name]["layout"], f"the bfloat16 table takes "
+                  f"{cl_path(half)}, not {out[name]['layout']}")
+            got, want = cl.cce_lookup_fwd(idx, half), ref.cce_lookup_ref(idx, half)
+            check(torch.equal(got, want), f"bfloat16 lookup kernel != plain at B={n} "
+                  f"({cfg.name} {name})")
+            out[name]["bfloat16_equal"] = True
+            print(f"[{card}] cce_lookup_fwd {cfg.name} {name} B={n} bfloat16 "
+                  f"{cl_path(half)}: equal to plain bit for bit", flush=True)
     return out
 
 
@@ -2757,8 +2811,14 @@ def _max_rel(got, want) -> float:
     return ((got.float().cpu() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
+def cut_layers(cfg, dn: str = "float32") -> int:
+    """The depth of ``lm_cut``'s cut (in dtype ``dn``): MOE_CHECK_LAYERS
+    for the moe family, else LM_CHECK_LAYERS."""
+    return MOE_CHECK_LAYERS[dn] if cfg.family == "moe" else LM_CHECK_LAYERS
+
+
 def lm_cut(cfg, params):
-    """(config, params) of a LM_CHECK_LAYERS cut of the model (views of its
+    """(config, params) of a ``cut_layers`` cut of the model (views of its
     params).  The xlstm family's stacks are (n_super, n_m, ...): its cut
     is one superblock of the model's first mLSTM block and first sLSTM
     block (n_layers 2, slstm_every 2), so both kinds run at full width."""
@@ -2772,7 +2832,7 @@ def lm_cut(cfg, params):
                            "s": tree_map(lambda t: t[:1], blocks["norms"]["s"])}}
         return lm_cut_config(cfg), dict(params, blocks=first)
     return (lm_cut_config(cfg),
-            dict(params, blocks=tree_map(lambda t: t[:LM_CHECK_LAYERS], blocks)))
+            dict(params, blocks=tree_map(lambda t: t[:cut_layers(cfg)], blocks)))
 
 
 def lm_cut_config(cfg):
@@ -2781,19 +2841,80 @@ def lm_cut_config(cfg):
 
     if cfg.family == "xlstm":
         return dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS, slstm_every=LM_CHECK_LAYERS)
-    return dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
+    return dataclasses.replace(cfg, n_layers=cut_layers(cfg))
+
+
+def moe_traced(fn):
+    """(fn(), [(kind, gate_idx, keep)] of every moe route it ran, on the
+    CPU): ``models.moe.TRACE`` on for the call."""
+    from repro_torch.models import moe as moe_lib
+
+    moe_lib.TRACE = []
+    try:
+        out = fn()
+    finally:
+        trace, moe_lib.TRACE = moe_lib.TRACE, None
+    return out, [(kind, g.cpu(), None if keep is None else keep.cpu())
+                 for kind, g, keep in trace]
+
+
+class MoeReach:
+    """What routing flips between the card and the CPU can have reached in
+    an L-layer moe cut run on one sequence, call by call.  A position
+    whose decision (``gate_idx`` or ``keep``) differs at layer l leaves
+    layer l with another output, and every later position's input to
+    layer l + 1 on reads it through attention (a flip that costs another
+    token its slot is that token's own flip).  ``reached[l]`` marks, by
+    position, the inputs to layer l (``reached[L]``: the final hidden
+    state) that a flip may have changed: k and v of layer l are compared
+    only at positions it leaves unmarked, the logits only where the last
+    position is unmarked."""
+
+    def __init__(self, n_layers: int):
+        import torch
+
+        self.n_layers = n_layers
+        self.reached = [torch.zeros(0, dtype=torch.bool) for _ in range(n_layers + 1)]
+        self.flips = 0
+        self.decisions = 0
+
+    def step(self, on_card, on_cpu) -> None:
+        """One call's traces (``moe_traced``: a route a layer, each over
+        the call's n new positions of one sequence)."""
+        import torch
+
+        check(len(on_card) == len(on_cpu) == self.n_layers,
+              f"{len(on_card)} and {len(on_cpu)} moe routes traced, not {self.n_layers}")
+        n = on_card[0][1].shape[1]
+        new_in = torch.zeros(n, dtype=torch.bool)
+        for layer, ((_, g_card, k_card), (_, g_cpu, k_cpu)) in enumerate(zip(on_card, on_cpu)):
+            flip = (g_card != g_cpu).any(-1)[0]
+            if k_card is not None:
+                flip |= (k_card != k_cpu).any(-1)[0]
+            self.flips += int(flip.sum())
+            self.decisions += n
+            self.reached[layer] = torch.cat([self.reached[layer], new_in])
+            seen = torch.cummax(self.reached[layer].to(torch.int32), 0).values.bool()
+            new_in = seen[-n:] | flip
+        self.reached[-1] = torch.cat([self.reached[-1], new_in])
 
 
 def lm_cut_check(card: str, label: str, cfg, params, buffers, prompt, n_decode: int,
                  device="cuda") -> dict:
-    """A LM_CHECK_LAYERS cut of the served model (``lm_cut``) on the card
-    against CPU copies, in float32 and bfloat16: a prefill of ``prompt``, then
+    """A ``cut_layers`` cut of the served model (``lm_cut``) on the card
+    against CPU copies, in float32 and bfloat16 (the moe family's
+    bfloat16: its first layer alone): a prefill of ``prompt``, then
     ``n_decode`` greedy decode steps (the CPU's picks fed to both), the
     logits and every cache leaf after each call within LM_LOGIT_RTOL of the
     CPU's largest magnitude; for the vlm family also ``forward`` with
     ``cfg.n_patches`` patch embeddings (unit normal, from LM_SEED) before
-    the prompt, which serving never runs.  Returns {dtype: worst relative
-    error}."""
+    the prompt, which serving never runs.  For the moe family every
+    routing decision of every call is traced on both sides: in float32 all
+    must agree; in bfloat16 those that differ are counted (a share above
+    MOE_FLIP_SHARE fails) and only what none of them reached is compared
+    (``MoeReach``: logits, and k and v row by row).  Returns {dtype: worst
+    relative error} and, for the moe family, {dtype: (flips, decisions,
+    comparisons skipped)} beside it."""
     import dataclasses
 
     import numpy as np
@@ -2807,49 +2928,94 @@ def lm_cut_check(card: str, label: str, cfg, params, buffers, prompt, n_decode: 
     cpu_b = tree_map(lambda t: t.detach().to("cpu", copy=True), buffers)
     S = len(prompt)
     toks = torch.from_numpy(np.asarray(prompt, np.int64)[None])
-    worst = {}
+    moe = cfg.family == "moe"
+    worst, routes = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
+        n_cut = cut_layers(cfg, dn)
         cut = dataclasses.replace(cut_cfg, dtype=dtype)
+        on_p, off_p = cut_p, cpu_p
+        if cut.n_layers > n_cut:  # the moe family's bfloat16: its first layer(s)
+            cut = dataclasses.replace(cut, n_layers=n_cut)
+            on_p, off_p = (dict(p, blocks=tree_map(lambda t: t[:n_cut], p["blocks"]))
+                           for p in (cut_p, cpu_p))
         card_c, cpu_c = (lm.init_cache(cut, 1, S + n_decode, device=d) for d in (device, "cpu"))
         errs = {}
+        reach = MoeReach(n_cut) if moe else None
+        skipped = []
 
         def compare(what, on_card, on_cpu):
             check(bool(torch.isfinite(on_card).all()), f"{label} cut {what} ({dn}) not finite")
             err = _max_rel(on_card, on_cpu)
-            check(err <= LM_LOGIT_RTOL[dn], f"{LM_CHECK_LAYERS}-layer {label} cut {what} card "
+            check(err <= LM_LOGIT_RTOL[dn], f"{n_cut}-layer {label} cut {what} card "
                   f"vs CPU ({dn}): {err} of the largest > {LM_LOGIT_RTOL[dn]}")
             errs[what] = max(errs.get(what, 0.0), err)
 
+        def compare_call(what, card_call, cpu_call):
+            """The logits and every cache leaf after one call on each side;
+            for the moe family only what no routing flip reached."""
+            (on_card, _), card_r = card_call
+            (on_cpu, _), cpu_r = cpu_call
+            if reach is None:
+                compare(f"{what} logits", on_card, on_cpu)
+                for key in cpu_c:
+                    compare(f"{what} {key}", card_c[key], cpu_c[key])
+                return on_cpu
+            reach.step(card_r, cpu_r)
+            if dtype == torch.float32:
+                check(reach.flips == 0, f"{label} cut {what} (float32): {reach.flips} routing "
+                      f"decisions differ between the card and the CPU")
+            if reach.reached[-1][-1]:
+                skipped.append(f"{what} logits")
+            else:
+                compare(f"{what} logits", on_card, on_cpu)
+            for key in cpu_c:  # k and v, (L, 1, S, KVH, D)
+                for layer in range(n_cut):
+                    rows = (~reach.reached[layer]).nonzero()[:, 0]
+                    if len(rows) < len(reach.reached[layer]):
+                        skipped.append(f"{what} {key} layer {layer}: "
+                                       f"{len(reach.reached[layer]) - len(rows)} rows")
+                    if len(rows):
+                        compare(f"{what} {key}", card_c[key][layer, 0, rows.to(device)],
+                                cpu_c[key][layer, 0, rows])
+            return on_cpu
+
         with torch.inference_mode():
-            on_card, _ = lm.prefill(cut_p, buffers, cut, toks.to(device), card_c)
-            on_cpu, _ = lm.prefill(cpu_p, cpu_b, cut, toks, cpu_c)
-            compare("prefill logits", on_card, on_cpu)
-            for key in cpu_c:
-                compare(f"prefill {key}", card_c[key], cpu_c[key])
+            on_cpu = compare_call(
+                "prefill",
+                moe_traced(lambda: lm.prefill(on_p, buffers, cut, toks.to(device), card_c)),
+                moe_traced(lambda: lm.prefill(off_p, cpu_b, cut, toks, cpu_c)))
             for t in range(n_decode):
                 nxt = on_cpu.float().argmax(-1)
                 pos = torch.tensor([S + t])
-                on_card, _ = lm.decode_step(cut_p, buffers, cut, nxt.to(device), pos.to(device),
-                                            card_c)
-                on_cpu, _ = lm.decode_step(cpu_p, cpu_b, cut, nxt, pos, cpu_c)
-                compare("decode logits", on_card, on_cpu)
-                for key in cpu_c:
-                    compare(f"decode {key}", card_c[key], cpu_c[key])
+                on_cpu = compare_call(
+                    "decode",
+                    moe_traced(lambda: lm.decode_step(on_p, buffers, cut, nxt.to(device),
+                                                      pos.to(device), card_c)),
+                    moe_traced(lambda: lm.decode_step(off_p, cpu_b, cut, nxt, pos, cpu_c)))
             if cfg.family == "vlm":
                 pe = torch.randn((1, cfg.n_patches, cfg.d_model),
                                  generator=torch.Generator().manual_seed(LM_SEED))
-                on_card, _ = lm.forward(cut_p, buffers, cut, {"tokens": toks.to(device),
+                on_card, _ = lm.forward(on_p, buffers, cut, {"tokens": toks.to(device),
                                                               "patch_emb": pe.to(device)})
-                on_cpu, _ = lm.forward(cpu_p, cpu_b, cut, {"tokens": toks, "patch_emb": pe})
+                on_cpu, _ = lm.forward(off_p, cpu_b, cut, {"tokens": toks, "patch_emb": pe})
                 check(on_cpu.shape == (1, S, cfg.vocab), f"patch forward logits {on_cpu.shape}")
                 compare(f"forward logits after {cfg.n_patches} patches", on_card, on_cpu)
         worst[dn] = max(errs.values())
-        print(f"[{card}] {label} {LM_CHECK_LAYERS}-layer cut, a {S}-token prefill"
+        flips = ""
+        if moe:
+            share = reach.flips / reach.decisions
+            routes[dn] = (reach.flips, reach.decisions, len(skipped))
+            flips = (f"; routing: {reach.flips} of {reach.decisions} (token, layer) decisions "
+                     f"differ ({share!r}; limit {MOE_FLIP_SHARE} in bfloat16, 0 in float32), "
+                     f"not compared where a flip reached: {skipped or 'nothing'}")
+            check(share <= MOE_FLIP_SHARE, f"{label} cut ({dn}): {share} of the routing "
+                  f"decisions differ between the card and the CPU > {MOE_FLIP_SHARE}")
+        print(f"[{card}] {label} {n_cut}-layer cut, a {S}-token prefill"
               f"{f' and {n_decode} decode steps' if n_decode else ''}, {dn}: card vs CPU, "
               f"each relative to the CPU's largest magnitude (tolerance {LM_LOGIT_RTOL[dn]}): "
-              + ", ".join(f"{k} {v!r}" for k, v in errs.items()), flush=True)
-    return worst
+              + ", ".join(f"{k} {v!r}" for k, v in errs.items()) + flips, flush=True)
+    return (worst, routes) if moe else worst
 
 
 def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM_CHECK_PROMPT,
@@ -2874,6 +3040,7 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
     from repro_torch.kernels import ops
     from repro_torch.models import layers as L
     from repro_torch.models import lm
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models import ssm as ssm_lib
     from repro_torch.models import xlstm as xlstm_lib
     from repro_torch.serve.engine import Request, ServeEngine
@@ -2897,10 +3064,16 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
                  f"{2 * cfg.d_model // cfg.n_heads}, chunk {xlstm_lib.MLSTM_CHUNK}) and 1 sLSTM (ffn "
                  f"{xlstm_lib.slstm_ffn_dim(cfg)})")
         counted = "every block as an mLSTM block, its gates as 2 di"
+    if cfg.family == "moe":
+        extra = (f" {cfg.n_experts} experts top-{cfg.top_k} capacity {cfg.capacity_factor} "
+                 f"group {cfg.moe_group} route {cfg.moe_impl}")
+        counted = (f"without biases: {cfg.n_params()}; active a token {cfg.n_active_params()}, "
+                   f"which counts a full vocab x d token table and head under CCE")
     print(f"[{card}] {label} init: {cfg.name} {cfg.n_layers}L d={cfg.d_model} {cfg.n_heads}H/"
           f"{cfg.n_kv_heads}KV hd={cfg.head_dim} ff={cfg.d_ff} vocab={cfg.vocab} "
           f"window={cfg.sliding_window}{extra} emb={cfg.emb_method}: {n_params} params "
-          f"(analytic, as the JAX package counts them, {counted}: {cfg.n_params()}), "
+          f"(analytic, as the JAX package counts them, "
+          f"{counted if cfg.family == 'moe' else f'{counted}: {cfg.n_params()}'}), "
           f"{on_card:.2f} GiB on the card, {time.perf_counter() - t0:.3f} s", flush=True)
     prompts = _lm_prompts(cfg)
 
@@ -2916,6 +3089,9 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
     prefill_ms, decode_ms = collections.defaultdict(list), []
     prefill_logits = []  # in admission order, which is the order of submission
     orig_prefill, orig_decode = eng._prefill_one, eng._decode
+    moe = cfg.family == "moe"
+    solo_uid = max(range(len(prompts)), key=lambda i: len(prompts[i]))  # served alone below
+    solo_slots = []  # its slot at each decode tick of the batch (None when not in one)
 
     def timed_prefill(slot, toks, last_idx):
         torch.cuda.synchronize()
@@ -2927,6 +3103,8 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
         return out
 
     def timed_decode():
+        solo_slots.append(next((i for i, r in enumerate(eng.slots)
+                                if r is not None and r.uid == solo_uid), None))
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = orig_decode()
@@ -2939,6 +3117,7 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
     n_flash = 0 if cfg.family == "xlstm" else sum(
         1 for p in prompts if not cfg.sliding_window or len(p) <= cfg.sliding_window)
     reset_peak()
+    moe_lib.TRACE = [] if moe else None  # every routing decision, kept on the card
     ops.LAUNCHES.clear()
     t0 = time.perf_counter()
     for r in reqs:
@@ -2946,6 +3125,7 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
     done = eng.run()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    batch_routes, moe_lib.TRACE = moe_lib.TRACE, None
     raw_peak = torch.cuda.max_memory_allocated()
     peak = (raw_peak - left) / 1e9
     n_dec = len(decode_ms)
@@ -2983,7 +3163,7 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
     # a request served alone gives the prefill logits and the tokens it gave
     # in the batch (the logits too: with random tied weights greedy decoding
     # can echo the prompt's last token whatever the layers compute)
-    solo_req = max(done, key=lambda r: len(r.prompt))
+    solo_req = next(r for r in done if r.uid == solo_uid)
     solo = engine()
     solo_logits = []
     solo_prefill = solo._prefill_one
@@ -2994,18 +3174,43 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
 
     solo._prefill_one = kept_prefill
     solo.submit(Request(uid=0, prompt=solo_req.prompt, max_tokens=LM_MAX_TOKENS))
+    moe_lib.TRACE = [] if moe else None
     alone = solo.run()[0].generated
-    check(alone == solo_req.generated,
-          f"request {solo_req.uid} alone {alone} != in the batch {solo_req.generated}")
+    solo_routes, moe_lib.TRACE = moe_lib.TRACE, None
+    same = len(alone)  # tokens held equal: all but where the decode routing differs
+    routed = ""
+    if moe:
+        # a tick's router product can round otherwise with other slots' rows
+        # beside it: hold the tokens up to the first decode step whose routing
+        # differs (token j comes out of the request's j-th decode tick)
+        in_batch = moe_decode_routes(batch_routes, solo_slots, cfg.n_layers)
+        by_itself = moe_decode_routes(solo_routes, None, cfg.n_layers)
+        differ = [j for j, (a, b) in enumerate(zip(in_batch, by_itself), 1)
+                  if not torch.equal(a, b)]
+        check(len(in_batch) == len(by_itself) == LM_MAX_TOKENS - 1,
+              f"{len(in_batch)} and {len(by_itself)} decode steps traced for request "
+              f"{solo_uid}, not {LM_MAX_TOKENS - 1}")
+        same = differ[0] if differ else len(alone)
+        numbers["solo_decode_routing_differs"] = len(differ)
+        routed = (f"; its {len(in_batch)} decode steps' routing ({cfg.n_layers} layers) "
+                  f"differs from the batch's at {len(differ)} (steps {differ}), tokens held "
+                  f"up to the first")
+    del batch_routes, solo_routes
+    check(alone[:same] == solo_req.generated[:same],
+          f"request {solo_req.uid} alone {alone} != in the batch {solo_req.generated}"
+          f" over the first {same} tokens")
     dn = str(cfg.dtype).split(".")[-1]
     solo_err = _max_rel(solo_logits[0], prefill_logits[solo_req.uid].cpu())
     check(solo_err <= LM_LOGIT_RTOL[dn], f"request {solo_req.uid}'s prefill logits alone vs in "
           f"the batch: {solo_err} of the largest > {LM_LOGIT_RTOL[dn]}")
     del solo, prefill_logits
     numbers["solo_logits_max_rel_err"] = solo_err
+    rest = (f" (then {alone[same:]} against {solo_req.generated[same:]})"
+            if same < len(alone) else "")
     print(f"[{card}] {label} serve: request {solo_req.uid} ({len(solo_req.prompt)} prompt "
-          f"tokens) alone gives its batch tokens {alone} and its prefill logits within "
-          f"{solo_err!r} of the largest (tolerance {LM_LOGIT_RTOL[dn]})", flush=True)
+          f"tokens) alone gives its batch tokens {alone[:same]}{rest}"
+          f" and its prefill logits within {solo_err!r} of the largest (tolerance "
+          f"{LM_LOGIT_RTOL[dn]}){routed}", flush=True)
 
     # host, device busy and idle share of one decode tick and of prefills
     with torch.inference_mode():
@@ -3078,14 +3283,88 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
                 ssm = (f"; the SSM branch {branch!r} ms busy over {cfg.n_layers} layers "
                        f"({branch / busy!r} of busy), its chunked scan {scan!r} ms "
                        f"({scan / busy!r} of busy)")
+            if moe:
+                parts = moe_busy(cfg, params, buffers, toks, device)
+                numbers[name].update({f"moe_{k}": v for k, v in parts.items()},
+                                     moe_busy_share=parts["layers"] / busy)
+                ssm = (f"; the {cfg.n_layers} MoE layers busy {parts['layers']!r} ms "
+                       f"({parts['layers'] / busy!r} of busy): "
+                       + ", ".join(f"{k} {v!r}" for k, v in parts.items() if k != "layers"))
             print(f"[{card}] {label} serve {name}: host {h!r} ms, device busy {busy!r} ms "
                   f"(idle share {1 - busy / h!r}){ssm}", flush=True)
 
-    lookup = lm_lookup_numbers(card, cfg, params, buffers, prompts, max(idle_prefills))
-    numbers["cut_max_rel_err"] = lm_cut_check(
-        card, label, cfg, params, buffers, np.resize(prompts[-1], check_prompt), check_decode,
-        device=device)
+    lookup = lm_lookup_numbers(card, cfg, params, buffers, prompts, max(idle_prefills),
+                               bf16=moe)
+    cut = lm_cut_check(card, label, cfg, params, buffers, np.resize(prompts[-1], check_prompt),
+                       check_decode, device=device)
+    if moe:
+        cut, numbers["cut_routing_flips"] = cut
+    numbers["cut_max_rel_err"] = cut
     return launches, lookup, numbers
+
+
+def moe_decode_routes(trace, slots, n_layers: int) -> list:
+    """The routing of one request at each decode tick it took part in:
+    ``trace`` a run's ``models.moe.TRACE``, ``slots`` its slot at each
+    tick (None where it had none; ``slots`` None: slot 0 at every tick, a
+    request served alone).  Returns one (n_layers, k) gate_idx a tick, on
+    the CPU."""
+    import torch
+
+    ticks = [g for kind, g, _ in trace if kind == "decode"]
+    if slots is None:
+        slots = [0] * (len(ticks) // n_layers)
+    check(len(ticks) == n_layers * len(slots),
+          f"{len(ticks)} decode routes traced over {len(slots)} ticks of {n_layers} layers")
+    return [torch.stack([ticks[i * n_layers + layer][slot, 0] for layer in range(n_layers)]).cpu()
+            for i, slot in enumerate(slots) if slot is not None]
+
+
+def moe_busy(cfg, params, buffers, toks, device="cuda") -> dict:
+    """Device busy ms of the moe layers in one prefill of ``toks`` (1, S)
+    (``toks`` None: one decode tick of LM_MAX_BATCH tokens), from layer
+    0's routes on its normed input (the embedding: the route's cost does
+    not depend on the values, its capacity fixes every product's size),
+    times the layers: "layers" the route whole; for a prefill also its
+    parts, "router" (the product, softmax and sort), "dispatch" (the
+    capacity positions, the combine weights and the dispatch einsum),
+    "experts" (the three batched products and the casts) and "combine"
+    (the last einsum)."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_lib
+
+    lp = lm.layer_params(params["blocks"], 0)
+    p = lp["moe"]
+    n = cfg.n_layers
+    with torch.inference_mode():
+        if toks is None:
+            ids = torch.zeros((LM_MAX_BATCH, 1), dtype=torch.int64, device=device)
+            hin = L.apply_norm(lp["ln2"], lm.embed(params, buffers, cfg, ids))
+            return {"layers": n * device_busy_ms(lambda: moe_lib.apply_moe_decode(p, cfg, hin))}
+        x = lm.embed(params, buffers, cfg, torch.as_tensor(toks, device=device))
+        hin = L.apply_norm(lp["ln2"], x)
+        B, S, d = hin.shape
+        g, G, C = moe_lib._groups(cfg, B * S, cfg.moe_group)
+        xg = hin.reshape(G, g, d)
+        _, gate_vals, gate_idx = moe_lib.route(p, cfg, xg)
+        combine, _ = moe_lib._combine_weights(cfg, gate_vals, gate_idx, C)
+
+        def dispatch():
+            w, _ = moe_lib._combine_weights(cfg, gate_vals, gate_idx, C)
+            return torch.einsum("gtec,gtd->gecd", (w > 0).to(hin.dtype), xg)
+
+        expert_in = dispatch()
+        expert_out = moe_lib._grouped_experts(p, expert_in)
+        return {"layers": n * device_busy_ms(
+                    lambda: moe_lib.apply_moe(p, cfg, hin, group_size=cfg.moe_group)),
+                "router": n * device_busy_ms(lambda: moe_lib.route(p, cfg, xg)),
+                "dispatch": n * device_busy_ms(dispatch),
+                "experts": n * device_busy_ms(lambda: moe_lib._grouped_experts(p, expert_in)),
+                "combine": n * device_busy_ms(lambda: torch.einsum(
+                    "gtec,gecd->gtd", combine.to(hin.dtype), expert_out))}
 
 
 def hybrid_serve_phase(card: str, cfg, device="cuda"):
@@ -3113,6 +3392,19 @@ def xlstm_serve_phase(card: str, cfg, device="cuda"):
     whole and one ragged mLSTM chunk, then takes 4 decode steps."""
     return lm_serve_phase(card, cfg, device, label="xlstm", check_prompt=XLSTM_CHECK_PROMPT,
                           check_decode=XLSTM_CHECK_DECODE, idle_prefills=XLSTM_IDLE_PREFILLS)
+
+
+def moe_serve_phase(card: str, cfg, device="cuda"):
+    """``lm_serve_phase`` on the moe family (phi3.5-moe-42b-a6.6b at full
+    width, MOE_LAYERS of its layers): prompts padded into buckets, the
+    pads routed and taking capacity, every prefill through the flash
+    kernel (32 query heads over 8 KV heads of 128) and the einsum route,
+    every tick through all the experts; the request alone held by its
+    tokens up to its first decode step routed otherwise; the lookup at
+    dsub 1024 also in bfloat16; the cut's routing traced (``MoeReach``),
+    4 decode steps after its prefill."""
+    return lm_serve_phase(card, cfg, device, label="moe", check_decode=MOE_CHECK_DECODE,
+                          idle_prefills=MOE_IDLE_PREFILLS)
 
 
 def lm_table_assign_numbers(card: str, x, cent, ptr, *,
@@ -3594,7 +3886,7 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call it replaces)
                         "src/repro/kernels/flash_attention.py:97"),
 }
 PHASES = ("lookup", "bwd", "kmeans", "train", "loop", "serve", "methods", "flash", "lm_serve",
-          "hybrid_serve", "vlm_serve", "xlstm_serve", "lm_train", "xlstm_train")
+          "hybrid_serve", "vlm_serve", "xlstm_serve", "moe_serve", "lm_train", "xlstm_train")
 
 
 def main(argv=None) -> int:
@@ -3671,6 +3963,9 @@ def main(argv=None) -> int:
     xlstm = phase("xlstm_serve", xlstm_serve_phase, card, configs.get(XLSTM_ARCH))
     if xlstm is not None:
         launches["xlstm_serve"] = xlstm[0]
+    moe = phase("moe_serve", moe_serve_phase, card, configs.get(MOE_ARCH, n_layers=MOE_LAYERS))
+    if moe is not None:
+        launches["moe_serve"] = moe[0]
     lm_train = phase("lm_train", lm_train_phase, card, configs.get(LM_ARCH))
     if lm_train is not None:
         launches.update(lm_train[0])
@@ -3682,8 +3977,10 @@ def main(argv=None) -> int:
               f"(a partial run: no result line)")
         return 0
     (fwd_err, fwd_at), (bwd_err, bwd_at), (assign_err, assign_at) = fwd, bwd, assign
-    flash_err, flash_at, flash_hymba_at, flash_paligemma_at, flash_paligemma_err = flash
-    lm_lookup, hybrid_lookup, vlm_lookup, xlstm_lookup = lm_out[1], hybrid[1], vlm[1], xlstm[1]
+    flash_err, flash_at, flash_hymba_at, flash_paligemma_at, flash_paligemma_err, flash_moe_at = (
+        flash)
+    lm_lookup, hybrid_lookup, vlm_lookup, xlstm_lookup, moe_lookup = (
+        lm_out[1], hybrid[1], vlm[1], xlstm[1], moe[1])
     _, methods_err, methods_at, _ = methods
     _, lm_fwd_at, lm_bwd_err, lm_bwd_at, lm_assign_err, lm_assign_at, _ = lm_train
     _, xl_fwd_at, xl_bwd_err, xl_bwd_at, xl_assign_err, xl_assign_at, _ = xlstm_train
@@ -3700,14 +3997,15 @@ def main(argv=None) -> int:
     steps = ("train", "train_after_transition", "loop", "methods", "lm_train", "xlstm_train")
     S = FLASH_TIMED[-1]
     kernels = [
-        entry("cce_lookup_fwd", steps + ("lm_serve", "hybrid_serve", "vlm_serve", "xlstm_serve"),
+        entry("cce_lookup_fwd",
+              steps + ("lm_serve", "hybrid_serve", "vlm_serve", "xlstm_serve", "moe_serve"),
               max(fwd_err, methods_err, lm_fwd_at["max_abs_err"], xl_fwd_at["max_abs_err"],
                   *(v["max_abs_err"] for v in (*hybrid_lookup.values(), *vlm_lookup.values(),
-                                                *xlstm_lookup.values()))),
+                                                *xlstm_lookup.values(), *moe_lookup.values()))),
               fwd_at[TRAIN_BATCH], batch=TRAIN_BATCH, at_serve_batch=fwd_at[SERVE_BATCH],
               at_lm_shape=lm_lookup, at_lm_train_shape=lm_fwd_at, at_hymba_shape=hybrid_lookup,
               at_paligemma_shape=vlm_lookup, at_xlstm_shape=xlstm_lookup,
-              at_xlstm_train_shape=xl_fwd_at,
+              at_xlstm_train_shape=xl_fwd_at, at_phi3_5_moe_shape=moe_lookup,
               **{f"at_{m}_shape": methods_at[m]["fwd"] for m in METHOD_KERNEL_SHAPES}),
         entry("cce_lookup_bwd", steps, max(bwd_err, methods_err, lm_bwd_err, xl_bwd_err), bwd_at,
               batch=TRAIN_BATCH, at_lm_train_shape=lm_bwd_at, at_xlstm_train_shape=xl_bwd_at,
@@ -3715,7 +4013,8 @@ def main(argv=None) -> int:
         entry("kmeans_assign", ("transition", "loop", "methods", "lm_train", "xlstm_train"),
               max(assign_err, lm_assign_err, xl_assign_err), assign_at,
               at_lm_table_shape=lm_assign_at, at_xlstm_table_shape=xl_assign_at),
-        entry("flash_attention", ("lm_serve", "hybrid_serve", "vlm_serve"), flash_err["bfloat16"],
+        entry("flash_attention", ("lm_serve", "hybrid_serve", "vlm_serve", "moe_serve"),
+              flash_err["bfloat16"],
               flash_at[S],
               max_abs_err_float32=flash_err["float32"],
               shape=dict(B=1, S=S, H=FLASH_HEADS[0][0], KVH=FLASH_HEADS[0][1], D=FLASH_DIMS[-1],
@@ -3730,7 +4029,11 @@ def main(argv=None) -> int:
                              D=FLASH_PALIGEMMA[2], dtype="bfloat16", causal=True),
                   max_abs_err=flash_paligemma_err["bfloat16"],
                   max_abs_err_float32=flash_paligemma_err["float32"],
-                  by_length=flash_paligemma_at)),
+                  by_length=flash_paligemma_at),
+              at_phi3_5_moe_shape=dict(
+                  shape=dict(B=1, H=FLASH_MOE[0], KVH=FLASH_MOE[1], D=FLASH_MOE[2],
+                             dtype="bfloat16", causal=True),
+                  by_length=flash_moe_at)),
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_run:.1f} s")
     print(f"card: {card}")

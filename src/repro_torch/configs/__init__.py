@@ -2,8 +2,9 @@
 ``get_reduced(name)`` -> its CPU test variant.  ``ARCHS`` lists the
 architectures the port runs (the dense family, the hybrid family's
 hymba-1.5b, the xlstm family's xlstm-1.3b and the vlm family's
-paligemma-3b, each trained and served); ``UNPORTED`` names the JAX package's other
-configurations by family, and both functions raise on them.  The DLRM
+paligemma-3b, each trained and served; the moe family's
+phi3.5-moe-42b-a6.6b and qwen3-moe-235b-a22b, served); ``UNPORTED``
+names the JAX package's other configurations by family, and both functions raise on them.  The DLRM
 configuration lives in ``configs/dlrm_criteo.py``."""
 from __future__ import annotations
 
@@ -12,9 +13,11 @@ import dataclasses
 from repro_torch.configs import (
     hymba_1_5b,
     paligemma_3b,
+    phi3_5_moe,
     qwen2_1_5b,
     qwen3_4b,
     qwen3_14b,
+    qwen3_moe_235b,
     xlstm_1_3b,
 )
 
@@ -25,15 +28,15 @@ ARCHS = {
     "hymba-1.5b": hymba_1_5b.CONFIG,
     "paligemma-3b": paligemma_3b.CONFIG,
     "xlstm-1.3b": xlstm_1_3b.CONFIG,
+    "phi3.5-moe-42b-a6.6b": phi3_5_moe.CONFIG,
+    "qwen3-moe-235b-a22b": qwen3_moe_235b.CONFIG,
 }
 
 #: The JAX package's configurations that the port lacks -> their family
-#: (ROADMAP Queue 1 #3; command-r-35b is dense, but does not fit one card).
+#: (ROADMAP Queue 1; command-r-35b is dense, but does not fit one card).
 UNPORTED = {
     "command-r-35b": "dense",
     "musicgen-medium": "audio",
-    "phi3.5-moe-42b-a6.6b": "moe",
-    "qwen3-moe-235b-a22b": "moe",
 }
 
 

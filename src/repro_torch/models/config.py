@@ -3,8 +3,8 @@
 
 One frozen dataclass carries every field of the JAX package's, so a
 config crosses between the packages field by field; the port serves the
-dense, hybrid, xlstm and vlm families so far (``models/lm.py`` raises on
-the rest).  Configs are
+dense, hybrid, xlstm, vlm and moe families so far (``models/lm.py``
+raises on the audio family).  Configs are
 built in ``repro_torch/configs/<arch>.py``; ``reduced()`` gives the
 small same-family variant the CPU tests run.
 """
@@ -112,16 +112,18 @@ class ModelConfig:
         )
 
     def n_params(self) -> int:
-        """Total parameter count of a dense-, hybrid-, xlstm- or vlm-family
-        model, analytic and as the JAX package counts it: biases, the
-        hybrid branch norms and the vlm's ``patch_proj`` are left out, and
-        every xlstm block is counted by ``_xlstm_params``."""
-        if self.family not in ("dense", "hybrid", "xlstm", "vlm"):
+        """Total parameter count of a dense-, moe-, hybrid-, xlstm- or
+        vlm-family model, analytic and as the JAX package counts it:
+        biases, the hybrid branch norms and the vlm's ``patch_proj`` are
+        left out, and every xlstm block is counted by ``_xlstm_params``."""
+        if self.family not in ("dense", "moe", "hybrid", "xlstm", "vlm"):
             raise NotImplementedError(f"n_params of family {self.family!r} is not ported")
-        d, L, hd = self.d_model, self.n_layers, self.head_dim
-        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
+        d, L = self.d_model, self.n_layers
+        attn = _attn_params(self)
         if self.family == "xlstm":
             blocks = L * _xlstm_params(self)
+        elif self.family == "moe":
+            blocks = L * (attn + self.n_experts * 3 * d * self.d_ff + d * self.n_experts + 2 * d)
         elif self.family == "hybrid":
             blocks = L * (attn + _ssm_params(self) + 3 * d * self.d_ff + 2 * d)
         else:
@@ -131,6 +133,19 @@ class ModelConfig:
         if self.emb_method != "full" and self.emb_budget:
             emb = self.emb_budget * (1 if self.tie_embeddings else 2)
         return blocks + emb + d
+
+    def n_active_params(self) -> int:
+        """Parameters a token uses: ``n_params`` but for the moe family,
+        whose FFN counts its top_k experts and the router.  As the JAX
+        package counts it, the token table and the head count a full
+        vocab x d each whatever ``emb_method`` is (under CCE far more than
+        the tables hold)."""
+        if self.family != "moe":
+            return self.n_params()
+        d = self.d_model
+        ffn = self.top_k * 3 * d * self.d_ff + d * self.n_experts
+        blocks = self.n_layers * (_attn_params(self) + ffn + 2 * d)
+        return blocks + self.vocab * d * 2 + d
 
     def reduced(self, **overrides) -> "ModelConfig":
         """Small same-family config for CPU tests (the JAX package's
@@ -155,6 +170,12 @@ class ModelConfig:
         )
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+def _attn_params(cfg: ModelConfig) -> int:
+    """q, k, v and output projections of one layer, without biases."""
+    d, hd = cfg.d_model, cfg.head_dim
+    return d * (cfg.n_heads * hd) + 2 * d * (cfg.n_kv_heads * hd) + (cfg.n_heads * hd) * d
 
 
 def _ssm_params(cfg: ModelConfig) -> int:

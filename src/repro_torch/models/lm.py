@@ -1,10 +1,11 @@
-"""Decoder LM of the dense family (qwen2/qwen3 style), the hybrid family
-(hymba: sliding-window attention beside a selective-SSM branch in each
-layer), the xlstm family (xlstm-1.3b: superblocks of mLSTM blocks and
-one sLSTM block, no attention, a recurrent cache) and the vlm family
-(paligemma: a dense gemma backbone whose ``forward`` prepends projected
-patch embeddings to the text), the counterpart of the JAX package's
-``repro/models/lm.py``.
+"""Decoder LM of the dense family (qwen2/qwen3 style), the moe family
+(phi3.5-moe, qwen3-moe: each layer's FFN a top-k mixture of experts,
+``models/moe.py``), the hybrid family (hymba: sliding-window attention
+beside a selective-SSM branch in each layer), the xlstm family
+(xlstm-1.3b: superblocks of mLSTM blocks and one sLSTM block, no
+attention, a recurrent cache) and the vlm family (paligemma: a dense
+gemma backbone whose ``forward`` prepends projected patch embeddings to
+the text), the counterpart of the JAX package's ``repro/models/lm.py``.
 
 The input embedding and the output head are the paper's integration
 points: ``cfg.emb_method`` "cce" makes the token table a CCE table, looked
@@ -28,8 +29,13 @@ input.  The xlstm family's forward under autograd walks its stack the
 same way, two levels deep (superblocks, then their mLSTM blocks), and
 under ``remat="full"`` checkpoints each mLSTM block and, around them,
 each superblock, as the JAX package does.  ``next_token_loss`` is the
-training loss.  Not ported: the MoE and audio families, sinusoidal
-positions and ``remat="dots"``.
+training loss, the moe family's auxiliary load-balancing loss summed
+over the layers and weighted in.  The moe family routes a sequence
+through ``cfg.moe_impl``'s route in ``forward`` ("einsum", "sort" or
+"sort_sm") and through the einsum route in ``prefill`` unless it is
+"sort", and decodes through every expert (``apply_moe_decode``), as the
+JAX package does.  Not ported: the audio family, sinusoidal positions and
+``remat="dots"``.
 """
 from __future__ import annotations
 
@@ -43,15 +49,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import embeddings as emb_lib
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.config import ModelConfig
 
 
 def _check(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "hybrid", "xlstm", "vlm"):
+    if cfg.family not in ("dense", "moe", "hybrid", "xlstm", "vlm"):
         raise NotImplementedError(f"LM family {cfg.family!r} is not ported "
-                                  f"(dense, hybrid, xlstm and vlm only)")
+                                  f"(dense, moe, hybrid, xlstm and vlm only)")
     if cfg.pos_emb not in ("rope", "none"):
         raise NotImplementedError(f"pos_emb={cfg.pos_emb!r} is not ported")
     L.check_attention(cfg)
@@ -89,7 +96,9 @@ def _init_layer(generator: torch.Generator, cfg: ModelConfig, device):
         p["ssm_norm"] = torch.ones((cfg.d_model,), dtype=cfg.param_dtype, device=device)
     if not cfg.parallel_block:
         p["ln2"] = L.init_norm(cfg, device=device)
-    if cfg.d_ff:
+    if cfg.family == "moe":
+        p["moe"] = moe_lib.init_moe(generator, cfg, device=device)
+    elif cfg.d_ff:
         p["mlp"] = L.init_mlp(generator, cfg, device=device)
     return p
 
@@ -98,6 +107,32 @@ def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
+
+
+def _stack_layers(make, n: int):
+    """``_stack`` of ``make()`` called ``n`` times, each layer copied into
+    the stacked tensors as it is made: a full-width moe layer holds 5.2 GB
+    of float32, so ``n`` layers beside their stack would not fit a card."""
+    first = make()
+
+    def empty(t):
+        if isinstance(t, dict):
+            return {k: empty(v) for k, v in t.items()}
+        return t.new_empty((n, *t.shape))
+
+    def put(out, t, i):
+        if isinstance(t, dict):
+            for k in t:
+                put(out[k], t[k], i)
+        else:
+            out[i].copy_(t)
+
+    out = empty(first)
+    put(out, first, 0)
+    del first
+    for i in range(1, n):
+        put(out, make(), i)
+    return out
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
@@ -113,8 +148,8 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     if cfg.family == "xlstm":
         params["blocks"] = _init_xlstm_stack(generator, cfg, device)
     else:
-        params["blocks"] = _stack([_init_layer(generator, cfg, device)
-                                   for _ in range(cfg.n_layers)])
+        params["blocks"] = _stack_layers(lambda: _init_layer(generator, cfg, device),
+                                         cfg.n_layers)
     params["ln_f"] = L.init_norm(cfg, device=device)
     if cfg.tie_embeddings:
         pass  # head reuses emb params
@@ -214,7 +249,8 @@ def logits_fn(params, buffers, cfg: ModelConfig, h):
 def _block_train(p, cfg: ModelConfig, x, positions, freqs, *, decode_cache=None):
     """One block over a full sequence, or one decode token when
     ``decode_cache`` (this layer's rows of the cache, written in place) is
-    given.  Returns x."""
+    given.  Returns (x, aux): aux the moe family's load-balancing loss
+    over a sequence, else None."""
     h = L.apply_norm(p["ln1"], x)
     if decode_cache is None:
         attn = L.attention_train(p["attn"], cfg, h, positions, freqs)
@@ -229,14 +265,22 @@ def _block_train(p, cfg: ModelConfig, x, positions, freqs, *, decode_cache=None)
                                              decode_cache["conv"])
             decode_cache["ssm"].copy_(hst)
             decode_cache["conv"].copy_(cst)
-        return _hybrid_out(p, cfg, x, attn, s)
+        return _hybrid_out(p, cfg, x, attn, s), None
     if cfg.parallel_block:
         # command-r: attn and FFN both read ln1(x), summed into the residual
-        return x + attn + L.apply_mlp(p["mlp"], cfg, h)
+        return x + attn + L.apply_mlp(p["mlp"], cfg, h), None
     x = x + attn
+    if cfg.family == "moe":
+        h2 = L.apply_norm(p["ln2"], x)
+        if decode_cache is not None:
+            return x + moe_lib.apply_moe_decode(p["moe"], cfg, h2), None
+        route = {"sort": moe_lib.apply_moe_sort, "sort_sm": moe_lib.apply_moe_sort_sm,
+                 "einsum": moe_lib.apply_moe}[cfg.moe_impl]
+        mo, aux = route(p["moe"], cfg, h2, group_size=cfg.moe_group)
+        return x + mo, aux
     if cfg.d_ff:
         x = x + L.apply_mlp(p["mlp"], cfg, L.apply_norm(p["ln2"], x))
-    return x
+    return x, None
 
 
 def _hybrid_out(p, cfg: ModelConfig, x, attn, s):
@@ -255,8 +299,8 @@ def forward(params, buffers, cfg: ModelConfig, batch):
     the vlm family, optionally "patch_emb" (B, n_patches, d): projected
     by ``patch_proj`` in ``cfg.dtype`` and prepended to the text, with
     positions over the whole sequence; only the text positions give
-    logits.  Returns (logits (B, S, vocab), aux), aux a float32 zero (no
-    ported family has an auxiliary loss)."""
+    logits.  Returns (logits (B, S, vocab), aux), aux float32: the moe
+    family's load-balancing losses summed over the layers, else zero."""
     _check(cfg)
     tokens = batch["tokens"]
     x = embed(params, buffers, cfg, tokens)
@@ -275,16 +319,15 @@ def forward(params, buffers, cfg: ModelConfig, batch):
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     freqs = L.rope_freqs(cfg, device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unstack(params["blocks"], cfg.n_layers):
-        if remat:
-            x = checkpoint(_block_train, lp, cfg, x, positions, freqs, use_reentrant=False)
-        else:
-            x = _block_train(lp, cfg, x, positions, freqs)
+        x, aux = _maybe_checkpoint(remat, _block_train, lp, cfg, x, positions, freqs)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = L.apply_norm(params["ln_f"], x)
     if patches:
         x = x[:, -tokens.shape[1]:]
-    return logits_fn(params, buffers, cfg, x), torch.zeros((), dtype=torch.float32,
-                                                           device=x.device)
+    return logits_fn(params, buffers, cfg, x), aux_total
 
 
 _XLSTM_STATE = {"m": ("C", "n", "m"), "s": ("s_c", "s_n", "s_h", "s_m")}  # cache keys a block
@@ -437,8 +480,8 @@ def decode_step(params, buffers, cfg: ModelConfig, tokens, pos, cache):
     pos = pos.to(torch.int64)
     for i in range(cfg.n_layers):
         lc = {key: c[i] for key, c in cache.items()}
-        x = _block_train(layer_params(params["blocks"], i), cfg, x, pos, freqs,
-                         decode_cache=lc)
+        x, _ = _block_train(layer_params(params["blocks"], i), cfg, x, pos, freqs,
+                            decode_cache=lc)
     x = L.apply_norm(params["ln_f"], x)
     return logits_fn(params, buffers, cfg, x[:, 0]), cache
 
@@ -518,7 +561,12 @@ def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None):
             x = x + attn + L.apply_mlp(lp["mlp"], cfg, h)
             continue
         x = x + attn
-        if cfg.d_ff:
+        if cfg.family == "moe":
+            # the JAX package's prefill takes the einsum route under "sort_sm"
+            route = moe_lib.apply_moe_sort if cfg.moe_impl == "sort" else moe_lib.apply_moe
+            x = x + route(lp["moe"], cfg, L.apply_norm(lp["ln2"], x),
+                          group_size=cfg.moe_group)[0]
+        elif cfg.d_ff:
             x = x + L.apply_mlp(lp["mlp"], cfg, L.apply_norm(lp["ln2"], x))
     x = L.apply_norm(params["ln_f"], x[:, last])
     return logits_fn(params, buffers, cfg, x), cache

@@ -165,7 +165,7 @@ def test_convert_round_trip(model):
 
 @pytest.mark.parametrize("override", [
     dict(pos_emb="sinusoidal"), dict(logit_softcap=30.0), dict(attn_impl="dense_bf16p"),
-    dict(family="moe", n_experts=4, top_k=2),
+    dict(family="audio", n_codebooks=4),
 ])
 def test_unported_variants_raise(override):
     cfg = dataclasses.replace(tconfigs.get_reduced("qwen2-1.5b"), **override)
