@@ -44,9 +44,10 @@
 7. Holds the flash-attention kernel against its plain version (float32
    and bfloat16 at both CTA heights, GQA and plain heads, hymba's group
    of 5 among them, D 64 and 128, ragged lengths, causal and not; and
-   paligemma-3b's MQA heads at D 256, 64-row CTAs) and times it beside
-   ``scaled_dot_product_attention`` at the LM's prefill buckets and at
-   hymba-1.5b's, paligemma-3b's and phi3.5-moe's heads.
+   paligemma-3b's MQA heads at D 256, 64-row CTAs; musicgen-medium's 24
+   MHA heads of 64) and times it beside ``scaled_dot_product_attention`` at
+   the LM's prefill buckets and at hymba-1.5b's, paligemma-3b's,
+   phi3.5-moe's and musicgen-medium's heads.
 8. Serves full-width qwen2-1.5b (28 layers, CCE token table and factored
    CCE head, random weights from a seed) through the LM ``ServeEngine``:
    16 requests of 16-1900 prompt tokens over 8 slots, 16 greedy tokens
@@ -103,6 +104,18 @@
    what none reached compared), the lookup at its table in float32 and
    bfloat16 bit for bit; times the MoE layers' share of a prefill's and a
    tick's busy.
+15. Runs musicgen-medium at full width and depth (48 layers, d 1536, 24
+   MHA heads of 64, 4 codebooks of 2048 summed at the input and predicted
+   by 4 heads, a full table, layernorm, GELU, sinusoidal positions,
+   random weights from a seed) through ``lm.prefill`` and
+   ``lm.decode_step`` (the engine takes no codebook model, as in JAX;
+   ``audio_serve``, run before item 12): 8 requests of 16-1500 frames,
+   each prefilled alone into its own row of an 8-row cache, then 16
+   batched greedy ticks: flash in every prefill; holds the longest request
+   alone against its row, a 2-layer cut's prefill and 4 decode steps
+   against CPU copies; then trains the reduced CCE model through
+   ``launch.train.main`` as a user runs it (both lookup kernels, the
+   assignment), holding each kernel at its shapes there.
 Each path runs with the launch counts reset just before it and read just
 after.  Prints the kernels' JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -111,7 +124,7 @@ after.  Prints the kernels' JSON line, the card line and, last,
 
 runs only the named phases (of lookup, bwd, kmeans, train, loop, serve,
 methods, flash, lm_serve, hybrid_serve, vlm_serve, xlstm_serve, moe_serve,
-lm_train, xlstm_train) and prints neither result line.
+audio_serve, lm_train, xlstm_train) and prints neither result line.
 
 Exits non-zero, with no result line, when there is no CUDA device, when the
 port is missing, or when any phase fails.  Imports nothing of JAX.
@@ -213,6 +226,7 @@ FLASH_HYMBA_TIMED = (128, 512, 1024)  # bf16, hymba-1.5b's heads at D 64: its fl
 # alone, not crossed with FLASH_HEADS, and timed at FLASH_TIMED
 FLASH_PALIGEMMA = (8, 1, 256)
 FLASH_MOE = (32, 8, 128)  # (H, KVH, D) of phi3.5-moe-42b-a6.6b, timed at FLASH_TIMED
+FLASH_MUSICGEN = (24, 24, 64)  # musicgen-medium's MHA: checked, and timed at FLASH_TIMED
 # kernel vs plain on unit-normal inputs: float32 sums in another order;
 # bfloat16 rounds P to bf16 for the tensor cores and the output once
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -263,6 +277,18 @@ MOE_FLIP_SHARE = 0.05
 # card vs CPU prefill logits, relative to the largest logit: float32 sums
 # in other orders; bfloat16 also rounds every activation (8 mantissa bits)
 LM_LOGIT_RTOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# musicgen-medium (the audio_serve phase): 8 requests of 4 codebook streams
+# whose prompts have 16-1500 frames (1500 frames are 30 s of EnCodec at 50
+# Hz), each prefilled alone into its own row of an 8-row cache, then
+# batched greedy decode ticks, every row at its own position
+AUDIO_ARCH = "musicgen-medium"
+AUDIO_REQUESTS = 8
+AUDIO_PROMPTS = (16, 1500)  # frames, uniform
+AUDIO_MAX_SEQ = 2048
+AUDIO_TICKS = 16
+AUDIO_CHECK_DECODE = 4  # decode steps of the cut after its LM_CHECK_PROMPT prefill
+# the launcher as a user runs it: the reduced CCE model (transitions at steps 2 and 4)
+AUDIO_LAUNCHER = ("--arch", AUDIO_ARCH, "--steps", "4", "--cluster-every", "2")
 # LM training (launch.train.build_lm_trainer): train_4k's 256 sequences of
 # 4096 tokens in microbatches of 32 (src/repro/launch/shapes.py) cut to one
 # microbatch of 2: at 32 the float32 logits alone take 80 GB
@@ -2625,10 +2651,11 @@ def flash_phase(card: str, device="cuda"):
     (B, H, S, D)-layout view read in place.  Times the kernel, the plain
     version and SDPA at FLASH_TIMED with qwen2-1.5b's heads, at
     FLASH_HYMBA_TIMED with hymba-1.5b's, at FLASH_TIMED with
-    paligemma-3b's (D 256) and with phi3.5-moe's (FLASH_MOE).  Returns
-    ({dtype: max error}, {S: numbers}, {S: numbers at hymba's heads}, {S:
-    numbers at paligemma's}, {dtype: max error at paligemma's}, {S:
-    numbers at phi3.5-moe's})."""
+    paligemma-3b's (D 256), with phi3.5-moe's (FLASH_MOE) and with
+    musicgen-medium's (FLASH_MUSICGEN).  Returns ({dtype: max error}, {S:
+    numbers}, {S: numbers at hymba's heads}, {S: numbers at paligemma's},
+    {dtype: max error at paligemma's}, {S: numbers at phi3.5-moe's}, {S:
+    numbers at musicgen-medium's})."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -2638,7 +2665,8 @@ def flash_phase(card: str, device="cuda"):
     paligemma_err = dict(max_err)  # the FLASH_PALIGEMMA cases alone
     max_row_err = 0.0
     n_cases = 0
-    heads_dims = [(H, KVH, D) for H, KVH in FLASH_HEADS for D in FLASH_DIMS] + [FLASH_PALIGEMMA]
+    heads_dims = ([(H, KVH, D) for H, KVH in FLASH_HEADS for D in FLASH_DIMS]
+                  + [FLASH_PALIGEMMA, FLASH_MUSICGEN])
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         tol = FLASH_TOL[dn]
@@ -2682,7 +2710,8 @@ def flash_phase(card: str, device="cuda"):
                         paligemma_err[dn] = max(paligemma_err[dn], err)
                 n_cases += 1
     print(f"[{card}] flash_attention: {n_cases} cases (heads {FLASH_HEADS}, D {FLASH_DIMS}, "
-          f"and (H, KVH, D) {FLASH_PALIGEMMA}; causal S {FLASH_LENGTHS}, non-causal (Sq, S) "
+          f"and (H, KVH, D) {FLASH_PALIGEMMA} and {FLASH_MUSICGEN}; causal S {FLASH_LENGTHS}, "
+          f"non-causal (Sq, S) "
           f"{FLASH_NONCAUSAL}) in float32 and bfloat16 (at 64 and 128 query rows a CTA, 64 "
           f"at D 256): max_abs_err {max_err!r} (at D 256 {paligemma_err!r}), bfloat16 "
           f"max_row_scaled_err {max_row_err!r} (<= {FLASH_ROW_TOL!r}), repeatable, "
@@ -2710,7 +2739,8 @@ def flash_phase(card: str, device="cuda"):
     at_paligemma = {S: flash_timed(card, S, *FLASH_PALIGEMMA, device=device)
                     for S in FLASH_TIMED}
     at_moe = {S: flash_timed(card, S, *FLASH_MOE, device=device) for S in FLASH_TIMED}
-    return max_err, at, at_hymba, at_paligemma, paligemma_err, at_moe
+    at_musicgen = {S: flash_timed(card, S, *FLASH_MUSICGEN, device=device) for S in FLASH_TIMED}
+    return max_err, at, at_hymba, at_paligemma, paligemma_err, at_moe, at_musicgen
 
 
 def _lm_prompts(cfg):
@@ -3407,6 +3437,245 @@ def moe_serve_phase(card: str, cfg, device="cuda"):
                           idle_prefills=MOE_IDLE_PREFILLS)
 
 
+def _audio_prompts(cfg) -> list:
+    """AUDIO_REQUESTS prompts of (frames, n_codebooks) int32, their lengths
+    uniform over AUDIO_PROMPTS (from LM_SEED), each from its own step of
+    ``lm_token_batches(n_codebooks=...)`` (no delay pattern: the model's
+    inputs have it applied upstream)."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import lm_token_batches
+
+    lens = np.random.default_rng(LM_SEED).integers(AUDIO_PROMPTS[0], AUDIO_PROMPTS[1] + 1,
+                                                   AUDIO_REQUESTS)
+    return [next(lm_token_batches(cfg.vocab, 1, int(n), seed=LM_SEED, start_step=i,
+                                  n_codebooks=cfg.n_codebooks))["tokens"][0]
+            for i, n in enumerate(lens)]
+
+
+def audio_serve(cfg, params, buffers, prompts, device="cuda", timings=None):
+    """The audio family served through ``lm.prefill`` and ``lm.decode_step``
+    (the engine refuses codebooks, as the JAX package's does): a cache of
+    AUDIO_REQUESTS rows and AUDIO_MAX_SEQ frames, each prompt prefilled
+    alone and unpadded into its own row, then AUDIO_TICKS batched decode
+    ticks over every row, each at its own position, greedy (an argmax per
+    codebook); rows past the prompts idle at position 0.  ``timings`` (a
+    dict) gets the host ms of each prefill by length and of each tick.
+    Returns (frames (AUDIO_TICKS + 1, len(prompts), n_codebooks) on the
+    CPU: the prefills' picks, then each tick's; the prefill logits (cb,
+    vocab) of each prompt)."""
+    import torch
+
+    from repro_torch.models import lm
+
+    cache = lm.init_cache(cfg, AUDIO_REQUESTS, AUDIO_MAX_SEQ, device=device)
+    nxt = torch.zeros((AUDIO_REQUESTS, cfg.n_codebooks), dtype=torch.int64, device=device)
+    pos = torch.zeros((AUDIO_REQUESTS,), dtype=torch.int64, device=device)
+    logits, frames = [], []
+
+    def timed(kind, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        if timings is not None:
+            timings.setdefault(kind, []).append((time.perf_counter() - t) * 1e3)
+        return out
+
+    with torch.inference_mode():
+        for row, p in enumerate(prompts):
+            toks = torch.from_numpy(p.astype("int64")).to(device)[None]
+            view = {k: c.narrow(1, row, 1) for k, c in cache.items()}
+            out, _ = timed(len(p), lambda: lm.prefill(params, buffers, cfg, toks, view))
+            logits.append(out[0])
+            nxt[row] = out[0].argmax(-1)
+            pos[row] = len(p)
+        frames.append(nxt[:len(prompts)].cpu())
+        for _ in range(AUDIO_TICKS):
+            out, _ = timed("tick", lambda: lm.decode_step(params, buffers, cfg, nxt, pos, cache))
+            nxt = out.argmax(-1)
+            pos += 1
+            frames.append(nxt[:len(prompts)].cpu())
+    return torch.stack(frames), logits
+
+
+def audio_launcher(card: str) -> dict:
+    """``launch.train.main`` with AUDIO_LAUNCHER on the card, the launch
+    counts reset just before and read just after: the reduced CCE model
+    (vocab x n_codebooks rows of codebook-offset tokens, no tracker), one
+    lookup and one backward a step, one assignment a transition.  Then
+    each kernel against its plain version at the shapes the run gave it:
+    the lookup on its first batch's rows through the trained table, and
+    the backward on them with a unit-normal dout, bit for bit; the
+    assignment at (c, the table's rows, k, dsub) within ASSIGN_RTOL of the
+    plain minimum.  Returns the launch counts."""
+    import torch
+
+    from repro_torch.kernels import cce_lookup as cl
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import lm
+
+    ops.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    tr = launch_train.main(list(AUDIO_LAUNCHER))
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    losses = [h["loss"] for h in tr.history]
+    steps = int(tr.state.step)
+    check(tr.id_tracker is None and all(math.isfinite(x) for x in losses),
+          f"audio launcher: tracker {tr.id_tracker}, losses {losses}")
+    check(launches.get("cce_lookup_fwd") == launches.get("cce_lookup_bwd") == steps
+          and launches.get("kmeans_assign") == tr.clusters_done >= 1,
+          f"audio launcher launches {launches} != a lookup and a backward a step "
+          f"({steps}), an assignment a transition ({tr.clusters_done})")
+    args = launch_train.parser().parse_args(list(AUDIO_LAUNCHER))
+    cfg = launch_train.lm_config(args.arch, args.emb)
+    table = lm.make_emb(cfg)
+    toks = torch.from_numpy(next(launch_train.lm_data(cfg, args)(0))["tokens"]).long()
+    ids = toks + torch.arange(cfg.n_codebooks) * cfg.vocab  # embed's rows
+    tables = tr.state.params["emb"]["tables"].contiguous()
+    idx = table._rows(tr.state.ebuf["emb"], ids.reshape(-1).to(tables.device)).reshape(
+        table.c, -1, 2)
+    check(torch.equal(cl.cce_lookup_fwd(idx, tables), ref.cce_lookup_ref(idx, tables)),
+          "audio launcher: the lookup kernel != plain at its rows")
+    dout = torch.randn((idx.shape[1], table.c, table.dsub), device=tables.device,
+                       generator=torch.Generator(device=tables.device).manual_seed(LM_SEED))
+    shape = f"c={table.c} B={idx.shape[1]} k={table.k} dsub={table.dsub} {cl_path(tables)}"
+    bwd_err, _ = bwd_check(card, f"audio launcher {shape}", idx, dout, table.k, timed=False)
+    *_, excess, agree = check_batched_assign(table.c, table.d1, table.k, table.dsub,
+                                             tables.device)
+    check(excess <= ASSIGN_RTOL, f"audio launcher: assignment excess {excess} at its shape")
+    print(f"[{card}] audio launcher: main({list(AUDIO_LAUNCHER)}) on the card in {wall!r} s: "
+          f"{steps} steps, {tr.clusters_done} transitions (no tracker: rows sampled "
+          f"uniformly), losses {losses}; launches {launches}; at its shapes the lookup "
+          f"({shape}) equal to plain, the backward equal to plain ({bwd_err!r}), the "
+          f"assignment at ({table.c}, {table.d1}, {table.k}, {table.dsub}) within {excess!r} "
+          f"of the plain minimum (equal picks {agree!r})", flush=True)
+    return launches
+
+
+def audio_serve_phase(card: str, cfg, device="cuda"):
+    """Full-width musicgen-medium (48 layers, MHA of 24 heads of 64, a
+    full table of 4 x 2048 rows and 4 heads, sinusoidal positions) from a
+    CUDA generator, served by ``audio_serve`` with the launch counts reset
+    just before and read just after (flash once a layer a prefill, no
+    other kernel); then the longest request alone against its row in the
+    batch (frames and prefill logits), the host time, device busy and idle
+    share of one tick and of a prefill of AUDIO_PROMPTS[1] frames with their
+    top kernels, the peak
+    less what earlier phases left, the params the init holds beside the
+    JAX package's formula, a LM_CHECK_LAYERS cut on the card against CPU
+    copies (``lm_cut_check``: a LM_CHECK_PROMPT-frame prefill, then
+    AUDIO_CHECK_DECODE decode steps), and the launcher as a user runs it
+    (``audio_launcher``).  Returns (launches, the launcher's launches,
+    numbers)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    left = torch.cuda.memory_allocated()  # what earlier phases left allocated
+    params, buffers = lm.init(cfg, torch.Generator(device=device).manual_seed(LM_SEED),
+                              device=device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    on_card = (torch.cuda.memory_allocated() - left) / 2**30 if device == "cuda" else 0.0
+    print(f"[{card}] audio init: {cfg.name} {cfg.n_layers}L d={cfg.d_model} {cfg.n_heads}H/"
+          f"{cfg.n_kv_heads}KV hd={cfg.head_dim} ff={cfg.d_ff} vocab={cfg.vocab} x "
+          f"{cfg.n_codebooks} codebooks norm={cfg.norm} act={cfg.act} pos={cfg.pos_emb} "
+          f"emb={cfg.emb_method}: {n_params} params (the JAX package's formula "
+          f"{cfg.n_params()}: it counts the table as vocab x d and no biases), {on_card:.2f} GiB "
+          f"on the card, {time.perf_counter() - t0:.3f} s", flush=True)
+    prompts = _audio_prompts(cfg)
+    audio_serve(cfg, params, buffers, [p[:AUDIO_PROMPTS[0]] for p in prompts[:2]],
+                device)  # first-call set-up (cuBLAS handles, the kernels' libraries) stays out
+    timings = {}
+    reset_peak()
+    ops.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    frames, logits = audio_serve(cfg, params, buffers, prompts, device, timings)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    raw_peak = torch.cuda.max_memory_allocated()
+    peak = (raw_peak - left) / 1e9
+    check(launches == {"flash_attention": cfg.n_layers * AUDIO_REQUESTS},
+          f"audio serve launches {launches} != flash {cfg.n_layers} x {AUDIO_REQUESTS} prefills")
+    check(tuple(frames.shape) == (AUDIO_TICKS + 1, AUDIO_REQUESTS, cfg.n_codebooks)
+          and bool(((frames >= 0) & (frames < cfg.vocab)).all())
+          and all(bool(torch.isfinite(x).all()) for x in logits),
+          f"audio serve: frames {tuple(frames.shape)} or logits out of range")
+    n_frames = frames.shape[0] * frames.shape[1]
+    ticks = timings.pop("tick")
+    print(f"[{card}] audio serve: {AUDIO_REQUESTS} requests (prompts "
+          f"{sorted(len(p) for p in prompts)} frames of {cfg.n_codebooks} codebooks), each "
+          f"prefilled alone into its row of a cache of {AUDIO_REQUESTS} rows and {AUDIO_MAX_SEQ} "
+          f"frames, then {AUDIO_TICKS} batched greedy ticks: {n_frames} frames in {wall!r} s "
+          f"({n_frames / wall!r} frames/s); prefill host ms by length "
+          + ", ".join(f"{n}: {v[0]!r}" for n, v in sorted(timings.items()))
+          + f"; tick host ms median {statistics.median(ticks)!r} (min {min(ticks)!r}, max "
+          f"{max(ticks)!r}); launches {launches}; peak {peak!r} GB allocated ({raw_peak / 1e9!r}"
+          f" GB less the {left / 1e9!r} GB earlier phases left)", flush=True)
+    numbers = dict(frames_per_s=n_frames / wall, tick_ms=statistics.median(ticks),
+                   prefill_ms={n: v[0] for n, v in timings.items()}, peak_gb=peak,
+                   n_params=n_params, n_params_formula=cfg.n_params())
+
+    # the longest request alone: its frames and prefill logits as in the batch
+    solo = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    alone, alone_logits = audio_serve(cfg, params, buffers, [prompts[solo]], device)
+    same = torch.equal(alone[:, 0], frames[:, solo])
+    dn = str(cfg.dtype).split(".")[-1]
+    solo_err = _max_rel(alone_logits[0], logits[solo].cpu())
+    check(same, f"request {solo} alone gives frames {alone[:, 0].tolist()} != its row in the "
+          f"batch {frames[:, solo].tolist()}")
+    check(solo_err <= LM_LOGIT_RTOL[dn], f"request {solo}'s prefill logits alone vs in the "
+          f"batch: {solo_err} of the largest > {LM_LOGIT_RTOL[dn]}")
+    numbers["solo_logits_max_rel_err"] = solo_err
+    print(f"[{card}] audio serve: request {solo} ({len(prompts[solo])} frames) alone gives "
+          f"its batch frames ({AUDIO_TICKS + 1} x {cfg.n_codebooks}, first "
+          f"{frames[:3, solo].tolist()}) and its prefill logits within {solo_err!r} of the "
+          f"largest (tolerance {LM_LOGIT_RTOL[dn]})", flush=True)
+    del logits, alone_logits
+
+    # host, device busy and idle share of one tick and of the longest prefill
+    cache = lm.init_cache(cfg, AUDIO_REQUESTS, AUDIO_MAX_SEQ, device=device)
+    row0 = {k: c.narrow(1, 0, 1) for k, c in cache.items()}
+    longest = np.resize(np.concatenate(prompts), (AUDIO_PROMPTS[1], cfg.n_codebooks))
+    toks = torch.from_numpy(longest.astype(np.int64)).to(device)[None]
+    nxt = frames[-1].to(device)
+    pos = torch.tensor([len(p) for p in prompts], device=device)
+    with torch.inference_mode():
+        cases = [("decode tick", lambda: lm.decode_step(params, buffers, cfg, nxt, pos, cache)),
+                 (f"prefill {AUDIO_PROMPTS[1]}",
+                  lambda: lm.prefill(params, buffers, cfg, toks, row0))]
+        for name, fn in cases:
+            fn()
+            host = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t) * 1e3)
+            busy = device_busy_ms(fn)
+            top = top_kernels(fn, 5)
+            h = statistics.median(host)
+            numbers[name] = dict(host_ms=h, busy_ms=busy, idle_share=1 - busy / h,
+                                 top_kernels=top)
+            print(f"[{card}] audio serve {name}: host {h!r} ms, device busy {busy!r} ms "
+                  f"(idle share {1 - busy / h!r}); top kernels (ms a call) {top}", flush=True)
+    del cache, row0
+    cut = lm_cut_check(card, "audio", cfg, params, buffers,
+                       np.resize(prompts[-1], (LM_CHECK_PROMPT, cfg.n_codebooks)),
+                       AUDIO_CHECK_DECODE, device=device)
+    numbers["cut_max_rel_err"] = cut
+    del params, buffers
+    return launches, audio_launcher(card), numbers
+
+
 def lm_table_assign_numbers(card: str, x, cent, ptr, *,
                             library_by_column: bool = False) -> tuple[float, dict]:
     """The assignment kernel at the LM token table's transition: x the
@@ -3436,17 +3705,16 @@ def _lm_batch(vocab: int, batch: int, seq: int, seed: int, step: int):
 
 
 def lm_train_phase(card: str, cfg, device="cuda", *, label="lm", batch=LM_TRAIN_BATCH,
-                   steps=LM_TRAIN_STEPS, post=LM_TRAIN_POST, user_step=True):
+                   steps=LM_TRAIN_STEPS, post=LM_TRAIN_POST):
     """Full-width LM training through ``launch.train.build_lm_trainer``:
     ``steps`` steps of ``batch`` x LM_TRAIN_SEQ tokens, the CCE token
     table's transition from the dense token counts (moments remapped),
     ``post`` more steps, with the launch counts reset just before and read
     just after; the transition's invariants, its by-phase host ms and
     device busy (a second run from the same inputs, bitwise equal), the
-    step's host ms, device busy and top kernels, the peak memory less what
-    was allocated at the reset and at the phase's start, and, with
-    ``user_step``, one more step as a user runs it (the token generator
-    inline).  For the xlstm family the step's busy and top kernels come
+    step's host ms, device busy and top kernels, and the peak memory less
+    what was allocated at the reset and at the phase's start.  For the
+    xlstm family the step's busy and top kernels come
     from the first step's raw trace, its host from the steps after it, and
     the 6 sLSTM blocks' share of the step's host (summed inside the timed
     steps: ``slstm_seq``'s forwards and the recurrence's backward) and of
@@ -3477,7 +3745,7 @@ def lm_train_phase(card: str, cfg, device="cuda", *, label="lm", batch=LM_TRAIN_
     from repro_torch.core import hashing
     from repro_torch.core import kmeans as km
     from repro_torch.kernels import ops
-    from repro_torch.launch.train import build_lm_trainer, lm_data, run_with_restart
+    from repro_torch.launch.train import build_lm_trainer, run_with_restart
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     from repro_torch.models import xlstm as xlstm_lib
@@ -3796,22 +4064,6 @@ def lm_train_phase(card: str, cfg, device="cuda", *, label="lm", batch=LM_TRAIN_
               f"(3 a block under remat) host {m_host!r} ms", flush=True)
         del sp, x, hin, w
 
-    if user_step:
-        # a step as a user of build_lm_trainer runs it: the default lm_data
-        # generator inline on the host, not overlapped with the step
-        trainer.train_step, trainer.cluster_every = orig_step, 0
-        trainer.data_iter = lm_data(cfg, args)(int(trainer.state.step))
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        trainer.run(1)
-        torch.cuda.synchronize()
-        user_ms = (time.perf_counter() - t) * 1e3
-        check(math.isfinite(trainer.history[-1]["loss"]),
-              "the user's step gave a non-finite loss")
-        print(f"[{card}] {label} train step as users run it (lm_data's generator inline, then "
-              f"the step, synchronised): {user_ms!r} ms host (the step alone {host!r} ms, a "
-              f"batch alone {data_ms!r} ms in its process)", flush=True)
-
     # the kernels at this slice's shapes, on the path's own inputs
     toks = torch.from_numpy(raw[0]["tokens"]).to(device).reshape(-1)
     idx = table._rows(seen["old_b"], toks).reshape(table.c, -1, 2)
@@ -3869,11 +4121,10 @@ def lm_train_phase(card: str, cfg, device="cuda", *, label="lm", batch=LM_TRAIN_
 def xlstm_train_phase(card: str, cfg, device="cuda"):
     """``lm_train_phase`` on the xlstm family (xlstm-1.3b): XLSTM_TRAIN_STEPS
     steps of XLSTM_TRAIN_BATCH x LM_TRAIN_SEQ tokens, the transition,
-    XLSTM_TRAIN_POST step(s), the first traced; no step with the generator
-    inline (the sLSTM's host loops make a step ~20 s); the cut is the
-    first mLSTM and first sLSTM block."""
+    XLSTM_TRAIN_POST step(s), the first traced; the cut is the first mLSTM
+    and first sLSTM block."""
     return lm_train_phase(card, cfg, device, label="xlstm", batch=XLSTM_TRAIN_BATCH,
-                          steps=XLSTM_TRAIN_STEPS, post=XLSTM_TRAIN_POST, user_step=False)
+                          steps=XLSTM_TRAIN_STEPS, post=XLSTM_TRAIN_POST)
 
 KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call it replaces)
     "cce_lookup_fwd": ("src/repro_torch/kernels/csrc/cce_lookup.cu",
@@ -3886,7 +4137,8 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call it replaces)
                         "src/repro/kernels/flash_attention.py:97"),
 }
 PHASES = ("lookup", "bwd", "kmeans", "train", "loop", "serve", "methods", "flash", "lm_serve",
-          "hybrid_serve", "vlm_serve", "xlstm_serve", "moe_serve", "lm_train", "xlstm_train")
+          "hybrid_serve", "vlm_serve", "xlstm_serve", "moe_serve", "audio_serve", "lm_train",
+          "xlstm_train")
 
 
 def main(argv=None) -> int:
@@ -3966,6 +4218,9 @@ def main(argv=None) -> int:
     moe = phase("moe_serve", moe_serve_phase, card, configs.get(MOE_ARCH, n_layers=MOE_LAYERS))
     if moe is not None:
         launches["moe_serve"] = moe[0]
+    audio = phase("audio_serve", audio_serve_phase, card, configs.get(AUDIO_ARCH))
+    if audio is not None:
+        launches["audio_serve"], launches["audio_train"] = audio[0], audio[1]
     lm_train = phase("lm_train", lm_train_phase, card, configs.get(LM_ARCH))
     if lm_train is not None:
         launches.update(lm_train[0])
@@ -3977,8 +4232,8 @@ def main(argv=None) -> int:
               f"(a partial run: no result line)")
         return 0
     (fwd_err, fwd_at), (bwd_err, bwd_at), (assign_err, assign_at) = fwd, bwd, assign
-    flash_err, flash_at, flash_hymba_at, flash_paligemma_at, flash_paligemma_err, flash_moe_at = (
-        flash)
+    (flash_err, flash_at, flash_hymba_at, flash_paligemma_at, flash_paligemma_err, flash_moe_at,
+     flash_musicgen_at) = flash
     lm_lookup, hybrid_lookup, vlm_lookup, xlstm_lookup, moe_lookup = (
         lm_out[1], hybrid[1], vlm[1], xlstm[1], moe[1])
     _, methods_err, methods_at, _ = methods
@@ -3994,7 +4249,8 @@ def main(argv=None) -> int:
                 "launches": sum(launches[p].get(name, 0) for p in main_paths),
                 "launches_by_path": by_path(name), "max_abs_err": err, **at, **extra}
 
-    steps = ("train", "train_after_transition", "loop", "methods", "lm_train", "xlstm_train")
+    steps = ("train", "train_after_transition", "loop", "methods", "lm_train", "xlstm_train",
+             "audio_train")
     S = FLASH_TIMED[-1]
     kernels = [
         entry("cce_lookup_fwd",
@@ -4010,10 +4266,12 @@ def main(argv=None) -> int:
         entry("cce_lookup_bwd", steps, max(bwd_err, methods_err, lm_bwd_err, xl_bwd_err), bwd_at,
               batch=TRAIN_BATCH, at_lm_train_shape=lm_bwd_at, at_xlstm_train_shape=xl_bwd_at,
               **{f"at_{m}_shape": methods_at[m]["bwd"] for m in METHOD_KERNEL_SHAPES}),
-        entry("kmeans_assign", ("transition", "loop", "methods", "lm_train", "xlstm_train"),
+        entry("kmeans_assign",
+              ("transition", "loop", "methods", "lm_train", "xlstm_train", "audio_train"),
               max(assign_err, lm_assign_err, xl_assign_err), assign_at,
               at_lm_table_shape=lm_assign_at, at_xlstm_table_shape=xl_assign_at),
-        entry("flash_attention", ("lm_serve", "hybrid_serve", "vlm_serve", "moe_serve"),
+        entry("flash_attention",
+              ("lm_serve", "hybrid_serve", "vlm_serve", "moe_serve", "audio_serve"),
               flash_err["bfloat16"],
               flash_at[S],
               max_abs_err_float32=flash_err["float32"],
@@ -4033,7 +4291,11 @@ def main(argv=None) -> int:
               at_phi3_5_moe_shape=dict(
                   shape=dict(B=1, H=FLASH_MOE[0], KVH=FLASH_MOE[1], D=FLASH_MOE[2],
                              dtype="bfloat16", causal=True),
-                  by_length=flash_moe_at)),
+                  by_length=flash_moe_at),
+              at_musicgen_medium_shape=dict(
+                  shape=dict(B=1, H=FLASH_MUSICGEN[0], KVH=FLASH_MUSICGEN[1],
+                             D=FLASH_MUSICGEN[2], dtype="bfloat16", causal=True),
+                  by_length=flash_musicgen_at)),
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_run:.1f} s")
     print(f"card: {card}")

@@ -3,8 +3,11 @@
 architectures the port runs (the dense family, the hybrid family's
 hymba-1.5b, the xlstm family's xlstm-1.3b and the vlm family's
 paligemma-3b, each trained and served; the moe family's
-phi3.5-moe-42b-a6.6b and qwen3-moe-235b-a22b, served); ``UNPORTED``
-names the JAX package's other configurations by family, and both functions raise on them.  The DLRM
+phi3.5-moe-42b-a6.6b and qwen3-moe-235b-a22b, served; the audio family's
+musicgen-medium, trained and run through ``lm.prefill`` and
+``lm.decode_step``, which the serving engine does not take);
+``UNPORTED`` names the JAX package's one other configuration,
+command-r-35b, by its family, and both functions raise on it.  The DLRM
 configuration lives in ``configs/dlrm_criteo.py``."""
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import dataclasses
 
 from repro_torch.configs import (
     hymba_1_5b,
+    musicgen_medium,
     paligemma_3b,
     phi3_5_moe,
     qwen2_1_5b,
@@ -30,13 +34,13 @@ ARCHS = {
     "xlstm-1.3b": xlstm_1_3b.CONFIG,
     "phi3.5-moe-42b-a6.6b": phi3_5_moe.CONFIG,
     "qwen3-moe-235b-a22b": qwen3_moe_235b.CONFIG,
+    "musicgen-medium": musicgen_medium.CONFIG,
 }
 
 #: The JAX package's configurations that the port lacks -> their family
 #: (ROADMAP Queue 1; command-r-35b is dense, but does not fit one card).
 UNPORTED = {
     "command-r-35b": "dense",
-    "musicgen-medium": "audio",
 }
 
 

@@ -70,24 +70,23 @@ def lm_token_batches(
     vocab: int, batch: int, seq: int, *, seed: int = 0, start_step: int = 0,
     host_id: int = 0, n_hosts: int = 1, n_codebooks: int = 0,
 ) -> Iterator[dict]:
-    """Yields {"tokens": (batch, seq) int32, "step"}: token t+1 follows a
-    fixed random successor map with probability 0.7, else a fresh draw
-    from a Zipf(1.2) prior.  The audio family's codebook axis
-    (``n_codebooks``) is not ported."""
-    if n_codebooks:
-        raise NotImplementedError("lm_token_batches: codebook streams (the audio family) "
-                                  "are not ported")
+    """Yields {"tokens": (batch, seq) int32, "step"}, or (batch, seq,
+    n_codebooks) for the audio family, each codebook a stream of its own:
+    token t+1 follows a fixed random successor map with probability 0.7,
+    else a fresh draw from a Zipf(1.2) prior."""
     rng0 = np.random.default_rng(seed)
     succ = rng0.integers(0, vocab, size=vocab)
     prior = _zipf_probs(vocab, 1.2)
     step = start_step
     while True:
         rng = np.random.default_rng((seed * 9_999_991 + step) * 257 + host_id * n_hosts)
-        toks = np.empty((batch, seq), np.int32)
-        toks[:, 0] = rng.choice(vocab, size=batch, p=prior)
+        shape = (batch, seq, n_codebooks) if n_codebooks else (batch, seq)
+        lead = shape[:1] + shape[2:]  # one draw a sequence (and codebook) a position
+        toks = np.empty(shape, np.int32)
+        toks[:, 0] = rng.choice(vocab, size=lead, p=prior)
         for t in range(1, seq):
-            follow = rng.uniform(size=batch) < 0.7
-            rand = rng.choice(vocab, size=batch, p=prior)
+            follow = rng.uniform(size=lead) < 0.7
+            rand = rng.choice(vocab, size=lead, p=prior)
             toks[:, t] = np.where(follow, succ[toks[:, t - 1]], rand)
         yield {"tokens": toks, "step": step}
         step += 1

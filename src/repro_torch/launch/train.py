@@ -9,6 +9,8 @@ comparison methods), the paper's loop, and the dense LMs.
         --steps 12 --cluster-every 6
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b --device cpu \
         --steps 6 --cluster-every 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-medium --device cpu \
+        --steps 4 --cluster-every 2
 
 ``--arch dlrm`` trains the reduced Criteo DLRM configuration on the
 synthetic clickstream with the sketch frequency tracker (cell count in
@@ -21,7 +23,11 @@ checkpoint and resumes.  ``--arch <lm>`` (a key of
 the synthetic token stream (``--batch`` sequences of ``--seq`` tokens)
 with adamw and a cosine schedule (``--warmup``); with a CCE token table a
 dense token-frequency tracker feeds the transition of the token table
-(every ported family: dense, hybrid, vlm and xlstm).
+(dense, hybrid, vlm and xlstm), but for the audio family, whose table
+rows are codebook-offset tokens: its transition samples the rows
+uniformly, as the JAX package's does.  A compressed ``--emb`` on a
+configuration that keeps a full table (musicgen-medium) gets
+``REDUCED_EMB_BUDGET``, the budget ``reduced()`` gives the others.
 Runs on the card unless ``--device`` names another; on the CPU every
 kernel's plain version runs instead.  ``--obs RUN.jsonl`` writes a run
 log and turns on the in-step telemetry (``python -m repro_torch.obs
@@ -37,6 +43,7 @@ as an argument, so a caller can train the full ``CONFIG``s.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -59,6 +66,25 @@ from repro_torch.train.loop import (
     make_train_step,
 )
 from repro_torch.train.transition import transition_table
+
+
+#: The parameter budget of a reduced configuration's compressed tables.
+#: ``reduced()`` sets it only where the full configuration compresses its
+#: own, so the JAX package's launcher fails on musicgen-medium under
+#: ``--emb cce`` (a budget of None); the port's gives it this one.
+REDUCED_EMB_BUDGET = 2048
+
+
+def lm_config(arch: str, emb: str = "cce"):
+    """The configuration ``--arch arch --emb emb`` trains: ``arch``'s
+    reduced one under ``emb``, with REDUCED_EMB_BUDGET for a compressed
+    table that ``reduced()`` left without a budget."""
+    from repro_torch import configs
+
+    cfg = configs.get_reduced(arch, emb_method=emb)
+    if cfg.emb_method != "full" and not cfg.emb_budget:
+        cfg = dataclasses.replace(cfg, emb_budget=REDUCED_EMB_BUDGET)
+    return cfg
 
 
 def _obs_kit(args, config_name: str):
@@ -150,7 +176,10 @@ def build_lm_trainer(cfg, args, *, data_from=None):
     all), clip 1.0.  With a CCE token table, a dense tracker counts the
     tokens and the transition re-clusters the token table (the head's
     table is not transitioned) from those counts, streaming the
-    vocabulary in chunks of 2^18 ids, with the adamw moments remapped.
+    vocabulary in chunks of 2^18 ids, with the adamw moments remapped; a
+    codebook model's token counts are not its table's rows (each codebook
+    is offset), so it has no tracker and its transition samples the rows
+    uniformly.
     Weights are drawn by a generator on the device.  ``data_from(start_step)``
     gives the batches (default ``lm_data``)."""
     device = getattr(args, "device", "cuda")
@@ -167,11 +196,13 @@ def build_lm_trainer(cfg, args, *, data_from=None):
     tracker = cluster_fn = None
     if cfg.emb_method == "cce":
         emb = lm.make_emb(cfg)
-        tracker = IdFrequencyTracker((emb.d1,), key="tokens")
+        if not cfg.n_codebooks:
+            tracker = IdFrequencyTracker((emb.d1,), key="tokens")
 
         def cluster_fn(key, p, b, opt):
-            ep, eb, update = transition_table(emb, key, p["emb"], b["emb"],
-                                              counts=tracker.counts[0], chunk_size=1 << 18)
+            ep, eb, update = transition_table(
+                emb, key, p["emb"], b["emb"],
+                counts=tracker.counts[0] if tracker is not None else None, chunk_size=1 << 18)
 
             def upd(moments, _slot):
                 return dict(moments, emb=update(moments["emb"]))
@@ -257,11 +288,9 @@ def main(argv=None):
         trainer = build_dlrm_trainer(cfg, args, stream=stream, trigger=trigger,
                                      data_from=data_from)
     else:
-        from repro_torch import configs
-
         if args.trigger:
             ap.error("--trigger needs a windowed tracker: DLRM only")
-        cfg = configs.get_reduced(args.arch, emb_method=args.emb)
+        cfg = lm_config(args.arch, args.emb)
         data_from = lm_data(cfg, args)
         trainer = build_lm_trainer(cfg, args, data_from=data_from)
     t0 = time.time()

@@ -2,9 +2,9 @@
 (``repro/models/config.py``) with torch dtypes.
 
 One frozen dataclass carries every field of the JAX package's, so a
-config crosses between the packages field by field; the port serves the
-dense, hybrid, xlstm, vlm and moe families so far (``models/lm.py``
-raises on the audio family).  Configs are
+config crosses between the packages field by field; the port runs every
+family of the JAX package: dense, hybrid, xlstm, vlm, moe and audio
+(``models/lm.py``).  Configs are
 built in ``repro_torch/configs/<arch>.py``; ``reduced()`` gives the
 small same-family variant the CPU tests run.
 """
@@ -112,12 +112,11 @@ class ModelConfig:
         )
 
     def n_params(self) -> int:
-        """Total parameter count of a dense-, moe-, hybrid-, xlstm- or
-        vlm-family model, analytic and as the JAX package counts it:
-        biases, the hybrid branch norms and the vlm's ``patch_proj`` are
-        left out, and every xlstm block is counted by ``_xlstm_params``."""
-        if self.family not in ("dense", "moe", "hybrid", "xlstm", "vlm"):
-            raise NotImplementedError(f"n_params of family {self.family!r} is not ported")
+        """Total parameter count, analytic and as the JAX package counts
+        it: biases, the hybrid branch norms and the vlm's ``patch_proj``
+        are left out, every xlstm block is counted by ``_xlstm_params``,
+        and the audio family's token table as vocab x d, where its init
+        holds vocab x n_codebooks rows (its head is counted whole)."""
         d, L = self.d_model, self.n_layers
         attn = _attn_params(self)
         if self.family == "xlstm":
@@ -129,9 +128,10 @@ class ModelConfig:
         else:
             ffn = (3 if self.act == "swiglu" else 2) * d * self.d_ff
             blocks = L * (attn + ffn + 2 * d)
-        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        tables = 1 if self.tie_embeddings else 1 + (self.n_codebooks or 1)
+        emb = self.vocab * d * tables
         if self.emb_method != "full" and self.emb_budget:
-            emb = self.emb_budget * (1 if self.tie_embeddings else 2)
+            emb = self.emb_budget * tables
         return blocks + emb + d
 
     def n_active_params(self) -> int:

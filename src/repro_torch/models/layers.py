@@ -14,8 +14,8 @@ any kernel, and both take a gradient.  The LM's prefill calls the flash
 kernel itself (``models/lm.py``), which has no backward.  Decode
 attention over the cache is ``_sdpa`` too; with a sliding window the
 cache is a ring of ``min(max_seq, window)`` rows.  Not ported: the
-sharding hints and sinusoidal positions; ``attn_impl="dense_bf16p"`` and
-logit soft-caps raise ``NotImplementedError``.
+sharding hints; ``attn_impl="dense_bf16p"`` and logit soft-caps raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -95,6 +95,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, freqs: torch.Tensor) ->
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos_emb(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """positions (...) -> (..., d) float32: the sines of position x
+    10000^(-i / (d/2)) for i < d/2, then their cosines."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --- attention ---------------------------------------------------------------

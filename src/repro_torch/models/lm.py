@@ -3,9 +3,12 @@
 ``models/moe.py``), the hybrid family (hymba: sliding-window attention
 beside a selective-SSM branch in each layer), the xlstm family
 (xlstm-1.3b: superblocks of mLSTM blocks and one sLSTM block, no
-attention, a recurrent cache) and the vlm family (paligemma: a dense
-gemma backbone whose ``forward`` prepends projected patch embeddings to
-the text), the counterpart of the JAX package's ``repro/models/lm.py``.
+attention, a recurrent cache), the vlm family (paligemma: a dense gemma
+backbone whose ``forward`` prepends projected patch embeddings to the
+text) and the audio family (musicgen: a dense backbone over
+``n_codebooks`` token streams, their embeddings summed at the input, a
+head of n_codebooks x vocab rows, sinusoidal positions), the
+counterpart of the JAX package's ``repro/models/lm.py``.
 
 The input embedding and the output head are the paper's integration
 points: ``cfg.emb_method`` "cce" makes the token table a CCE table, looked
@@ -34,8 +37,10 @@ over the layers and weighted in.  The moe family routes a sequence
 through ``cfg.moe_impl``'s route in ``forward`` ("einsum", "sort" or
 "sort_sm") and through the einsum route in ``prefill`` unless it is
 "sort", and decodes through every expert (``apply_moe_decode``), as the
-JAX package does.  Not ported: the audio family, sinusoidal positions and
-``remat="dots"``.
+JAX package does.  The audio family's tokens are (B, S, n_codebooks)
+(a decode step's (B, n_codebooks)), codebook j looked up at rows
+j x vocab + token of one table, and its logits (..., n_codebooks,
+vocab).  Not ported: ``remat="dots"``.
 """
 from __future__ import annotations
 
@@ -56,10 +61,10 @@ from repro_torch.models.config import ModelConfig
 
 
 def _check(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "hybrid", "xlstm", "vlm"):
+    if cfg.family not in ("dense", "moe", "hybrid", "xlstm", "vlm", "audio"):
         raise NotImplementedError(f"LM family {cfg.family!r} is not ported "
-                                  f"(dense, moe, hybrid, xlstm and vlm only)")
-    if cfg.pos_emb not in ("rope", "none"):
+                                  f"(dense, moe, hybrid, xlstm, vlm and audio only)")
+    if cfg.pos_emb not in ("rope", "sinusoidal", "none"):
         raise NotImplementedError(f"pos_emb={cfg.pos_emb!r} is not ported")
     L.check_attention(cfg)
 
@@ -68,9 +73,11 @@ def _check(cfg: ModelConfig) -> None:
 
 
 def make_emb(cfg: ModelConfig):
+    """The token table: vocab rows, or n_codebooks x vocab (codebook j's
+    tokens at rows j x vocab on)."""
     return emb_lib.make_table(
         cfg.emb_method,
-        cfg.vocab,
+        cfg.vocab * (cfg.n_codebooks or 1),
         cfg.d_model,
         budget=cfg.emb_budget or None,
         c=cfg.emb_c,
@@ -153,10 +160,10 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     params["ln_f"] = L.init_norm(cfg, device=device)
     if cfg.tie_embeddings:
         pass  # head reuses emb params
-    elif cfg.emb_method == "full":
+    elif cfg.emb_method == "full":  # the audio family's codebooks' heads stacked
         params["head"] = L.truncated_normal(
-            generator, (cfg.vocab, cfg.d_model), 1.0 / math.sqrt(cfg.d_model),
-            cfg.param_dtype).to(device)
+            generator, ((cfg.n_codebooks or 1) * cfg.vocab, cfg.d_model),
+            1.0 / math.sqrt(cfg.d_model), cfg.param_dtype).to(device)
     else:
         hp, hb = _head_table(cfg).init(generator, device=device)
         params["head"] = hp
@@ -225,22 +232,41 @@ def _unstack(blocks, n: int) -> list:
 
 
 def embed(params, buffers, cfg: ModelConfig, tokens):
-    """tokens (B, S) -> (B, S, d) in ``cfg.dtype``; a CCE table takes the
-    fused lookup (the kernel on CUDA tensors)."""
-    x = make_emb(cfg).lookup(params["emb"], buffers["emb"], tokens)
+    """tokens (B, S), or (B, S, n_codebooks) for the audio family, whose
+    codebooks' rows are summed -> (B, S, d) in ``cfg.dtype``; a CCE table
+    takes the fused lookup (the kernel on CUDA tensors)."""
+    emb = make_emb(cfg)
+    if cfg.n_codebooks:
+        offs = torch.arange(cfg.n_codebooks, dtype=tokens.dtype, device=tokens.device) * cfg.vocab
+        x = emb.lookup(params["emb"], buffers["emb"], tokens + offs).sum(dim=-2)
+    else:
+        x = emb.lookup(params["emb"], buffers["emb"], tokens)
     if cfg.emb_scale:
         x = x * math.sqrt(cfg.d_model)
     return x.to(cfg.dtype)
 
 
 def logits_fn(params, buffers, cfg: ModelConfig, h):
-    """h (..., d) -> (..., vocab).  A table head (tied or compressed)
-    promotes ``cfg.dtype`` activations against its ``param_dtype`` table,
-    as jnp does; an untied full head multiplies in ``cfg.dtype``."""
+    """h (..., d) -> (..., vocab), or (..., n_codebooks, vocab).  A table
+    head (tied or compressed) promotes ``cfg.dtype`` activations against
+    its ``param_dtype`` table, as jnp does; an untied full head multiplies
+    in ``cfg.dtype``."""
     if cfg.tie_embeddings or cfg.emb_method != "full":
         key = "emb" if cfg.tie_embeddings else "head"
-        return make_emb(cfg).logits(params[key], buffers[key], h.to(cfg.dtype))
-    return h.to(cfg.dtype) @ params["head"].to(cfg.dtype).T
+        out = make_emb(cfg).logits(params[key], buffers[key], h.to(cfg.dtype))
+    else:
+        out = h.to(cfg.dtype) @ params["head"].to(cfg.dtype).T
+    if cfg.n_codebooks:
+        out = out.reshape(*h.shape[:-1], cfg.n_codebooks, cfg.vocab)
+    return out
+
+
+def _add_positions(cfg: ModelConfig, x, positions):
+    """x plus the sinusoidal embedding of ``positions`` in x's dtype, under
+    ``pos_emb="sinusoidal"``; else x."""
+    if cfg.pos_emb != "sinusoidal":
+        return x
+    return x + L.sinusoidal_pos_emb(positions, cfg.d_model).to(x.dtype)
 
 
 # --- forward (training / prefill) ---------------------------------------------
@@ -295,12 +321,13 @@ def _hybrid_out(p, cfg: ModelConfig, x, attn, s):
 
 
 def forward(params, buffers, cfg: ModelConfig, batch):
-    """Full-sequence forward.  batch: {"tokens": (B, S) integer} and, for
-    the vlm family, optionally "patch_emb" (B, n_patches, d): projected
-    by ``patch_proj`` in ``cfg.dtype`` and prepended to the text, with
-    positions over the whole sequence; only the text positions give
-    logits.  Returns (logits (B, S, vocab), aux), aux float32: the moe
-    family's load-balancing losses summed over the layers, else zero."""
+    """Full-sequence forward.  batch: {"tokens": (B, S) integer, or (B, S,
+    n_codebooks)} and, for the vlm family, optionally "patch_emb" (B,
+    n_patches, d): projected by ``patch_proj`` in ``cfg.dtype`` and
+    prepended to the text, with positions over the whole sequence; only
+    the text positions give logits.  Returns (logits (B, S, vocab) or (B,
+    S, n_codebooks, vocab), aux), aux float32: the moe family's
+    load-balancing losses summed over the layers, else zero."""
     _check(cfg)
     tokens = batch["tokens"]
     x = embed(params, buffers, cfg, tokens)
@@ -308,6 +335,9 @@ def forward(params, buffers, cfg: ModelConfig, batch):
     if patches:
         pe = batch["patch_emb"].to(cfg.dtype) @ params["patch_proj"].to(cfg.dtype)
         x = torch.cat([pe, x], dim=1)
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    x = _add_positions(cfg, x, positions)
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(f"remat={cfg.remat!r} is not ported (none, full)")
     remat = cfg.remat == "full" and torch.is_grad_enabled()
@@ -316,8 +346,6 @@ def forward(params, buffers, cfg: ModelConfig, batch):
         x = L.apply_norm(params["ln_f"], walk(params["blocks"], cfg, x))
         return logits_fn(params, buffers, cfg, x), torch.zeros((), dtype=torch.float32,
                                                                device=x.device)
-    B, S = x.shape[0], x.shape[1]
-    positions = torch.arange(S, device=x.device).expand(B, S)
     freqs = L.rope_freqs(cfg, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unstack(params["blocks"], cfg.n_layers):
@@ -399,11 +427,12 @@ def _xlstm_train_forward(blocks, cfg: ModelConfig, x):
 
 
 def next_token_loss(params, buffers, cfg: ModelConfig, batch):
-    """Causal LM loss with next-token targets: the mean over (B, S - 1) of
-    the float32 ``logsumexp`` of the logits minus the target's logit, plus
-    0.01 x the auxiliary loss.  The target's logit is gathered, where the
-    JAX package sums a one-hot product over the vocabulary: the same
-    number, since x·1 plus zeros is exact.  Returns (loss, {"ce", "aux"})."""
+    """Causal LM loss with next-token targets: the mean over (B, S - 1),
+    and the codebooks of the audio family, of the float32 ``logsumexp`` of
+    the logits minus the target's logit, plus 0.01 x the auxiliary loss.
+    The target's logit is gathered, where the JAX package sums a one-hot
+    product over the vocabulary: the same number, since x·1 plus zeros is
+    exact.  Returns (loss, {"ce", "aux"})."""
     logits, aux = forward(params, buffers, cfg, batch)
     lg = logits[:, :-1].to(torch.float32)
     tg = batch["tokens"][:, 1:].to(torch.int64)
@@ -466,13 +495,14 @@ def cache_batch_axis(cfg: ModelConfig):
 
 
 def decode_step(params, buffers, cfg: ModelConfig, tokens, pos, cache):
-    """One-token decode.  tokens (B,), pos (B,) integer positions; the
-    token's k/v go into ``cache`` in place at ``pos`` (its ring slot under
-    a sliding window), and the hybrid family's SSM and conv states move on
-    by one token in place, as do the xlstm family's recurrent states
-    (which ignore ``pos``).  Returns (logits (B, vocab), cache)."""
+    """One-token decode.  tokens (B,), or (B, n_codebooks) for the audio
+    family, pos (B,) integer positions; the token's k/v go into ``cache``
+    in place at ``pos`` (its ring slot under a sliding window), and the
+    hybrid family's SSM and conv states move on by one token in place, as
+    do the xlstm family's recurrent states (which ignore ``pos``).
+    Returns (logits (B, vocab) or (B, n_codebooks, vocab), cache)."""
     _check(cfg)
-    x = embed(params, buffers, cfg, tokens[:, None])
+    x = _add_positions(cfg, embed(params, buffers, cfg, tokens[:, None]), pos[:, None])
     if cfg.family == "xlstm":
         x = L.apply_norm(params["ln_f"], _xlstm_decode(params["blocks"], cfg, x, cache))
         return logits_fn(params, buffers, cfg, x[:, 0]), cache
@@ -503,8 +533,9 @@ def _xlstm_decode(blocks, cfg: ModelConfig, x, cache):
 
 
 def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None):
-    """Process a full prompt: write its k/v into ``cache[:, :, :S]`` in
-    place and return (logits of one position (B, vocab), cache).  Under a
+    """Process a full prompt, tokens (B, S) or (B, S, n_codebooks): write
+    its k/v into ``cache[:, :, :S]`` in place and return (logits of one
+    position (B, vocab) or (B, n_codebooks, vocab), cache).  Under a
     sliding window with S longer than the cache's ring, the last ring's
     worth of k/v is written in ring order (position t at t % ring), and
     attention runs through ``_sdpa`` under the windowed mask, as in the JAX
@@ -521,13 +552,14 @@ def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None):
     runs its chunkwise and sequential forms and writes every block's
     terminal state into ``cache``, every leaf of the slice whole."""
     _check(cfg)
-    B, S = tokens.shape
+    B, S = tokens.shape[0], tokens.shape[1]
     x = embed(params, buffers, cfg, tokens)
     last = S - 1 if last_idx is None else int(last_idx)
     if cfg.family == "xlstm":
         x = _xlstm_forward(params["blocks"], cfg, x, cache=cache)
         return logits_fn(params, buffers, cfg, L.apply_norm(params["ln_f"], x[:, last])), cache
     positions = torch.arange(S, device=x.device).expand(B, S)
+    x = _add_positions(cfg, x, positions)
     freqs = L.rope_freqs(cfg, device=x.device)
     for i in range(cfg.n_layers):
         lp = layer_params(params["blocks"], i)

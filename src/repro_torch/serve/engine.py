@@ -17,7 +17,10 @@ each request owns a slot.  Per tick:
 
 Sampling is greedy.  The JAX engine's fixed-arity slot scatter and its
 split of static buffers exist for ``jit``; the port runs eagerly and has
-neither.  Everything runs under ``torch.inference_mode()``.
+neither.  Everything runs under ``torch.inference_mode()``.  A codebook
+model (the audio family) is refused, as the JAX engine refuses it: its
+requests are frames of n_codebooks tokens, served through ``lm.prefill``
+and ``lm.decode_step`` directly.
 """
 from __future__ import annotations
 
@@ -57,6 +60,9 @@ class ServeEngine:
         max_seq: int = 256,
         runlog=None,
     ):
+        if cfg.n_codebooks:
+            raise ValueError(f"{cfg.name}: the engine serves one token stream, not "
+                             f"{cfg.n_codebooks} codebooks (use lm.prefill and lm.decode_step)")
         self.cfg = cfg
         self.params = params
         self.buffers = buffers

@@ -163,10 +163,7 @@ def test_convert_round_trip(model):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-@pytest.mark.parametrize("override", [
-    dict(pos_emb="sinusoidal"), dict(logit_softcap=30.0), dict(attn_impl="dense_bf16p"),
-    dict(family="audio", n_codebooks=4),
-])
+@pytest.mark.parametrize("override", [dict(logit_softcap=30.0), dict(attn_impl="dense_bf16p")])
 def test_unported_variants_raise(override):
     cfg = dataclasses.replace(tconfigs.get_reduced("qwen2-1.5b"), **override)
     with pytest.raises(NotImplementedError):

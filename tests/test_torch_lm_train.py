@@ -1,7 +1,8 @@
 """Port vs JAX package: the LM's training pieces on ``reduced()`` (2
 layers, d 64, vocab 257, float32) on the CPU.
 
-* ``lm_token_batches`` gives the JAX package's batches bit for bit.
+* ``lm_token_batches`` gives the JAX package's batches bit for bit, the
+  audio family's codebook streams too.
 * ``next_token_loss`` and every gradient leaf (the CCE token table
   through the lookup's backward, the factored CCE head through its
   gathers) agree with ``jax.value_and_grad`` of the JAX loss to rtol 1e-5
@@ -95,9 +96,18 @@ def test_lm_token_batches_bit_for_bit(vocab, batch, seq, seed, start):
         np.testing.assert_array_equal(g["tokens"], w["tokens"])
 
 
-def test_lm_token_batches_refuse_codebooks():
-    with pytest.raises(NotImplementedError, match="codebook"):
-        next(tbatches(257, 2, 8, n_codebooks=4))
+@pytest.mark.parametrize("seed,start", [(0, 0), (6, 3)])
+def test_lm_token_batches_codebooks_bit_for_bit(seed, start):
+    """The audio family's (batch, seq, n_codebooks) stream, each codebook
+    a chain of its own."""
+    want, got = (f(2048, 2, 12, seed=seed, start_step=start, n_codebooks=4)
+                 for f in (jbatches, tbatches))
+    for _ in range(2):
+        w, g = next(want), next(got)
+        assert g["step"] == w["step"]
+        assert g["tokens"].shape == w["tokens"].shape == (2, 12, 4)
+        assert g["tokens"].dtype == w["tokens"].dtype == np.int32
+        np.testing.assert_array_equal(g["tokens"], w["tokens"])
 
 
 def test_next_token_loss_and_grads_match_jax(model):

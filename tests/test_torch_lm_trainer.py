@@ -4,8 +4,10 @@ on reduced configs (2 layers, d 64, vocab 257, float32) on the CPU.
 * The whole slice: both packages' ``build_lm_trainer`` from JAX's initial
   state (the JAX trainer's state crosses into the port's), 3 steps, a
   transition of the CCE token table (dense token counts, adamw moments
-  remapped) and 2 more steps, on reduced qwen2-1.5b, qwen3-4b and
-  xlstm-1.3b, with JAX's kmeans++ seeds handed to the port (its float
+  remapped) and 2 more steps, on reduced qwen2-1.5b, qwen3-4b,
+  xlstm-1.3b and musicgen-medium under CCE (no tracker: its codebook
+  tokens are not its table's rows, so its transition samples the rows
+  uniformly), with JAX's kmeans++ seeds handed to the port (its float
   draws are not JAX's; ``test_torch_transition.py`` does the same): every
   loss within 1e-5 relative, ptr/hs/epoch and the token counts equal,
   params and moments within rtol 1e-4 / atol 1e-6 -- but the param
@@ -17,8 +19,10 @@ on reduced configs (2 layers, d 64, vocab 257, float32) on the CPU.
   ends, bit for bit.
 * ``python -m repro_torch.launch.train --arch qwen2-1.5b --device cpu``
   trains, clusters and resumes, ``--arch xlstm-1.3b`` trains and clusters
-  at steps 3 and 6; an unported architecture raises and names its
-  family; the options both launchers share have the same defaults."""
+  at steps 3 and 6, ``--arch musicgen-medium`` trains its reduced CCE
+  model (JAX's launcher gives that table no budget and fails) and
+  clusters at steps 2 and 4; an unported architecture raises and names
+  its family; the options both launchers share have the same defaults."""
 import argparse
 import sys
 
@@ -31,6 +35,7 @@ import torch
 from repro import configs as jconfigs
 from repro.core import kmeans as jkm
 from repro.launch import train as jlaunch
+from repro.models import lm as jlm
 from repro_torch import configs as tconfigs
 from repro_torch import convert
 from repro_torch.core import kmeans as tkm
@@ -40,7 +45,11 @@ from repro_torch.tree import jax_leaves, jax_leaves_with_paths
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-ARCHS = ("qwen2-1.5b", "qwen3-4b", "xlstm-1.3b")  # QKV bias; qk_norm; mLSTM and sLSTM
+# QKV bias; qk_norm; mLSTM and sLSTM; codebooks, layernorm and sinusoidal positions
+ARCHS = ("qwen2-1.5b", "qwen3-4b", "xlstm-1.3b", "musicgen-medium")
+# musicgen-medium keeps a full table: under CCE its reduced config takes the
+# budget the port's launcher gives it
+OVERRIDES = {"musicgen-medium": dict(emb_method="cce", emb_budget=tlaunch.REDUCED_EMB_BUDGET)}
 STEPS = 5
 CLUSTER_EVERY = 3
 LR = 3e-3
@@ -62,6 +71,10 @@ NOISE = {"qwen2-1.5b": {"['blocks']['attn']['bk']": np.s_[...]},
          "xlstm-1.3b": {"['blocks']['mlstm']['bi']": np.s_[...],
                         "['blocks']['slstm']['b']": np.s_[..., _D:2 * _D],
                         "['emb']['tables']": np.s_[1, 1, 7, 3]}}
+
+
+def _reduced(configs, arch):
+    return configs.get_reduced(arch, **OVERRIDES.get(arch, {}))
 
 
 def _args(ckpt_dir=None, **kw):
@@ -86,10 +99,10 @@ def _np_leaves(tree):
 def both(request, tmp_path_factory):
     arch = request.param
     jdir = str(tmp_path_factory.mktemp("jax_lm_ckpt"))
-    jtr = jlaunch.build_lm_trainer(jconfigs.get_reduced(arch), _args(jdir))
+    jtr = jlaunch.build_lm_trainer(_reduced(jconfigs, arch), _args(jdir))
     start = jax.tree.map(np.array, jtr.state)  # copies: the jitted step donates the state
     jtr.run(STEPS)
-    ttr = tlaunch.build_lm_trainer(tconfigs.get_reduced(arch), _args())
+    ttr = tlaunch.build_lm_trainer(_reduced(tconfigs, arch), _args())
     ttr.state = convert.train_state_to_torch(start, "cpu")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tkm, "kmeans_plus_plus", _jax_seeds)
@@ -110,8 +123,11 @@ def test_slice_tracks_jax_through_a_transition(both):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
     assert int(ttr.state.ebuf["emb"]["epoch"]) == 1 and int(ttr.state.ebuf["head"]["epoch"]) == 0
-    np.testing.assert_array_equal(ttr.id_tracker.counts[0], jtr.id_tracker.counts[0])
-    assert ttr.id_tracker.counts[0].sum() == STEPS * 2 * 16
+    if both["arch"] == "musicgen-medium":
+        assert ttr.id_tracker is None and jtr.id_tracker is None
+    else:
+        np.testing.assert_array_equal(ttr.id_tracker.counts[0], jtr.id_tracker.counts[0])
+        assert ttr.id_tracker.counts[0].sum() == STEPS * 2 * 16
     named = NOISE.get(both["arch"], {})
     rms = [np.sqrt(v) for v in _np_leaves(jtr.state.opt["v"])]  # in the params' leaf order
     for got, want in ((ttr.state.params, jtr.state.params), (ttr.state.opt, jtr.state.opt)):
@@ -130,7 +146,7 @@ def test_slice_tracks_jax_through_a_transition(both):
 
 
 def test_jax_lm_checkpoint_resumes_in_port(both):
-    jtr, cfg = both["jtr"], tconfigs.get_reduced(both["arch"])
+    jtr, cfg = both["jtr"], _reduced(tconfigs, both["arch"])
     tr = tlaunch.build_lm_trainer(cfg, _args(both["jdir"], seed=11))
     assert tr.restore_latest() == STEPS
     assert tr.state.step == STEPS and tr.clusters_done == 1
@@ -140,7 +156,8 @@ def test_jax_lm_checkpoint_resumes_in_port(both):
         assert len(g) == len(w)
         for a, b in zip(g, w):
             np.testing.assert_array_equal(a, b)
-    np.testing.assert_array_equal(tr.id_tracker.counts[0], jtr.id_tracker.counts[0])
+    if tr.id_tracker is not None:
+        np.testing.assert_array_equal(tr.id_tracker.counts[0], jtr.id_tracker.counts[0])
     tr.ckpt = None  # train on without writing into JAX's directory
     tr.data_iter = tlaunch.lm_data(cfg, _args())(STEPS)
     hist = tr.run(1)
@@ -193,9 +210,25 @@ def test_main_trains_xlstm_and_clusters_twice_on_cpu(capsys):
     assert "xlstm-1.3b on cpu: step 6" in capsys.readouterr().out
 
 
+def test_main_trains_musicgen_under_cce_and_clusters_twice_on_cpu(capsys):
+    """``--arch musicgen-medium`` under the default ``--emb cce``: JAX's
+    reduced config has no budget for the table there (its launcher fails),
+    the port's launcher gives it ``REDUCED_EMB_BUDGET``; no tracker, the
+    transitions at steps 2 and 4 sample the 4 x 257 rows uniformly."""
+    with pytest.raises(TypeError):
+        jlm.make_emb(jconfigs.get_reduced("musicgen-medium", emb_method="cce"))
+    tr = tlaunch.main(["--arch", "musicgen-medium", "--device", "cpu", "--steps", "4",
+                       "--cluster-every", "2"])
+    assert tr.id_tracker is None and tr.state.step == 4 and tr.clusters_done == 2
+    assert int(tr.state.ebuf["emb"]["epoch"]) == 2 and int(tr.state.ebuf["head"]["epoch"]) == 0
+    assert tuple(tr.state.ebuf["emb"]["ptr"].shape) == (4, 4 * 257)
+    assert all(np.isfinite(h["loss"]) for h in tr.history)
+    assert "musicgen-medium on cpu: step 4" in capsys.readouterr().out
+
+
 def test_unported_arch_raises_and_names_its_family():
-    with pytest.raises(NotImplementedError, match="audio family"):
-        tlaunch.main(["--arch", "musicgen-medium", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="dense family"):
+        tlaunch.main(["--arch", "command-r-35b", "--device", "cpu"])
     assert set(tconfigs.ARCHS) | set(tconfigs.UNPORTED) == set(jconfigs.ARCHS)
     assert not set(tconfigs.ARCHS) & set(tconfigs.UNPORTED)
     for name, family in tconfigs.UNPORTED.items():
