@@ -19,6 +19,13 @@
    CCE clustering transition with the optimizer moments remapped (checked
    for its invariants and for bitwise repeatability); trains 4 more steps;
    then serves the trained state through ``DLRMServeEngine.update_state``.
+   Then trains it model-parallel (``shard_train``): an NCCL group of one
+   rank, ``launch.train.build_dlrm_sharded_trainer`` at k_multiple 4
+   (k_pad 308), 4 steps with the lookup routed by all-to-all, a sharded
+   transition, 2 steps, held bit for bit against the 1-device step and
+   serial transition; the 4-shard route emulated in one process (each
+   shard's lookup and backward at k_loc 77, summed and concatenated)
+   held bit for bit against the unsharded launches, and timed.
 4. Runs the paper's training loop at that width through
    ``launch.train.build_dlrm_trainer``: a ``Trainer`` with the sketch
    frequency tracker (cell count in the step, host fold on a background
@@ -122,7 +129,7 @@ after.  Prints the kernels' JSON line, the card line and, last,
 
     python3 chip_smoke.py --phases flash,lm_serve
 
-runs only the named phases (of lookup, bwd, kmeans, train, loop, serve,
+runs only the named phases (of lookup, bwd, kmeans, train, shard_train, loop, serve,
 methods, flash, lm_serve, hybrid_serve, vlm_serve, xlstm_serve, moe_serve,
 audio_serve, lm_train, xlstm_train) and prints neither result line.
 
@@ -158,15 +165,20 @@ TRAIN_BATCH = 2048
 TRAIN_STEPS = 8  # before the transition
 POST_STEPS = 4  # after it
 TRAIN_LR = 0.05  # constant, with momentum 0.9 and clip 1.0
-LOOP_STEPS = 32  # the loop phase's run, cut in depth
+LOOP_STEPS = 24  # the loop phase's run, cut in depth
 LOOP_WINDOW = 8  # tracker window in batches (the deployment's STREAM has 256)
-LOOP_CLUSTER_EVERY = 16  # the periodic fallback beside the trigger
-LOOP_CLUSTER_MAX = 2
+LOOP_CLUSTER_EVERY = 24  # the periodic fallback beside the trigger: the run's last step
+LOOP_CLUSTER_MAX = 1  # one a run: a full-width transition costs ~11 s of host on an H100 machine
 LOOP_CKPT_EVERY = 8
 LOOP_KEEP_LAST = 2
-LOOP_FAIL_AT = 28  # the crash run's injected failure: restores step 24
+LOOP_FAIL_AT = 20  # the crash run's injected failure: restores step 16, transitions after
 LOOP_SEED = 4
 LOOP_TIMED_STEPS = 16  # each unsynchronised Trainer run of the loop's timing
+SHARD_STEPS = 4  # the model-parallel trainer's steps before its transition
+SHARD_POST = 2  # and after it
+SHARD_ROUTE = 4  # model shards of the route emulated in one process (and CONFIG's k_multiple)
+SHARD_SEED = 5
+SHARD_TIMED = 5  # synchronised steps a timing of the sharded and the 1-device step
 LOOKUP_BATCHES = (1, 7, SERVE_BATCH, TRAIN_BATCH, 4096)
 BWD_BATCHES = (256, TRAIN_BATCH, 4096)
 LM_DSUB = 384  # the LM token table's sub-row width (qwen2-1.5b: d 1536 over c=4)
@@ -1204,7 +1216,7 @@ def assign_excess(got, x, cent):
 def assign_chunk_shapes(cfg) -> list[tuple[int, int, int, int]]:
     """Every distinct (c, n, k, d) launch of the transition's
     ``CCE.assign_all`` over cfg's CCE tables: each table's full chunks and
-    its last, ragged one, as ``CCE._id_chunks`` cuts them."""
+    its last, ragged one, as ``CCE.assign_all`` cuts them with no group."""
     from repro_torch.core import cce as cce_lib
 
     shapes = set()
@@ -1629,7 +1641,7 @@ def train_phase(card: str, cfg, device="cuda"):
     want_assign = sum(-(-coll.tables[i].d1 // cfg.emb_cluster_chunk) for i in cce_feats)
     key = jr.PRNGKey(2)
     phases = [(cce_lib.CCE, "materialize", "sample materialize"),
-              (km, "kmeans", "kmeans++/Lloyd"),
+              (km, "kmeans_columns", "kmeans++/Lloyd"),
               (cce_lib.CCE, "assign_all", "assign_all"),
               (cce_lib.CCE, "remap_moments", "moment remap")]
     ops.LAUNCHES.clear()
@@ -1754,6 +1766,301 @@ def train_phase(card: str, cfg, device="cuda"):
     return launches
 
 
+def shard_fwd_numbers(card: str, label: str, idx, tables) -> dict:
+    """The lookup kernel on one input against its plain version (bit for
+    bit), with its times (warm), its bound and ``embedding_bag``'s."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cce_lookup as cl
+    from repro_torch.kernels import ref
+
+    c, B, _ = idx.shape
+    got = cl.cce_lookup_fwd(idx, tables)
+    check(torch.equal(got, ref.cce_lookup_ref(idx, tables)), f"lookup kernel != plain ({label})")
+    bag, weight, offsets = embedding_bag_args(idx, tables)
+
+    def library():
+        return F.embedding_bag(bag, weight, offsets, mode="sum")
+
+    check(torch.allclose(library().reshape(B, -1), got, rtol=1e-6, atol=1e-6),
+          f"embedding_bag yardstick computes another function ({label})")
+    out = dict(ms=time_ms(lambda: cl.cce_lookup_fwd(idx, tables)),
+               device_ms=device_ms(lambda: cl.cce_lookup_fwd(idx, tables),
+                                   lookup_kernel("cce_lookup_fwd", tables)),
+               plain_ms=time_ms(lambda: ref.cce_lookup_ref(idx, tables)),
+               plain_device_ms=device_busy_ms(lambda: ref.cce_lookup_ref(idx, tables), iters=20),
+               library_ms=time_ms(library), library_device_ms=device_busy_ms(library, iters=20))
+    out["bound_ms"], out["bound_by"] = lookup_bound(idx, tables)
+    out["valid_share"] = ((idx >= 0) & (idx < tables.shape[2])).float().mean().item()
+    print(f"[{card}] cce_lookup_fwd {label}: c={c} T={idx.shape[2]} k={tables.shape[2]} "
+          f"dsub={tables.shape[3]} f32 {cl_path(tables)} B={B}, valid rows "
+          f"{out['valid_share']!r}: equal to plain, " + " ".join(
+              f"{k}={v!r}" for k, v in out.items() if k != "valid_share"), flush=True)
+    return out
+
+
+def shard_train_phase(card: str, cfg, device="cuda"):
+    """The model-parallel DLRM trainer at full width on a world of one
+    rank: an NCCL group made in-process (``init_method="file://"`` in a
+    temp dir), destroyed at the end so later phases run without it.
+    ``launch.train.build_dlrm_sharded_trainer`` on CONFIG at
+    ``emb_k_multiple=SHARD_ROUTE`` (k_pad 308), batch TRAIN_BATCH:
+    SHARD_STEPS sharded steps (host-translated rows, the lookup routed
+    through all-to-alls), one sharded transition (dense counts of the
+    global ids, the moments remapped, the pointer tables through their
+    id tiles), SHARD_POST steps.  Held bit for bit against the 1-device
+    step and serial transition on the card from the same state: every
+    loss, ptr and hs, and every state leaf.  Then the sharded and the
+    1-device step timed A B B A, and the SHARD_ROUTE-shard route emulated
+    in one process: a batch's rows bucketed into SHARD_ROUTE, each shard's
+    lookup (k_loc 77) summed equals the unsharded launch bit for bit and
+    each shard's backward, concatenated along k, the unsharded backward;
+    each timed beside the unsharded launch, its bound and the library
+    call.  Returns ({"shard_train": launches}, {"fwd": numbers, "bwd":
+    numbers, "max_abs_err": e})."""
+    import argparse
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import random as jr
+    from repro_torch.core import cce as cce_lib
+    from repro_torch.core.collection import bucket_rows
+    from repro_torch.data.synthetic import ClickstreamConfig, clickstream_batches
+    from repro_torch.data.translate import HostTranslator
+    from repro_torch.kernels import cce_lookup as cl
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import init_model_group
+    from repro_torch.launch.train import sharded_batches
+    from repro_torch.models import dlrm
+    from repro_torch.optim import sgd
+    from repro_torch.train import loop
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(cfg, emb_k_multiple=SHARD_ROUTE)
+    coll = cfg.collection
+    (g,) = coll.univ_groups
+    grp = coll.groups[g]
+    k_loc = grp.k_pad // SHARD_ROUTE
+    cce_feats = [i for i, t in enumerate(coll.tables) if isinstance(t, cce_lib.CCE)]
+    want_assign = sum(-(-coll.tables[i].d1 // cfg.emb_cluster_chunk) for i in cce_feats)
+    n_steps = SHARD_STEPS + SHARD_POST
+    t0 = time.perf_counter()
+    stream = clickstream_batches(ClickstreamConfig(vocab_sizes=cfg.vocab_sizes, seed=SHARD_SEED),
+                                 TRAIN_BATCH)
+    raw = [next(stream) for _ in range(n_steps)]
+    print(f"shard data: {n_steps} batches of {TRAIN_BATCH} in {time.perf_counter() - t0:.3f} s; "
+          f"supertable c={grp.n_cols} T={grp.n_tables} k_pad={grp.k_pad} (k_multiple "
+          f"{SHARD_ROUTE}) dsub={grp.dsub}", flush=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))
+    group = init_model_group("cuda", world_size=1, rank=0, init_method=f"file://{tmp / 'store'}")
+    try:
+        args = argparse.Namespace(
+            device=device, seed=SHARD_SEED, momentum=0.9, lr=TRAIN_LR, clip=1.0, accum=1,
+            emb="cce", batch=TRAIN_BATCH, ckpt_dir=None, ckpt_every=0,
+            cluster_every=SHARD_STEPS, cluster_max=1, fail_at=[])
+        t0 = time.perf_counter()
+        trainer = launch.build_dlrm_sharded_trainer(cfg, args, group=group,
+                                                    data_from=lambda s: iter(raw[s:]))
+        print(f"shard: Trainer built over a {dist.get_backend(group)} group of "
+              f"{dist.get_world_size(group)} in {time.perf_counter() - t0:.3f} s", flush=True)
+        # the 1-device reference starts from the same state (a world of one holds it whole)
+        ref_state = loop.TrainState(*(tree_map(torch.clone, x) for x in (
+            trainer.state.params, trainer.state.opt, trainer.state.ebuf)), step=0)
+        trans_ms = []
+        sharded_cluster = trainer.cluster_fn
+
+        def cluster_fn(key, p, b, opt):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = sharded_cluster(key, p, b, opt)
+            torch.cuda.synchronize()
+            trans_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        trainer.cluster_fn = cluster_fn
+        from repro_torch import shard as shard_mod
+        from repro_torch.core import kmeans as km
+
+        targets = [(dlrm, "_transition_layout", "gather slabs, ptr to tiles"),
+                   (cce_lib.CCE, "materialize", "sample materialize"),
+                   (km, "kmeans_columns", "kmeans++/Lloyd"),
+                   (cce_lib.CCE, "assign_all", "assign_all"),
+                   (cce_lib.CCE, "remap_moments", "moment remap"),
+                   (dlrm, "_ptr_at_rest", "ptr to its layout")]
+        n_reduce = collections.Counter()
+        all_reduce = shard_mod.all_reduce_
+
+        def counted(x, grp):
+            n_reduce[x.device.type] += 1
+            return all_reduce(x, grp)
+
+        shard_mod.all_reduce_ = counted
+        # the process's first torch.use_deterministic_algorithms (kmeans' cumsum and the
+        # remap's index_add_ take it) imports torch._inductor: taken here, before either
+        # transition is timed
+        t = time.perf_counter()
+        with km.deterministic():
+            pass
+        warm_ms = (time.perf_counter() - t) * 1e3
+        ops.LAUNCHES.clear()
+        try:
+            with PhaseClock(targets) as clock:
+                trainer.run(n_steps)
+            torch.cuda.synchronize()
+        finally:
+            shard_mod.all_reduce_ = all_reduce
+        launches = dict(ops.LAUNCHES)
+        check(launches.get("cce_lookup_fwd") == n_steps and launches.get("cce_lookup_bwd")
+              == n_steps and launches.get("kmeans_assign") == want_assign,
+              f"shard_train launches {launches}: want {n_steps} a lookup kernel and "
+              f"{want_assign} kmeans_assign")
+        losses = [h["loss"] for h in trainer.history]
+        check(trainer.clusters_done == 1 and all(math.isfinite(x) for x in losses),
+              f"sharded run: {trainer.clusters_done} transitions, losses {losses}")
+
+        # the 1-device step and the serial transition, on the same rows
+        opt = sgd(momentum=0.9)
+
+        def loss_fn(p, b, mb):
+            return dlrm.bce_loss(p, b, cfg, mb), {}
+
+        step = loop.make_train_step(loss_fn, opt, lambda s: TRAIN_LR, clip_norm=1.0)
+        translator = HostTranslator(coll, ref_state.ebuf["emb"])
+
+        def on(batch):
+            rows = torch.from_numpy(translator.rows(batch["sparse"]))
+            return {k: v[None].to(device) for k, v in (
+                ("dense", torch.from_numpy(batch["dense"])),
+                ("label", torch.from_numpy(batch["label"])), ("rows", rows))}
+
+        serial_phases = [(cce_lib.CCE, "materialize", "sample materialize"),
+                         (km, "kmeans_columns", "kmeans++/Lloyd"),
+                         (cce_lib.CCE, "assign_all", "assign_all"),
+                         (cce_lib.CCE, "remap_moments", "moment remap")]
+        state, ref_losses, serial_ms = ref_state, [], None
+        for i, batch in enumerate(raw):
+            if i == SHARD_STEPS:
+                counts = [np.bincount(np.concatenate([b["sparse"][:, f] for b in raw[:i]]),
+                                      minlength=v) for f, v in enumerate(cfg.vocab_sizes)]
+                with PhaseClock(serial_phases) as serial_clock:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    p2, b2, o2 = dlrm.cluster_tables(jr.fold_in(jr.PRNGKey(SHARD_SEED), i),
+                                                     state.params, state.ebuf, cfg, state.opt,
+                                                     id_counts=counts)
+                    torch.cuda.synchronize()
+                    serial_ms = (time.perf_counter() - t) * 1e3
+                state = loop.TrainState(p2, o2, b2, state.step)
+                translator.update(b2["emb"])
+            state, m = step(state, on(batch))
+            ref_losses.append(m["loss"].item())
+        check(losses == ref_losses, f"sharded losses {losses} != 1-device {ref_losses}")
+        for a, b, what in ((trainer.state.ebuf["emb"], state.ebuf["emb"], "ptr/hs/epoch"),
+                           (trainer.state.params, state.params, "params"),
+                           (trainer.state.opt, state.opt, "moments")):
+            check(all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b))),
+                  f"the sharded run's {what} differ from the 1-device run's")
+        print(f"[{card}] shard_train: {n_steps} sharded steps at batch {TRAIN_BATCH}, a sharded "
+              f"transition after step {SHARD_STEPS}; losses {losses!r}; launches {launches}; "
+              f"every loss, the transition's ptr and hs, and every state leaf equal the 1-device "
+              f"step's and serial transition's on the card bit for bit", flush=True)
+        print(f"[{card}] shard_train transition: sharded (world of 1) host {trans_ms[0]!r} ms, "
+              f"serial host {serial_ms!r} ms (by phase: " + ", ".join(
+                  f"{k} {v!r} ms" for k, v in serial_clock.ms.items()) + "); both after a "
+              f"first use of deterministic algorithms ({warm_ms!r} ms here)", flush=True)
+
+        # one collective's cost on this group
+        x = torch.ones((250, 5), device=device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(200):
+            all_reduce(x, group)
+        torch.cuda.synchronize()
+        ar_ms = (time.perf_counter() - t) * 1e3 / 200
+        print(f"[{card}] shard_train transition by phase (the Trainer's, each top-level call "
+              f"synchronised): " + ", ".join(f"{k}: host {v!r} ms ({clock.calls[k]} calls)"
+                                             for k, v in clock.ms.items())
+              + f"; {sum(n_reduce.values())} all-reduces in the run (steps included); an "
+              f"all-reduce of 250 x 5 floats back to back {ar_ms!r} ms", flush=True)
+
+        # the steps' times, A B B A in this call
+        shard_mb = trainer._to_device(next(sharded_batches(iter(raw[-1:]), trainer.translator,
+                                                           0, 1)))
+        one_mb = on(raw[-1])
+
+        def timed(fn):
+            ms = []
+            for _ in range(SHARD_TIMED):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            return statistics.median(ms), device_busy_ms(fn)
+
+        def shard_step():
+            trainer.state = trainer.train_step(trainer.state, shard_mb)[0]
+
+        def one_step():
+            nonlocal state
+            state = step(state, one_mb)[0]
+
+        runs = [("sharded", timed(shard_step)), ("1-device", timed(one_step)),
+                ("1-device", timed(one_step)), ("sharded", timed(shard_step))]
+        print(f"[{card}] shard_train step, batch {TRAIN_BATCH} (A B B A): " + "; ".join(
+            f"{k} host {h!r} ms, device busy {b!r} ms" for k, (h, b) in runs), flush=True)
+
+        # the SHARD_ROUTE-shard route in one process, on a train batch's rows
+        rows = torch.from_numpy(trainer.translator.rows(raw[-1]["sparse"])).to(device)
+        idx = rows.movedim(0, 1)  # (c, B, T), the strided view the path gives
+        tables = trainer.state.params["emb"][g]["tables"]
+        dout = torch.randn((TRAIN_BATCH, grp.n_cols, grp.dsub),
+                           generator=torch.Generator(device=device).manual_seed(SHARD_SEED),
+                           device=device)
+        buckets = bucket_rows(rows, k_loc, SHARD_ROUTE)  # (M, B, c, T)
+        shard_idx = [buckets[s].movedim(0, 1) for s in range(SHARD_ROUTE)]
+        slabs = [tables[:, :, s * k_loc:(s + 1) * k_loc].contiguous() for s in range(SHARD_ROUTE)]
+        whole_fwd = cl.cce_lookup_fwd(idx, tables)
+        parts = torch.stack([cl.cce_lookup_fwd(i, t) for i, t in zip(shard_idx, slabs)])
+        check(torch.equal(parts.sum(0), whole_fwd),
+              f"the {SHARD_ROUTE} shards' lookups summed differ from the unsharded launch")
+        whole_bwd = cl.cce_lookup_bwd(idx, dout, grp.k_pad)
+        bwd_parts = [cl.cce_lookup_bwd(i, dout, k_loc) for i in shard_idx]
+        check(torch.equal(torch.cat(bwd_parts, dim=2), whole_bwd),
+              f"the {SHARD_ROUTE} shards' backwards concatenated differ from the unsharded one")
+        label = f"shard 0 of {SHARD_ROUTE} (k_loc {k_loc}, a train batch's rows)"
+        fwd = shard_fwd_numbers(card, label, shard_idx[0], slabs[0])
+        bwd_err, bwd = bwd_check(card, label, shard_idx[0], dout, k_loc, plain_busy=False)
+        fwd_kernel = lookup_kernel("cce_lookup_fwd", tables)
+        shard_fwd = [device_ms(lambda i=i, t=t: cl.cce_lookup_fwd(i, t), fwd_kernel)
+                     for i, t in zip(shard_idx, slabs)]
+        shard_bwd = [device_busy_ms(lambda i=i: cl.cce_lookup_bwd(i, dout, k_loc),
+                                    iters=TRACE_RECORDS) for i in shard_idx]
+        fwd["unsharded_device_ms"] = device_ms(lambda: cl.cce_lookup_fwd(idx, tables), fwd_kernel)
+        bwd["unsharded_device_ms"] = device_busy_ms(
+            lambda: cl.cce_lookup_bwd(idx, dout, grp.k_pad), iters=TRACE_RECORDS)
+        fwd["by_shard_device_ms"], bwd["by_shard_device_ms"] = shard_fwd, shard_bwd
+        print(f"[{card}] shard route emulated at {SHARD_ROUTE} shards: the shards' lookups summed "
+              f"and backwards concatenated equal the unsharded launches bit for bit; lookup "
+              f"device_ms by shard {shard_fwd!r} vs unsharded {fwd['unsharded_device_ms']!r}; "
+              f"backward device_ms by shard {shard_bwd!r} vs unsharded "
+              f"{bwd['unsharded_device_ms']!r}", flush=True)
+        shape = dict(c=grp.n_cols, T=grp.n_tables, k_loc=k_loc, dsub=grp.dsub, B=TRAIN_BATCH,
+                     shards=SHARD_ROUTE, valid_share=fwd["valid_share"])
+        return {"shard_train": launches}, dict(fwd=dict(fwd, shape=shape),
+                                               bwd=dict(bwd, shape=shape), max_abs_err=bwd_err)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _host_cells(tracker, sparse):
     """The tracker's sketch cells of one batch, counted on the host with
     ``CountMinSketch.cells``: (F_tracked, depth, width) int32."""
@@ -1840,7 +2147,7 @@ def loop_phase(card: str, cfg, device="cuda"):
     phases = [(trans_mod, "_draw_points", "sketch points"),
               (trans_mod, "_dense_weights", "sketch id_weights"),
               (cce_lib.CCE, "materialize", "sample materialize"),
-              (km, "kmeans", "kmeans++/Lloyd"),
+              (km, "kmeans_columns", "kmeans++/Lloyd"),
               (cce_lib.CCE, "assign_all", "assign_all"),
               (cce_lib.CCE, "remap_moments", "moment remap")]
     try:
@@ -3862,7 +4169,7 @@ def lm_train_phase(card: str, cfg, device="cuda", *, label="lm", batch=LM_TRAIN_
     step_ms, slstm_ms, mlstm_ms, seen, traced = [], [], [], {}, {}
     orig_step, orig_cluster = trainer.train_step, trainer.cluster_fn
     phases = [(cce_lib.CCE, "materialize", "sample materialize"),
-              (km, "kmeans", "kmeans++/Lloyd"),
+              (km, "kmeans_columns", "kmeans++/Lloyd"),
               (cce_lib.CCE, "assign_all", "assign_all"),
               (cce_lib.CCE, "remap_moments", "moment remap")]
 
@@ -3884,13 +4191,13 @@ def lm_train_phase(card: str, cfg, device="cuda", *, label="lm", batch=LM_TRAIN_
     def cluster(key, p, b, opt):
         distinct = int(np.count_nonzero(trainer.id_tracker.counts[0]))
         check(distinct > table.k, f"{distinct} distinct tokens observed, not over k={table.k}")
-        orig_kmeans = km.kmeans
+        orig_kmeans = km.kmeans_columns
 
-        def kmeans(key, x, k, **kw):  # keeps the first column's sample
-            seen.setdefault("sample", (key, x, kw.get("weights"), kw.get("niter", 50)))
-            return orig_kmeans(key, x, k, **kw)
+        def kmeans(keys, x, k, *a, **kw):  # keeps the first column's sample
+            seen.setdefault("sample", (keys[0], x[0], kw.get("weights"), kw.get("niter", 50)))
+            return orig_kmeans(keys, x, k, *a, **kw)
 
-        km.kmeans = kmeans
+        km.kmeans_columns = kmeans
         try:
             with PhaseClock(phases) as clock:
                 torch.cuda.synchronize()
@@ -3899,7 +4206,7 @@ def lm_train_phase(card: str, cfg, device="cuda", *, label="lm", batch=LM_TRAIN_
                 torch.cuda.synchronize()
                 total = (time.perf_counter() - t) * 1e3
         finally:
-            km.kmeans = orig_kmeans
+            km.kmeans_columns = orig_kmeans
         launched = dict(ops.LAUNCHES)
         # a second run from the same inputs, each call of a phase but the
         # k-means profiled (a trace of its ~6e4 kernels a column takes minutes
@@ -4080,14 +4387,15 @@ def lm_train_phase(card: str, cfg, device="cuda", *, label="lm", batch=LM_TRAIN_
     assign_err, assign_at = lm_table_assign_numbers(card, x, cent, ptr, library_by_column=xlstm)
     del x, cent, old_p, old_b
 
-    # repeats on the cut: runs A and B from one seed, and C crashed after its
-    # checkpoint at LM_CUT_STEPS and resumed, all equal bit for bit
+    # repeats on the cut: run A, and B from the same seed crashed after its
+    # checkpoint at LM_CUT_STEPS and resumed, equal bit for bit (B's steps up to
+    # its checkpoint repeat A's, so this holds the run's repeatability too)
     cut_steps = LM_CUT_STEPS + 2
     cut_raw = cut_batches(cut_steps)
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_lm_"))
     runs = {}
     try:
-        for tag, fail_at in (("A", []), ("B", []), ("C", [LM_CUT_STEPS + 1])):
+        for tag, fail_at in (("A", []), ("B", [LM_CUT_STEPS + 1])):
             a = make_args(LM_CUT_SEQ, cut_steps, LM_CUT_STEPS, ckpt_dir=str(tmp / tag),
                           ckpt_every=LM_CUT_STEPS, fail_at=fail_at)
             tr = build_lm_trainer(cut_cfg, a, data_from=lambda st: iter(cut_raw[st:]))
@@ -4102,19 +4410,18 @@ def lm_train_phase(card: str, cfg, device="cuda", *, label="lm", batch=LM_TRAIN_
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     ref_state, ref_loss, ref_counts = runs["A"]
-    for tag in ("B", "C"):
-        state, loss, counts = runs[tag]
-        for part in ("params", "opt", "ebuf"):
-            check(all(torch.equal(a, b) for a, b in zip(tree_leaves(getattr(state, part)),
-                                                        tree_leaves(getattr(ref_state, part)))),
-                  f"{label} cut run {tag} differs from run A in {part}")
-        check(loss == ref_loss and np.array_equal(counts, ref_counts),
-              f"{label} cut run {tag}: losses or token counts differ from run A")
+    state, loss, counts = runs["B"]
+    for part in ("params", "opt", "ebuf"):
+        check(all(torch.equal(a, b) for a, b in zip(tree_leaves(getattr(state, part)),
+                                                    tree_leaves(getattr(ref_state, part)))),
+              f"{label} cut run B differs from run A in {part}")
+    check(loss == ref_loss and np.array_equal(counts, ref_counts),
+          f"{label} cut run B: losses or token counts differ from run A")
     print(f"[{card}] {label} train, {LM_CHECK_LAYERS}-layer cut, {batch} x {LM_CUT_SEQ} "
-          f"tokens: runs A and B ({LM_CUT_STEPS} steps, a transition, 2 steps) equal bit for "
-          f"bit; run C crashed at step {LM_CUT_STEPS + 1} after its checkpoint at "
-          f"{LM_CUT_STEPS}, resumed, equals them (params, adamw state, ptr/hs/epoch, losses, "
-          f"token counts)", flush=True)
+          f"tokens: run A ({LM_CUT_STEPS} steps, a transition, 2 steps); run B from the same "
+          f"seed crashed at step {LM_CUT_STEPS + 1} after its checkpoint at "
+          f"{LM_CUT_STEPS}, resumed, equals it bit for bit (params, adamw state, ptr/hs/epoch, "
+          f"losses, token counts)", flush=True)
     return launches, fwd_at, bwd_err, bwd_at, assign_err, assign_at, step_at
 
 
@@ -4136,9 +4443,9 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call it replaces)
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:97"),
 }
-PHASES = ("lookup", "bwd", "kmeans", "train", "loop", "serve", "methods", "flash", "lm_serve",
-          "hybrid_serve", "vlm_serve", "xlstm_serve", "moe_serve", "audio_serve", "lm_train",
-          "xlstm_train")
+PHASES = ("lookup", "bwd", "kmeans", "train", "shard_train", "loop", "serve", "methods", "flash",
+          "lm_serve", "hybrid_serve", "vlm_serve", "xlstm_serve", "moe_serve", "audio_serve",
+          "lm_train", "xlstm_train")
 
 
 def main(argv=None) -> int:
@@ -4195,6 +4502,9 @@ def main(argv=None) -> int:
     bwd = phase("bwd", bwd_kernel_phase, card, CONFIG)
     assign = phase("kmeans", kmeans_phase, card, CONFIG)
     launches = phase("train", train_phase, card, CONFIG) or {}
+    shard = phase("shard_train", shard_train_phase, card, CONFIG)
+    if shard is not None:
+        launches.update(shard[0])
     launches.update(phase("loop", loop_phase, card, CONFIG) or {})
     serve = phase("serve", serve_phase, card, CONFIG, SERVE_BATCHES)
     if serve is not None:
@@ -4249,25 +4559,31 @@ def main(argv=None) -> int:
                 "launches": sum(launches[p].get(name, 0) for p in main_paths),
                 "launches_by_path": by_path(name), "max_abs_err": err, **at, **extra}
 
-    steps = ("train", "train_after_transition", "loop", "methods", "lm_train", "xlstm_train",
-             "audio_train")
+    shard_at = shard[1]
+    steps = ("train", "train_after_transition", "shard_train", "loop", "methods", "lm_train",
+             "xlstm_train", "audio_train")
     S = FLASH_TIMED[-1]
     kernels = [
         entry("cce_lookup_fwd",
               steps + ("lm_serve", "hybrid_serve", "vlm_serve", "xlstm_serve", "moe_serve"),
               max(fwd_err, methods_err, lm_fwd_at["max_abs_err"], xl_fwd_at["max_abs_err"],
+                  shard_at["max_abs_err"],
                   *(v["max_abs_err"] for v in (*hybrid_lookup.values(), *vlm_lookup.values(),
                                                 *xlstm_lookup.values(), *moe_lookup.values()))),
               fwd_at[TRAIN_BATCH], batch=TRAIN_BATCH, at_serve_batch=fwd_at[SERVE_BATCH],
               at_lm_shape=lm_lookup, at_lm_train_shape=lm_fwd_at, at_hymba_shape=hybrid_lookup,
               at_paligemma_shape=vlm_lookup, at_xlstm_shape=xlstm_lookup,
               at_xlstm_train_shape=xl_fwd_at, at_phi3_5_moe_shape=moe_lookup,
+              at_shard_shape=shard_at["fwd"],
               **{f"at_{m}_shape": methods_at[m]["fwd"] for m in METHOD_KERNEL_SHAPES}),
-        entry("cce_lookup_bwd", steps, max(bwd_err, methods_err, lm_bwd_err, xl_bwd_err), bwd_at,
+        entry("cce_lookup_bwd", steps,
+              max(bwd_err, methods_err, lm_bwd_err, xl_bwd_err, shard_at["max_abs_err"]), bwd_at,
               batch=TRAIN_BATCH, at_lm_train_shape=lm_bwd_at, at_xlstm_train_shape=xl_bwd_at,
+              at_shard_shape=shard_at["bwd"],
               **{f"at_{m}_shape": methods_at[m]["bwd"] for m in METHOD_KERNEL_SHAPES}),
         entry("kmeans_assign",
-              ("transition", "loop", "methods", "lm_train", "xlstm_train", "audio_train"),
+              ("transition", "shard_train", "loop", "methods", "lm_train", "xlstm_train",
+               "audio_train"),
               max(assign_err, lm_assign_err, xl_assign_err), assign_at,
               at_lm_table_shape=lm_assign_at, at_xlstm_table_shape=xl_assign_at),
         entry("flash_attention",

@@ -30,8 +30,12 @@ as the Trainer does.
     (``toplevel``), so a reader with other optional host-state sections
     (``id_counts``, ``trigger``) aligns them by name.
 
-``reshard_restore`` (placing a restored tree over a device mesh) waits
-for the port's sharded path.
+A model-sharded trainer stores the whole layout too: its shards are
+gathered to rank 0, which writes (``train.loop.Trainer``), and
+``reshard_restore`` cuts each rank's slice out of a restored whole tree,
+so a checkpoint moves between 1-device and sharded trainers, and between
+shard counts (through ``dlrm.checkpoint_migrations`` where ``k_multiple``
+differs).
 """
 from __future__ import annotations
 
@@ -218,6 +222,20 @@ def load_checkpoint(directory: str, *, step: int | None = None,
                 tree = conv(tree)
             return manifest["step"], tree, manifest.get("extra", {})
     raise err  # no candidate layout matched
+
+
+def reshard_restore(tree: Pytree, specs: Pytree, rank: int, n_shards: int, *,
+                    device=None) -> Pytree:
+    """Rank ``rank``'s shard of a restored whole ``tree`` under ``specs``
+    (``launch.steps.dlrm_state_specs``; ``shard.shard_tree``), its tensors
+    moved to ``device`` when given.  The saved and the restoring shard
+    counts need not match."""
+    from repro_torch.shard import shard_tree
+
+    out = shard_tree(tree, specs, rank, n_shards)
+    if device is None:
+        return out
+    return tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor) else x, out)
 
 
 class CheckpointManager:

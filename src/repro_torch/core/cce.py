@@ -1,6 +1,6 @@
 """Clustered Compositional Embeddings (Algorithm 3 of the paper): state,
 buffer init, row translation, the fused lookup and the clustering
-transition (``cluster``, single-device).
+transition (``cluster``, alone or over a process group).
 
 A CCE table with vocabulary ``d1``, output dim ``d2``, ``c`` columns and
 ``2k`` rows per column (main table M indexed by a learned pointer array,
@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
+from repro_torch import shard
 from repro_torch.core import embeddings as emb_lib
 from repro_torch.core import hashing
 from repro_torch.core import kmeans as km
@@ -188,36 +189,92 @@ class CCE:
         return H
 
     # --- the clustering transition (Alg. 3 lines 10-17) ------------------
+    #
+    # Every step takes an optional process ``group`` of M ranks (DESIGN.md
+    # section 9; the JAX package's ``*_sharded`` methods).  Over a group the
+    # pointer table is ID-SHARDED in the transition's compute layout: rank r
+    # holds ``ptr_tile``, the ids ``[r*d1_loc, (r+1)*d1_loc)`` of
+    # ``_ptr_padded(ptr, M*d1_loc)`` (d1_loc = ceil(d1/M)), and no rank
+    # holds the whole pointer table.  With no group ``buffers["ptr"]`` is
+    # the whole table (the one tile of a group of one) and no collective
+    # runs.  The (c, 2, k, dsub) tables, ``hs`` and ``epoch`` are whole on
+    # every rank.  On one rank a group changes no bit: the same chunks, the
+    # same addition order, identity collectives.
 
-    def materialize(self, params, buffers, ids):
-        """Current embeddings of 1-d ``ids``, per column: (c, n, dsub)
-        (main row + helper row, in the table dtype)."""
-        rows = self._rows(buffers, ids).to(torch.int64)  # (c, n, 2)
+    def d1_loc(self, n_shards: int) -> int:
+        return -(-self.d1 // n_shards)
+
+    def _ptr_padded(self, ptr, d1_pad: int):
+        """(c, d1) -> (c, d1_pad), the tail repeating the last column so an
+        even id shard exists; padded entries are masked out or produce
+        row-wise duplicates that change no result."""
+        if d1_pad > self.d1:
+            ptr = torch.cat([ptr, ptr[:, -1:].expand(-1, d1_pad - self.d1)], dim=1)
+        return ptr
+
+    def ptr_tile(self, ptr, rank: int, n_shards: int):
+        """Rank ``rank``'s (c, d1_loc) compute tile of a whole (c, d1) ptr."""
+        n = self.d1_loc(n_shards)
+        return self._ptr_padded(ptr, n * n_shards)[:, rank * n: (rank + 1) * n].contiguous()
+
+    def _local_ids(self, group, device):
+        """(ids, valid) of this rank's tile: its id range, clamped to d1-1
+        past the vocabulary, and which of them are real ids."""
+        rank, M = shard.rank_and_size(group)
+        n = self.d1_loc(M)
+        ids = torch.arange(rank * n, (rank + 1) * n, device=device)
+        return ids.clamp(max=self.d1 - 1), ids < self.d1
+
+    def materialize(self, params, buffers, ids, group=None):
+        """Current embeddings of any (scattered) 1-d ``ids``, per column:
+        (c, n, dsub), main row + helper row in the table dtype.  Over a
+        group each rank gathers the main rows of the ids its tile owns,
+        zeros the rest, and an all-reduce assembles them on every rank
+        (exactly one non-zero term per id, so the sum is exact in any
+        order); the helper part needs only ``hs``.  The ptr gather clamps
+        out-of-range ids."""
         tabs = params["tables"]
         col = torch.arange(self.c, device=tabs.device)[:, None]
-        return tabs[col, 0, rows[..., 0]] + tabs[col, 1, rows[..., 1]]
+        ptr = buffers["ptr"]
+        if group is None:
+            main = tabs[col, 0, ptr[:, ids.clamp(0, self.d1 - 1)].to(torch.int64)]
+        else:
+            rank, M = shard.rank_and_size(group)
+            n = self.d1_loc(M)
+            lo = rank * n
+            owned = (ids >= lo) & (ids < lo + n)
+            main = tabs[col, 0, ptr[:, (ids - lo).clamp(0, n - 1)].to(torch.int64)]
+            main = torch.where(owned[None, :, None], main, 0).contiguous()
+            main = shard.all_reduce_(main, group)
+        return main + tabs[col, 1, self._helper_rows(buffers, ids).to(torch.int64)]
 
-    def _id_chunks(self, chunk_size: int | None, device):
-        """Full-vocab id ranges as (first id, ids): one range when
-        unchunked, else a stream of ``chunk_size`` slices so (c, d1, dsub)
-        is never materialized."""
-        step = chunk_size if chunk_size and chunk_size < self.d1 else self.d1
-        for s in range(0, self.d1, step):
-            yield s, torch.arange(s, min(s + step, self.d1), device=device)
+    def assign_all(self, params, buffers, centroids, *, group=None,
+                   chunk_size: int | None = None, use_kernel: bool | None = None):
+        """Single-pass nearest-centroid assignment of every id of this
+        rank's tile (the whole vocabulary with no group).
 
-    def assign_all(self, params, buffers, centroids, *, chunk_size: int | None = None,
-                   use_kernel: bool | None = None) -> torch.Tensor:
-        """Single-pass full-vocab nearest-centroid assignment.
+        ``centroids`` (c, k, dsub) -> (c, d1_loc) int32, the new pointer
+        tile.  The ids are materialized once, in ``chunk_size`` slices,
+        each assigned for all c columns by ``km.assign_chunks`` (one
+        ``kmeans_assign_batched`` launch a chunk when ``use_kernel``, by
+        default on a CUDA device).  The tail's clamped ids are row-wise
+        duplicates and change nothing."""
+        n = self.d1_loc(shard.rank_and_size(group)[1])
+        ids, _ = self._local_ids(group, centroids.device)
+        ptr, hs = buffers["ptr"], buffers["hs"]
+        tabs = params["tables"]
+        col = torch.arange(self.c, device=tabs.device)[:, None]
+        step = chunk_size if chunk_size and chunk_size < n else n
 
-        ``centroids`` (c, k, dsub) -> (c, d1) int32.  The vocabulary is
-        materialized once, in ``chunk_size`` id slices, each assigned for
-        all c columns by ``km.assign_chunks`` (through the kernel when
-        ``use_kernel``, by default on a CUDA device)."""
-        device = centroids.device
-        out = torch.empty((self.c, self.d1), dtype=torch.int32, device=device)
-        chunks = ((s, self.materialize(params, buffers, ids))  # (c, n, dsub)
-                  for s, ids in self._id_chunks(chunk_size, device))
-        return km.assign_chunks(chunks, centroids, out, use_kernel=use_kernel)
+        def chunks():
+            for s in range(0, n, step):
+                main = tabs[col, 0, ptr[:, s: s + step].to(torch.int64)]
+                helper = tabs[col, 1, self._helper_rows({"hs": hs}, ids[s: s + step])
+                              .to(torch.int64)]
+                yield s, main + helper  # (c, n_chunk, dsub)
+
+        out = torch.empty((self.c, n), dtype=torch.int32, device=centroids.device)
+        return km.assign_chunks(chunks(), centroids, out, use_kernel=use_kernel)
 
     def _finish_transition(self, key, centroids, assignments, buffers):
         """Install centroids as the main tables, zero the helper tables
@@ -236,75 +293,98 @@ class CCE:
         }
         return {"tables": tables}, new_buffers
 
-    def cluster(self, key, params, buffers, *, sample_ids=None, sample_weights=None,
-                niter: int = 50, max_points_per_centroid: int = 256,
+    def cluster(self, key, params, buffers, *, group=None, sample_ids=None,
+                sample_weights=None, niter: int = 50, max_points_per_centroid: int = 256,
                 chunk_size: int | None = None, use_kernel: bool | None = None):
-        """One CCE iteration: returns new (params, buffers).
+        """One CCE iteration: returns new (params, buffers), ``ptr`` the new
+        tile (with no group, the whole table).
 
         K-means runs on a sample (FAISS-style, 256 points per centroid by
-        default); the assignments of the FULL vocabulary are then one
-        materialization pass shared by all columns (``assign_all``).
-        ``sample_weights`` (aligned with ``sample_ids``) runs count-weighted
-        k-means: each observed id once, weighted by its frequency.  The key
-        schedule is the JAX package's, so ``hs`` and ``epoch`` match it bit
-        for bit."""
+        default), every column in lockstep (``km.kmeans_columns``); over a
+        group the sample is split evenly over the ranks, the remainder of
+        fewer than M points dropped, as the JAX package drops it.  The
+        assignments of the FULL vocabulary are then one materialization
+        pass shared by all columns (``assign_all``).  ``sample_weights``
+        (aligned with ``sample_ids``) runs count-weighted k-means: each
+        observed id once, weighted by its frequency.  The key schedule is
+        the JAX package's, so ``hs`` and ``epoch`` match it bit for bit."""
+        rank, M = shard.rank_and_size(group)
         device = params["tables"].device
         k1, k2 = jr.split(jr.fold_in(key, int(buffers["epoch"])))
         if sample_ids is None:
             sample_ids = km.subsample(k1, self.d1, self.k, max_points_per_centroid,
                                       device=device)
-        sample = self.materialize(params, buffers, sample_ids)  # (c, n, dsub)
-        centroids = torch.stack([
-            km.kmeans(jr.fold_in(k2, i), sample[i], self.k, niter=niter,
-                      weights=sample_weights).centroids
-            for i in range(self.c)
-        ])  # (c, k, dsub)
-        new_ptr = self.assign_all(params, buffers, centroids, chunk_size=chunk_size,
-                                  use_kernel=use_kernel)
+        n = sample_ids.shape[0] - sample_ids.shape[0] % M
+        sample = self.materialize(params, buffers, sample_ids[:n], group)  # (c, n, dsub)
+        n_loc = n // M
+        mine = slice(rank * n_loc, (rank + 1) * n_loc)
+        w = None if sample_weights is None else sample_weights[:n][mine]
+        centroids = km.kmeans_columns(
+            [jr.fold_in(k2, i) for i in range(self.c)], sample[:, mine], self.k, group,
+            niter=niter, weights=w)  # (c, k, dsub), equal on every rank
+        new_ptr = self.assign_all(params, buffers, centroids, group=group,
+                                  chunk_size=chunk_size, use_kernel=use_kernel)
         return self._finish_transition(k2, centroids, new_ptr, buffers)
 
-    def assignment_counts(self, buffers) -> torch.Tensor:
-        """Per-cluster id counts (c, k) float32 from the pointer table."""
-        return torch.stack(
-            [torch.bincount(a, minlength=self.k) for a in buffers["ptr"]]
-        ).to(torch.float32)
-
-    def remap_moments(self, moments, old_buffers, new_buffers, *, chunk_size=None,
-                      counts=None, id_weights=None):
+    def remap_moments(self, moments, old_buffers, new_buffers, *, group=None,
+                      chunk_size=None, id_weights=None):
         """Carry per-row optimizer moments (momentum / Adam m, v) through a
-        ``cluster()`` transition.
+        ``cluster()`` transition; both pointer tables are this rank's tiles.
 
         ``moments`` mirrors params ({"tables": (c, 2, k, dsub)}) and
         describes the OLD rows.  An id's virtual moment is its materialized
         row-sum under the OLD pointers; each new main row takes the mean
-        over the ids assigned to it (count-weighted by ``id_weights`` (d1,)
-        when given, falling back to the uniform mean for clusters of zero
-        weight); the fresh helper table starts at zero.  Streams the vocab
-        in ``chunk_size`` slices; the segment sums are deterministic."""
+        over the ids assigned to it (count-weighted by ``id_weights``, the
+        whole (d1,) vector, when given, falling back to the uniform mean
+        for clusters of zero weight); the fresh helper table starts at
+        zero.  Each rank streams its tile in ``chunk_size`` slices,
+        segment-summing (deterministic) into (c, k) accumulators, with the
+        per-cluster id counts (exact: sums of ones), and one all-reduce
+        assembles them.  The tail padding is masked (weight zero), not
+        clamped: a duplicate would be counted twice."""
+        rank, M = shard.rank_and_size(group)
         mt = moments["tables"]
-        new_ptr = new_buffers["ptr"]
-        if counts is None:
-            counts = self.assignment_counts(new_buffers)  # (c, k)
         c, k, dsub = self.c, self.k, self.dsub
         dev = mt.device
+        n = self.d1_loc(M)
+        ids, valid = self._local_ids(group, dev)
+        v = valid.to(torch.float32)
+        old_ptr, new_ptr = old_buffers["ptr"], new_buffers["ptr"]
+        weighted = id_weights is not None
+        if weighted:
+            w_pad = torch.zeros(n * M, dtype=torch.float32, device=dev)
+            w_pad[: self.d1] = id_weights.to(torch.float32)
+            w_loc = w_pad[rank * n: (rank + 1) * n]
+        col = torch.arange(c, device=dev)[:, None]
         sums = torch.zeros((c, k, dsub), dtype=torch.float32, device=dev)
+        cnts = torch.zeros((c, k), dtype=torch.float32, device=dev)
         wsums = torch.zeros_like(sums)
-        wcounts = torch.zeros((c, k), dtype=torch.float32, device=dev)
-        col = torch.arange(c, device=dev)[:, None] * k
-        for _, ids in self._id_chunks(chunk_size, dev):
-            n = ids.shape[0]
-            per_id = self.materialize({"tables": mt}, old_buffers, ids).to(torch.float32)
-            seg = (col + new_ptr[:, ids].to(torch.int64)).reshape(-1)  # (c*n,)
+        wcounts = torch.zeros_like(cnts)
+        step = chunk_size if chunk_size and chunk_size < n else n
+        for s in range(0, n, step):
+            ids_c, v_c = ids[s: s + step], v[s: s + step]
+            m = ids_c.shape[0]
+            main = mt[col, 0, old_ptr[:, s: s + step].to(torch.int64)]
+            helper = mt[col, 1, self._helper_rows(old_buffers, ids_c).to(torch.int64)]
+            per_id = (main + helper).to(torch.float32) * v_c[None, :, None]
+            seg = (col * k + new_ptr[:, s: s + step].to(torch.int64)).reshape(-1)
             sums = sums + _segment_sum(per_id.reshape(-1, dsub), seg, c * k).reshape(c, k, dsub)
-            if id_weights is not None:
-                w = id_weights[ids].to(torch.float32)  # (n,)
+            cnts = cnts + _segment_sum(v_c.expand(c, m).reshape(-1, 1), seg, c * k).reshape(c, k)
+            if weighted:
+                w = w_loc[s: s + step] * v_c
                 wsums = wsums + _segment_sum(
-                    (per_id * w[None, :, None]).reshape(-1, dsub), seg, c * k
-                ).reshape(c, k, dsub)
+                    (per_id * w[None, :, None]).reshape(-1, dsub), seg, c * k).reshape(c, k, dsub)
                 wcounts = wcounts + _segment_sum(
-                    w.expand(c, n).reshape(-1, 1), seg, c * k).reshape(c, k)
-        mean = sums / torch.clamp(counts[..., None], min=1.0)
-        if id_weights is not None:
+                    w.expand(c, m).reshape(-1, 1), seg, c * k).reshape(c, k)
+        if group is not None:
+            acc = shard.all_reduce_(torch.cat([sums.reshape(c, -1), cnts, wsums.reshape(c, -1),
+                                         wcounts], dim=1), group)  # one collective
+            sums = acc[:, : k * dsub].reshape(c, k, dsub)
+            cnts = acc[:, k * dsub: k * dsub + k]
+            wsums = acc[:, k * dsub + k: 2 * k * dsub + k].reshape(c, k, dsub)
+            wcounts = acc[:, 2 * k * dsub + k:]
+        mean = sums / torch.clamp(cnts[..., None], min=1.0)
+        if weighted:
             wmean = wsums / torch.clamp(wcounts[..., None], min=1e-12)
             mean = torch.where(wcounts[..., None] > 0, wmean, mean)
         mean = mean.to(mt.dtype)

@@ -1,5 +1,4 @@
-"""EmbeddingCollection -- grouped supertables for multi-feature models,
-single-device.
+"""EmbeddingCollection -- grouped supertables for multi-feature models.
 
 Every table whose lookup is a per-column gather-sum (``fuse_spec``: CCE,
 CE, the hashing trick and small full tables) stacks into ONE universal
@@ -16,6 +15,13 @@ State layout (the JAX package's "grouped layout"):
 
     params["emb"]  : [group_params, ...]         one entry per group
     buffers["emb"] : [[feat_buffers, ...], ...]  per group, per feature
+
+Model-parallel (DESIGN.md section 9): with a process group of M ranks each
+rank holds a k-slice of every universal supertable, and ``lookup_all(...,
+group=)`` routes each id to its owning rank by all-to-all
+(``_univ_lookup_sharded``).  ``legacy_layout_migration`` and
+``grouped_layout_migration`` restore checkpoints of other layouts (the
+per-feature one, the pre-universal grouping, another ``k_multiple``).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import embeddings as emb_lib
 from repro_torch.core.cce import CCE
@@ -118,11 +125,19 @@ def _expand_rows(rows, s: int, n_tables: int):
     return rows
 
 
-def bucket_rows(rows: np.ndarray, k_loc: int, n_shards: int) -> np.ndarray:
+def bucket_rows(rows, k_loc: int, n_shards: int):
     """Route global rows (with the -1 sentinel) to their owning model
     shard: (n_shards, *rows.shape) int32, bucket ``s`` holding shard-local
-    indices for the rows in ``[s*k_loc, (s+1)*k_loc)`` and -1 elsewhere."""
+    indices for the rows in ``[s*k_loc, (s+1)*k_loc)`` and -1 elsewhere,
+    so each valid row lands in exactly one bucket.  ``rows`` is a numpy
+    array (host translation) or a tensor (in-step bucketing), with
+    bit-identical results."""
     owner = rows // k_loc
+    if isinstance(rows, torch.Tensor):
+        return torch.stack(
+            [torch.where((rows >= 0) & (owner == s), rows - s * k_loc, -1)
+             for s in range(n_shards)]
+        ).to(torch.int32)
     return np.stack(
         [np.where((rows >= 0) & (owner == s), rows - s * k_loc, -1)
          for s in range(n_shards)]
@@ -400,7 +415,43 @@ class EmbeddingCollection:
         lookup (the kernel on CUDA tensors)."""
         return kops.cce_lookup(rows, group_params["tables"])
 
-    def lookup_all(self, emb_params, emb_buffers, sparse, *, rows=None):
+    def _univ_lookup_sharded(self, grp: TableGroup, group_params, rows, group):
+        """Model-parallel universal lookup.  This rank holds codebook rows
+        ``[r*k_loc, (r+1)*k_loc)`` of the supertable (``group_params
+        ["tables"]`` is its (n_cols, T, k_loc, dsub) slice) and a
+        contiguous slice of the batch; ``rows`` are its batch rows, global
+        (B_loc, n_cols, T) or pre-bucketed shard-local (B_loc, M, n_cols, T)
+        (``HostTranslator(n_shards=M)``).
+
+        Bucket, all-to-all (each rank receives the rows it owns from every
+        rank's batch slice, in rank order, so its received batch is the
+        global batch in order), ONE local lookup launch over them (rows
+        another rank owns are the -1 sentinel: exact-zero partials),
+        all-to-all back, sum over ranks.  Each output sums the T rows of
+        its column and at most T ranks contribute non-zero partials, so
+        with T <= 2 the forward equals the unsharded launch bit for bit.
+        The backward runs the same routes in reverse; each slab row's
+        gradient sums its terms in global batch order, as the unsharded
+        backward does."""
+        from repro_torch.shard import all_to_all
+
+        M = dist.get_world_size(group)
+        k_loc = grp.k_pad // M
+        if k_loc * M != grp.k_pad:
+            raise ValueError(f"k_pad {grp.k_pad} not divisible by {M} model shards; "
+                             f"build the collection with k_multiple={M}")
+        if rows.dim() == 4:
+            b = rows.movedim(1, 0)  # (M, B_loc, n_cols, T)
+        else:
+            b = bucket_rows(rows, k_loc, M)
+        B_loc = rows.shape[0]
+        recv = all_to_all(b, group)  # (M, B_loc, n_cols, T): rank r's rows I own
+        r = recv.reshape(M * B_loc, grp.n_cols, -1).movedim(0, 1)
+        part = self._univ_lookup(grp, group_params, r)  # (M*B_loc, n_cols*dsub)
+        back = all_to_all(part.reshape(M, B_loc, -1), group)
+        return back.sum(dim=0)  # (B_loc, n_cols*dsub)
+
+    def lookup_all(self, emb_params, emb_buffers, sparse, *, rows=None, group=None):
         """All features' embeddings, one heavy lookup per group (ONE on
         the compressed Criteo configuration).
 
@@ -409,19 +460,38 @@ class EmbeddingCollection:
         supertable rows (``data.translate``): universal groups then read
         their column slice of it, through a strided view the kernel takes
         without a copy, and never touch the pointer tables.  ``sparse``
-        may be None when every group is universal."""
+        may be None when every group is universal.
+
+        ``group`` (a ``torch.distributed`` process group) switches
+        universal groups to the model-parallel lookup
+        (``_univ_lookup_sharded``): the slabs are this rank's k-slices,
+        the batch this rank's slice, and ``rows`` may also arrive
+        pre-bucketed as (B, M, rows_n_cols, rows_n_tables).  The sharded
+        lookup needs host-translated rows: the device never holds a whole
+        pointer table."""
+        if group is None and rows is not None and rows.dim() == 4:
+            raise ValueError("pre-bucketed 4-d rows need a model group")
         outs = [None] * self.n_features
         col_off = 0
         for g, grp in enumerate(self.groups):
             if grp.kind == "univ":
-                if rows is not None:
+                if group is not None:
+                    if rows is None:
+                        raise NotImplementedError(
+                            "the sharded lookup needs host-translated rows "
+                            "(the device program must not gather ptr)")
+                    grows = rows[..., col_off: col_off + grp.n_cols, : grp.n_tables]
+                    col_off += grp.n_cols
+                    flat = self._univ_lookup_sharded(grp, emb_params[g], grows, group)
+                elif rows is not None:
                     grows = rows[:, col_off : col_off + grp.n_cols, : grp.n_tables]
                     grows = grows.movedim(0, 1)  # (n_cols, B, T)
                     col_off += grp.n_cols
+                    flat = self._univ_lookup(grp, emb_params[g], grows)
                 else:
                     ids = sparse[:, list(grp.features)]
                     grows = self.group_rows(grp, emb_buffers[g], ids)
-                flat = self._univ_lookup(grp, emb_params[g], grows)
+                    flat = self._univ_lookup(grp, emb_params[g], grows)
                 off = 0
                 for f_local, i in enumerate(grp.features):
                     n = grp.col_counts[f_local]
@@ -435,3 +505,63 @@ class EmbeddingCollection:
             for f_local, i in enumerate(grp.features):
                 outs[i] = vecs[:, f_local]
         return torch.stack(outs, dim=1)
+
+
+# --- checkpoint layout migrations ---------------------------------------------
+
+
+def _emb_layout_migration(old_p, old_b, new_p, new_b):
+    """(to_old, to_new) pair converting a checkpoint tree's embedding
+    subtrees (params["emb"], the optimizer's moment slots, the error
+    feedback, and ebuf["emb"]) between two layouts through the given
+    emb-tree transforms.  Every transform is value-preserving (unstacking
+    slices blocks; stacking reshapes and pads with zeros that training
+    keeps zero), so a restore through a migration is bit-exact."""
+
+    def _emb(tree, fn):
+        if isinstance(tree, dict) and "emb" in tree:
+            return dict(tree, emb=fn(tree["emb"]))
+        return tree
+
+    def _state(state, pfn, bfn):
+        opt = state.opt
+        if isinstance(opt, dict):
+            opt = {k: _emb(v, pfn) if isinstance(v, dict) else v for k, v in opt.items()}
+        return state._replace(
+            params=_emb(state.params, pfn),
+            opt=opt,
+            ebuf=_emb(state.ebuf, bfn),
+            err=_emb(state.err, pfn) if isinstance(state.err, dict) else state.err,
+        )
+
+    def to_old(tree):
+        return dict(tree, state=_state(tree["state"], old_p, old_b))
+
+    def to_new(tree):
+        return dict(tree, state=_state(tree["state"], new_p, new_b))
+
+    return to_old, to_new
+
+
+def legacy_layout_migration(coll: EmbeddingCollection):
+    """Migration pair for the pre-collection per-feature layout:
+    ``to_old(template)`` derives the per-feature template such a writer
+    produced, ``to_new(tree)`` stacks a restored per-feature tree into the
+    grouped layout, bit for bit."""
+    return _emb_layout_migration(
+        coll.unstack_params, coll.unstack_buffers,
+        coll.stack_params, coll.stack_buffers,
+    )
+
+
+def grouped_layout_migration(coll: EmbeddingCollection, old_coll: EmbeddingCollection):
+    """Migration pair between two grouped layouts of the same tables: the
+    pre-universal grouping (``build(mode="group")``), or another
+    ``k_multiple``.  Both convert losslessly through the per-feature view,
+    so the restore is bit-exact."""
+    return _emb_layout_migration(
+        lambda emb: old_coll.stack_params(coll.unstack_params(emb)),
+        lambda emb: old_coll.stack_buffers(coll.unstack_buffers(emb)),
+        lambda emb: coll.stack_params(old_coll.unstack_params(emb)),
+        lambda emb: coll.stack_buffers(old_coll.unstack_buffers(emb)),
+    )

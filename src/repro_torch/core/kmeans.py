@@ -136,21 +136,30 @@ def kmeans_plus_plus(key, x: torch.Tensor, k: int,
 
 
 def _lloyd_step(x, centroids, k: int, use_kernel: bool = False, weights=None):
-    a = assign(x, centroids, use_kernel=use_kernel)
-    onehot = torch.nn.functional.one_hot(a.to(torch.int64), k).to(x.dtype)  # (n, k)
-    if weights is None:
-        counts = onehot.sum(0)  # (k,)
-        sums = onehot.T @ x  # (k, d)
-    else:
-        w = weights.to(x.dtype)[:, None]  # (n, 1)
-        counts = (onehot * w).sum(0)
-        sums = onehot.T @ (x * w)
-    new_c = sums / torch.clamp(counts[:, None], min=1e-12 if weights is not None else 1.0)
-    # keep empty clusters where they were
-    new_c = torch.where(counts[:, None] > 0, new_c, centroids)
+    a, moments = _local_moments(x, centroids, k, use_kernel, weights)
+    new_c = _centroid_update(moments, centroids, weights is not None)
     d2 = ((x - new_c[a.to(torch.int64)]) ** 2).sum(-1)
     inertia = (d2 if weights is None else d2 * weights).sum()
     return new_c, a, inertia
+
+
+def _local_moments(x, centroids, k: int, use_kernel: bool, weights):
+    """(assignments, (k, 1 + d) [count | sum] moments) of the points x."""
+    a = assign(x, centroids, use_kernel=use_kernel)
+    onehot = torch.nn.functional.one_hot(a.to(torch.int64), k).to(x.dtype)  # (n, k)
+    if weights is None:
+        counts, sums = onehot.sum(0), onehot.T @ x
+    else:
+        w = weights.to(x.dtype)[:, None]  # (n, 1)
+        counts, sums = (onehot * w).sum(0), onehot.T @ (x * w)
+    return a, torch.cat([counts[:, None], sums], dim=1)
+
+
+def _centroid_update(moments, centroids, weighted: bool):
+    counts, sums = moments[:, 0], moments[:, 1:]
+    new_c = sums / torch.clamp(counts[:, None], min=1e-12 if weighted else 1.0)
+    # keep empty clusters where they were
+    return torch.where(counts[:, None] > 0, new_c, centroids)
 
 
 def kmeans(key, x: torch.Tensor, k: int, niter: int = 50, use_kernel: bool = False,
@@ -180,3 +189,59 @@ def subsample(key, n: int, k: int, max_points_per_centroid: int = 256,
         return torch.arange(n, device=device)
     return torch.randperm(n, generator=_generator(key))[:cap].to(device)
 
+
+
+# --- k-means of many columns, over a process group -----------------------
+# Each rank of a group holds a slice of the sample.  One Lloyd iteration:
+# local assignment, local (count, sum) moments, one all-reduce, the same
+# centroid update on every rank.  With no group (or on one rank) it is the
+# serial ``_lloyd_step`` bit for bit.
+
+
+def _seed_on_every_rank(centroids, group):
+    """Rank 0's kmeans++ seeds on every rank: a masked all-reduce (exactly
+    one non-zero term)."""
+    from repro_torch.shard import all_reduce_, rank_and_size
+
+    if rank_and_size(group)[0] != 0:
+        centroids = torch.zeros_like(centroids)
+    return all_reduce_(centroids.contiguous(), group)
+
+
+def kmeans_columns(keys, x: torch.Tensor, k: int, group=None, niter: int = 50,
+                   use_kernel: bool = False,
+                   weights: torch.Tensor | None = None) -> torch.Tensor:
+    """k-means of every column of x (c, n, d), column i under ``keys[i]``:
+    (c, k, d) centroids.  The columns run in lockstep, so that each
+    iteration's moments of all of them go in ONE all-reduce (c times fewer
+    collectives than a column at a time).
+
+    With no ``group`` each column is ``kmeans(keys[i], x[i], ...)``'s
+    centroids bit for bit.  Over a group each rank holds its slice of
+    every column's points (and their ``weights``), and each column is the
+    JAX package's ``distributed_kmeans``: kmeans++ on rank 0's slice (its
+    approximation), sent to every rank by a masked all-reduce, then
+    ``niter`` Lloyd iterations over all the points.  The result is equal
+    on every rank; on one rank it is the serial one bit for bit."""
+    from repro_torch.shard import all_reduce_
+
+    x = x.to(torch.float32)
+    if weights is not None:
+        weights = weights.to(torch.float32)
+    cols = range(x.shape[0])
+    cents = _seed_on_every_rank(
+        torch.stack([kmeans_plus_plus(keys[i], x[i], k, weights) for i in cols]), group)
+    for _ in range(niter):
+        moments = all_reduce_(torch.stack(
+            [_local_moments(x[i], cents[i], k, use_kernel, weights)[1] for i in cols]), group)
+        cents = torch.stack([_centroid_update(moments[i], cents[i], weights is not None)
+                             for i in cols])
+    return cents
+
+
+def distributed_kmeans(key, x_local: torch.Tensor, k: int, group, niter: int = 50,
+                       use_kernel: bool = False, weights: torch.Tensor | None = None):
+    """The JAX package's ``distributed_kmeans``: ``kmeans_columns`` of one
+    column.  Returns (centroids, the local assignments)."""
+    c = kmeans_columns([key], x_local[None], k, group, niter, use_kernel, weights)[0]
+    return c, assign(x_local.to(torch.float32), c, use_kernel=use_kernel)

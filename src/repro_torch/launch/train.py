@@ -11,6 +11,8 @@ comparison methods), the paper's loop, and the dense LMs.
         --steps 6 --cluster-every 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-medium --device cpu \
         --steps 4 --cluster-every 2
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train --model-shards 4 \
+        --device cpu --steps 40 --cluster-every 20
 
 ``--arch dlrm`` trains the reduced Criteo DLRM configuration on the
 synthetic clickstream with the sketch frequency tracker (cell count in
@@ -37,16 +39,26 @@ tracker, the transition and the trigger run with "cce" only, as in the
 JAX package.  The options both packages' launchers share have the JAX
 package's defaults.
 
-``build_dlrm_trainer`` and ``build_lm_trainer`` take the configuration
-as an argument, so a caller can train the full ``CONFIG``s.
+``--model-shards M`` (DLRM, under ``torchrun --nproc-per-node M``; also
+any run under ``torchrun``) trains the model-parallel DLRM
+(``build_dlrm_sharded_trainer``): one process a rank, NCCL on the card
+(one card a rank: more shards than cards raise) and gloo with
+``--device cpu``, the world size checked against M.  ``--data-shards`` > 1,
+JAX's 2-D (data, model) mesh, is not ported yet and raises.
+
+``build_dlrm_trainer``, ``build_dlrm_sharded_trainer`` and
+``build_lm_trainer`` take the configuration as an argument, so a caller
+can train the full ``CONFIG``s.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.embeddings import METHODS
 from repro_torch.data.synthetic import ClickstreamConfig, clickstream_batches, lm_token_batches
@@ -153,6 +165,86 @@ def build_dlrm_trainer(cfg, args, *, stream=None, trigger=None, data_from=None):
         id_tracker=tracker, trigger=trigger, accum=args.accum,
         failures=FailureInjector(tuple(args.fail_at)),
         seed=args.seed,
+        # checkpoints of the other emb layouts (per-feature, pre-universal,
+        # another k_multiple: a model-sharded trainer's) restore too
+        migrations=dlrm.checkpoint_migrations(cfg),
+        **obs_kw,
+    )
+
+
+def sharded_batches(batches, translator, rank: int, n_shards: int):
+    """Each global batch -> rank ``rank``'s contiguous slice of it, its
+    rows host-translated and pre-bucketed by owning shard (the sharded
+    lookup reads rows, not ids), and the global batch's ids as
+    ``global_sparse``, for the host alone: the frequency tracker counts
+    them on every rank, so the ranks' counts, and their transitions,
+    agree (``Trainer(host_keys=)`` keeps them off the device)."""
+    for batch in batches:
+        b = batch["sparse"].shape[0] // n_shards
+        mine = slice(rank * b, (rank + 1) * b)
+        out = {k: (v[mine] if k in ("dense", "label") else v)
+               for k, v in batch.items() if k != "sparse"}
+        out["rows"] = translator.rows(batch["sparse"][mine])
+        out["global_sparse"] = batch["sparse"]
+        yield out
+
+
+def build_dlrm_sharded_trainer(cfg, args, *, group, data_from=None):
+    """The model-parallel DLRM ``Trainer`` on this rank of ``group``
+    (``launch.mesh.init_model_group``): the 1-device trainer's init (the
+    whole state made on the host from ``args.seed``, then this rank's
+    shard moved to ``args.device``), sgd with ``args.momentum``, clip
+    ``args.clip``, the step of ``launch.steps.build_dlrm_train_step``
+    over host-translated, pre-bucketed rows, a dense tracker of the
+    global batch's ids, the sharded transition, whole-layout checkpoints
+    and ``dlrm.checkpoint_migrations``.  ``data_from(start_step)`` gives
+    the global batches (default ``dlrm_data``); each rank keeps its
+    slice.  ``cfg.emb_k_multiple`` must be a multiple of the world size.
+    A run log is written by rank 0 only."""
+    from repro_torch.checkpoint import reshard_restore
+    from repro_torch.data.translate import HostTranslator
+    from repro_torch.launch.steps import build_dlrm_train_step, dlrm_state_specs
+
+    device = getattr(args, "device", "cuda")
+    rank, M = dist.get_rank(group), dist.get_world_size(group)
+    if cfg.emb_k_multiple % M:
+        raise ValueError(f"emb_k_multiple {cfg.emb_k_multiple} is no multiple of {M} shards")
+    params, buffers = dlrm.init(cfg, torch.Generator().manual_seed(args.seed), device="cpu")
+    optimizer = sgd(momentum=args.momentum)
+    whole = init_state(params, optimizer, buffers)
+    specs = dlrm_state_specs(cfg, whole, M)
+    state = reshard_restore(whole, specs, rank, M, device=device)
+    translator = HostTranslator(cfg.collection, buffers["emb"], n_shards=M)
+    del whole, params, buffers
+    telemetry, obs_kw = _obs_kit(args, "dlrm_sharded")
+    if rank != 0:
+        obs_kw.pop("runlog", None)
+    lr = args.lr
+    step, _ = build_dlrm_train_step(
+        cfg, group, specs, batch_size=args.batch, accum=args.accum, optimizer=optimizer,
+        lr_fn=lambda s: lr, clip_norm=getattr(args, "clip", 1.0), telemetry=telemetry)
+    track = args.emb == "cce"
+    tracker = IdFrequencyTracker(cfg.vocab_sizes, key="global_sparse") if track else None
+
+    def cluster_fn(key, p, b, opt):
+        return dlrm.cluster_tables(key, p, b, cfg, opt, id_counts=tracker.counts, group=group)
+
+    global_from = data_from or dlrm_data(cfg, args)
+
+    def local_from(start_step: int):
+        return sharded_batches(global_from(start_step), translator, rank, M)
+
+    return Trainer(
+        step, state, local_from(0),
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        keep_last=getattr(args, "keep_last", 3),
+        cluster_fn=cluster_fn if track else None,
+        cluster_every=args.cluster_every, cluster_max=getattr(args, "cluster_max", 0),
+        id_tracker=tracker, translator=translator, accum=args.accum,
+        failures=FailureInjector(tuple(args.fail_at)),
+        seed=args.seed,
+        migrations=dlrm.checkpoint_migrations(cfg),
+        state_shardings=specs, group=group, host_keys=("global_sparse",),
         **obs_kw,
     )
 
@@ -266,6 +358,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--fail-at", type=int, nargs="*", default=[])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model-shards", type=int, default=1,
+                    help="DLRM: shard the supertable over this many ranks (run under "
+                    "torchrun --nproc-per-node M)")
+    ap.add_argument("--data-shards", type=int, default=1,
+                    help="the data axis of JAX's 2-D mesh: not ported yet, only 1")
     ap.add_argument("--obs", default=None, metavar="RUN.jsonl")
     ap.add_argument("--profile-steps", type=int, nargs=2, default=None)
     ap.add_argument("--profile-dir", default="profile")
@@ -277,7 +374,28 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.fail_at and not (args.ckpt_dir and args.ckpt_every):
         ap.error("--fail-at needs --ckpt-dir and --ckpt-every to resume from")
-    if args.arch == "dlrm":
+    if args.data_shards > 1:
+        raise NotImplementedError(
+            "--data-shards > 1 (JAX's 2-D data x model mesh: the slab replicated over the "
+            "data axis, a second group for its gradient all-reduce) is not ported yet; "
+            "see ROADMAP.md, Queue 1")
+    group = None
+    if args.model_shards > 1 or "WORLD_SIZE" in os.environ:
+        if args.arch != "dlrm":
+            ap.error("--model-shards: the model-parallel trainer is DLRM's")
+        group = model_group(args)
+    if group is not None:
+        from repro_torch.configs import dlrm_criteo
+
+        cfg = dlrm_criteo.reduced(emb_method=args.emb, cap=args.emb_cap,
+                                  k_multiple=args.model_shards)
+        global_from = dlrm_data(cfg, args)
+        trainer = build_dlrm_sharded_trainer(cfg, args, group=group, data_from=global_from)
+
+        def data_from(start_step: int):
+            return sharded_batches(global_from(start_step), trainer.translator,
+                                   dist.get_rank(group), args.model_shards)
+    elif args.arch == "dlrm":
         from repro_torch.configs import dlrm_criteo
 
         cfg = dlrm_criteo.reduced(emb_method=args.emb, cap=args.emb_cap)
@@ -297,14 +415,37 @@ def main(argv=None):
     restored = run_with_restart(trainer, args.steps, data_from)
     dt = time.time() - t0
     losses = [h["loss"] for h in trainer.history]
-    print(f"{args.arch} on {args.device}: step {trainer.state.step} in {dt:.1f}s, "
-          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, clusterings {trainer.clusters_done}, "
-          f"restored at {restored}, stragglers={len(trainer.monitor.flagged)}")
-    if args.obs:
+    rank = 0
+    if group is not None:
+        rank = dist.get_rank(group)
+        dist.destroy_process_group()
+    if rank == 0:
+        shards = f", {args.model_shards} model shards" if group is not None else ""
+        print(f"{args.arch} on {args.device}{shards}: step {trainer.state.step} in {dt:.1f}s, "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, clusterings {trainer.clusters_done}, "
+              f"restored at {restored}, stragglers={len(trainer.monitor.flagged)}")
+    if args.obs and trainer.runlog is not None:
         trainer.runlog.close()
         print(f"run log: {args.obs}  "
               f"(summarize: python -m repro_torch.obs summarize {args.obs})")
     return trainer
+
+
+def model_group(args):
+    """The model group of ``--model-shards``: refuses more shards than
+    cards on ``cuda`` and a world (``torchrun``'s ``WORLD_SIZE``) of another
+    size, then joins it (``launch.mesh.init_model_group``)."""
+    from repro_torch.launch.mesh import init_model_group
+
+    M = args.model_shards
+    if args.device == "cuda" and M > torch.cuda.device_count():
+        raise RuntimeError(f"--model-shards {M} needs {M} CUDA devices, this machine has "
+                           f"{torch.cuda.device_count()}")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != M:
+        raise ValueError(f"--model-shards {M} runs as {M} processes "
+                         f"(torchrun --nproc-per-node {M}); the world has {world}")
+    return init_model_group(args.device, world_size=M)
 
 
 if __name__ == "__main__":

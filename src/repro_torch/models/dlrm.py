@@ -14,6 +14,14 @@ of tensors: ``{"bottom": [{"w", "b"}, ...], "emb": [group, ...],
 so ``convert.py`` carries them across unchanged.  A universal group's
 CUDA tensors always go through the lookup kernel; there is no gather
 fallback.
+
+Model-parallel (``group=``, DESIGN.md section 9): each rank of a process
+group holds a k-slice of every universal supertable and of its moments,
+its pointer tables in their at-rest layout, and a contiguous slice of the
+batch; ``forward``/``bce_loss`` route ids by all-to-all and
+``cluster_tables`` runs the sharded transition.  ``checkpoint_migrations``
+restores checkpoints of the per-feature, pre-universal and other
+``k_multiple`` layouts bit for bit.
 """
 from __future__ import annotations
 
@@ -25,7 +33,11 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch.core import embeddings as emb_lib
-from repro_torch.core.collection import EmbeddingCollection
+from repro_torch.core.collection import (
+    EmbeddingCollection,
+    grouped_layout_migration,
+    legacy_layout_migration,
+)
 from repro_torch.optim.remap import remap_opt_state
 from repro_torch.train.transition import transition_collection
 
@@ -142,27 +154,38 @@ def interact(params, cfg: DLRMConfig, dense, emb):
     return _apply_mlp(params["top"], feats)[:, 0]
 
 
-def forward(params, buffers, cfg: DLRMConfig, batch):
+def forward(params, buffers, cfg: DLRMConfig, batch, *, group=None):
     """batch: {"dense": (B, 13) float, "sparse": (B, 26) ids} and/or
     {"rows": (B, rows_n_cols, rows_n_tables) int32 host-translated rows}
-    -> (B,) logits."""
+    -> (B,) logits.  With ``group`` the supertables are this rank's
+    k-slices, the batch this rank's slice (``rows`` global or
+    pre-bucketed (B, M, ...)), and the lookup routes by all-to-all."""
     emb = cfg.collection.lookup_all(
         params["emb"], buffers["emb"], batch.get("sparse"), rows=batch.get("rows"),
+        group=group,
     )  # (B, n_sparse, emb_dim): ONE fused lookup on Criteo
     return interact(params, cfg, batch["dense"], emb)
 
 
-def bce_loss(params, buffers, cfg: DLRMConfig, batch):
+def bce_loss(params, buffers, cfg: DLRMConfig, batch, *, group=None, global_batch=None):
     """Mean binary cross-entropy of the logits, in the stable form
-    ``max(lg, 0) - lg*y + log1p(exp(-|lg|))`` (float32)."""
-    lg = forward(params, buffers, cfg, batch).to(torch.float32)
+    ``max(lg, 0) - lg*y + log1p(exp(-|lg|))`` (float32).  With ``group``
+    this rank's term of the global mean over ``global_batch`` examples:
+    its local mean times B_loc / B (the ranks' terms sum to the global
+    mean; on one rank the factor is 1 and the loss is the 1-device loss
+    bit for bit)."""
+    lg = forward(params, buffers, cfg, batch, group=group).to(torch.float32)
     y = batch["label"].to(torch.float32)
-    return torch.mean(torch.clamp(lg, min=0) - lg * y + torch.log1p(torch.exp(-lg.abs())))
+    loss = torch.mean(torch.clamp(lg, min=0) - lg * y + torch.log1p(torch.exp(-lg.abs())))
+    if global_batch is not None and global_batch != lg.shape[0]:
+        loss = loss * (lg.shape[0] / global_batch)
+    return loss
 
 
 def cluster_tables(key, params, buffers, cfg: DLRMConfig, opt=None, *, id_counts=None,
                    policy: str | None = None, chunk_size: int | None = None,
-                   use_kernel: bool | None = None, max_points_per_centroid: int = 256):
+                   use_kernel: bool | None = None, max_points_per_centroid: int = 256,
+                   group=None):
     """The CCE clustering transition of every CCE table (Alg. 3
     ``Cluster``), group-wise through the collection; ``key`` is a
     ``repro_torch.random`` key.
@@ -175,15 +198,33 @@ def cluster_tables(key, params, buffers, cfg: DLRMConfig, opt=None, *, id_counts
     count-weighted on the observed ids and weights the moment remap the
     same way; an entry may also be a sketch provider (``points`` /
     ``id_weights``, e.g. ``make_id_tracker(cfg, stream).counts``).
-    Returns new trees; the inputs are left as they were."""
+    Returns new trees; the inputs are left as they were.
+
+    ``group``: the sharded transition over a model group, the state in its
+    sharded layout (``launch.steps.dlrm_state_specs``) in and out: the
+    small slabs are gathered whole, each pointer table resharded to its id
+    tile (``transition.ptr_to_tile``) and back, and every O(d1) phase runs
+    over the ranks' id tiles.  ``id_counts`` must be equal on every rank.
+    On one rank it equals the 1-device transition bit for bit."""
     policy = policy or cfg.emb_opt_policy
     if chunk_size is None:
         chunk_size = cfg.emb_cluster_chunk or None
+    emb_p, emb_b = params["emb"], buffers["emb"]
+    to_shards = from_shards = None
+    if group is not None:
+        emb_p, emb_b, to_shards, from_shards = _transition_layout(cfg, emb_p, emb_b, group)
     new_emb_p, new_emb_b, update_emb = transition_collection(
-        cfg.collection, key, params["emb"], buffers["emb"], id_counts=id_counts,
+        cfg.collection, key, emb_p, emb_b, id_counts=id_counts,
         policy=policy, chunk_size=chunk_size, use_kernel=use_kernel,
-        max_points_per_centroid=max_points_per_centroid,
+        max_points_per_centroid=max_points_per_centroid, group=group,
     )
+    if group is not None:
+        new_emb_p, new_emb_b = to_shards(new_emb_p), _ptr_at_rest(cfg, new_emb_b, group)
+        update = update_emb
+
+        def update_emb(moments):
+            return to_shards(update(from_shards(moments)))
+
     new_params = dict(params, emb=new_emb_p)
     new_buffers = dict(buffers, emb=new_emb_b)
     if opt is None:
@@ -193,6 +234,59 @@ def cluster_tables(key, params, buffers, cfg: DLRMConfig, opt=None, *, id_counts
         return dict(moments, emb=update_emb(moments["emb"]))
 
     return new_params, new_buffers, remap_opt_state(opt, update_moments, policy=policy)
+
+
+def _cce_ptr_dims(cfg: DLRMConfig, n_shards: int):
+    """{(group, feature-local index): at-rest dim of the CCE ptr} over the
+    universal groups."""
+    from repro_torch.core.cce import CCE
+    from repro_torch.launch.mesh import ptr_partition_spec
+
+    coll = cfg.collection
+    return {(g, f): ptr_partition_spec(t.c, t.d1, n_shards)
+            for g in coll.univ_groups for f, t in enumerate(coll.groups[g].tables)
+            if isinstance(t, CCE)}
+
+
+def _transition_layout(cfg: DLRMConfig, emb_p, emb_b, group):
+    """The sharded state's emb trees in the transition's layout (whole
+    slabs, ptr id tiles), and the maps of a slab list to k-slices and
+    back."""
+    import torch.distributed as dist
+
+    from repro_torch.shard import all_gather_cat, shard_leaf
+    from repro_torch.train.transition import ptr_to_tile
+
+    coll = cfg.collection
+    rank, M = dist.get_rank(group), dist.get_world_size(group)
+    univ = set(coll.univ_groups)
+
+    def from_shards(emb):
+        return [{"tables": all_gather_cat(e["tables"], 2, group)} if g in univ else e
+                for g, e in enumerate(emb)]
+
+    def to_shards(emb):
+        return [{"tables": shard_leaf(e["tables"], 2, rank, M)} if g in univ else e
+                for g, e in enumerate(emb)]
+
+    dims = _cce_ptr_dims(cfg, M)
+    tiles = [[dict(fb, ptr=ptr_to_tile(coll.groups[g].tables[f], fb["ptr"], dims[g, f], group))
+              if (g, f) in dims else fb for f, fb in enumerate(feats)]
+             for g, feats in enumerate(emb_b)]
+    return from_shards(emb_p), tiles, to_shards, from_shards
+
+
+def _ptr_at_rest(cfg: DLRMConfig, emb_b, group):
+    """Inverse of ``_transition_layout``'s ptr tiles."""
+    import torch.distributed as dist
+
+    from repro_torch.train.transition import ptr_from_tile
+
+    coll = cfg.collection
+    dims = _cce_ptr_dims(cfg, dist.get_world_size(group))
+    return [[dict(fb, ptr=ptr_from_tile(coll.groups[g].tables[f], fb["ptr"], dims[g, f], group))
+             if (g, f) in dims else fb for f, fb in enumerate(feats)]
+            for g, feats in enumerate(emb_b)]
 
 
 def make_id_tracker(cfg: DLRMConfig, stream=None, *, key: str = "sparse", device="cuda"):
@@ -212,3 +306,36 @@ def make_id_tracker(cfg: DLRMConfig, stream=None, *, key: str = "sparse", device
     tracked = tuple(i for i, t in enumerate(cfg.collection.tables) if isinstance(t, CCE))
     return SketchFrequencyTracker(cfg.vocab_sizes, stream, tracked=tracked, key=key,
                                   device=device)
+
+
+#: ``k_multiple`` layouts every DLRM trainer restores checkpoints from (and
+#: writes checkpoints readable by): 1 is the 1-device trainer's, the powers
+#: of two the common model-shard counts.
+KNOWN_K_MULTIPLES = (1, 2, 4, 8)
+
+
+def checkpoint_migrations(cfg: DLRMConfig):
+    """``Trainer(migrations=...)`` entries for every older emb layout: the
+    per-feature (pre-collection) layout, the pre-universal grouping, and
+    each ``KNOWN_K_MULTIPLES`` padding of the universal layout; all
+    restore into this configuration's supertables bit for bit (params,
+    moments, buffers, error feedback).  The k_multiple entries let a
+    model-sharded trainer's checkpoint restore into a 1-device trainer and
+    back: the extra pad rows are unreachable and stay zero."""
+    migrations = [legacy_layout_migration(cfg.collection)]
+    grouped = EmbeddingCollection.build(cfg.collection.tables, mode="group")
+    layout = [(g.kind, g.features) for g in cfg.collection.groups]
+    if [(g.kind, g.features) for g in grouped.groups] != layout:
+        migrations.append(grouped_layout_migration(cfg.collection, grouped))
+
+    def k_pads(coll):
+        return tuple(coll.groups[g].k_pad for g in coll.univ_groups)
+
+    for m in KNOWN_K_MULTIPLES:
+        if m == cfg.emb_k_multiple:
+            continue
+        other = EmbeddingCollection.build(cfg.collection.tables, mode=cfg.emb_fuse,
+                                          k_multiple=m)
+        if k_pads(other) != k_pads(cfg.collection):
+            migrations.append(grouped_layout_migration(cfg.collection, other))
+    return migrations

@@ -23,7 +23,14 @@ whole, so ``TrainState.ebuf`` holds all of them.  Checkpoints store the
 JAX package's layout: the python-int hash coefficients of the
 non-transitioning tables are None there (``tree.drop_static``) and come
 back from the live state on restore.
-``state_shardings`` and ``reshard_restore`` wait for the sharded port.
+
+The model-parallel trainer (``Trainer(state_shardings=specs, group=)``,
+built by ``launch.train.build_dlrm_sharded_trainer``) holds this rank's
+shard of the state (``launch.steps.dlrm_state_specs``) and its slice of
+each batch; its step carries a ``GradSync`` (``make_train_step(sync=)``).
+Checkpoints stay in the whole (1-device) layout: the shards are gathered
+to rank 0, which writes; on restore every rank reads the whole tree and
+keeps its slice (``checkpoint.reshard_restore``).
 """
 from __future__ import annotations
 
@@ -37,9 +44,15 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import random as jr
-from repro_torch.checkpoint import CheckpointManager, list_checkpoints, load_checkpoint
+from repro_torch.checkpoint import (
+    CheckpointManager,
+    list_checkpoints,
+    load_checkpoint,
+    reshard_restore,
+)
 from repro_torch.obs.pump import MetricsPump
 from repro_torch.obs.trace import ProfileWindow, span
 from repro_torch.optim import Optimizer, clip_by_global_norm_
@@ -112,6 +125,7 @@ def make_train_step(
     compress_grads: bool = False,
     sketch_fn: Callable[[Pytree], torch.Tensor] | None = None,
     telemetry=None,
+    sync=None,
 ):
     """loss_fn(params, buffers, microbatch) -> (loss, metrics dict).
 
@@ -127,7 +141,13 @@ def make_train_step(
     hands it to ``tracker.observe(batch, delta=...)``).  ``telemetry`` (an
     ``obs.telemetry.TelemetryConfig``) adds ``metrics["telemetry"]``,
     computed from the averaged grads before compression and clipping.
-    Neither reads a value back to the host."""
+    Neither reads a value back to the host.
+
+    ``sync`` (``launch.steps.GradSync``) makes it the model-parallel step:
+    the gradients and the loss are summed over the model group after the
+    microbatches, and the clip takes the whole model's norm."""
+    if sync is not None and compress_grads:
+        raise NotImplementedError("int8 gradient compression on the sharded step")
 
     def train_step(state: TrainState, batch: Pytree):
         params = state.params
@@ -149,6 +169,9 @@ def make_train_step(
         if accum > 1:
             tree_map(lambda g: g.div_(accum), grads)
         loss = loss_sum / accum
+        if sync is not None:
+            sync.grads(grads)
+            loss = sync.loss(loss)
 
         health = None
         if telemetry is not None:
@@ -161,7 +184,10 @@ def make_train_step(
         err = state.err
         if compress_grads:
             grads, err = compressed_grad_transform(grads, err)
-        grads, gnorm = clip_by_global_norm_(grads, clip_norm)
+        if sync is not None:
+            grads, gnorm = sync.clip_(grads, clip_norm)
+        else:
+            grads, gnorm = clip_by_global_norm_(grads, clip_norm)
         # a 0-d CPU tensor: it scales CUDA tensors without a copy
         lr = torch.as_tensor(lr_fn(state.step), dtype=torch.float32)
         new_params, new_opt = optimizer.update(grads, state.opt, params, lr)
@@ -270,7 +296,18 @@ class Trainer:
     Batches come from ``data_iter`` as numpy dicts; each is reshaped to
     (accum, micro, ...) and copied to the state's device through pinned
     memory without a sync.  Metrics leave the device through the pump
-    (``PUMP_LAG`` steps late); ``history`` is exact after ``run`` returns."""
+    (``PUMP_LAG`` steps late); ``history`` is exact after ``run`` returns.
+
+    ``migrations`` are (to_old, to_new) pairs for checkpoints of older
+    layouts (``dlrm.checkpoint_migrations``), tried after the current
+    layout.  ``state_shardings`` (``launch.steps.dlrm_state_specs``) and
+    ``group`` make it the model-parallel trainer: the state is this rank's
+    shard, ``cluster_fn`` runs the sharded transition, checkpoints are
+    gathered to group rank 0 (which alone writes) and restored whole on
+    every rank, which keeps its slice; a ``translator`` is updated with
+    the whole pointer tables, gathered to every rank's host.
+    ``host_keys`` name batch entries that only the host reads (the
+    tracker's ids): they are never copied to the device."""
 
     def __init__(
         self,
@@ -290,6 +327,10 @@ class Trainer:
         accum: int = 1,
         failures: FailureInjector | None = None,
         seed: int = 0,
+        migrations=(),
+        state_shardings=None,
+        group=None,
+        host_keys: tuple[str, ...] = (),
         runlog=None,
         profile_steps: tuple[int, int] | None = None,
         profile_dir: str | None = None,
@@ -331,7 +372,13 @@ class Trainer:
         # under older tracker layouts (the sketch tracker restores legacy
         # DENSE id_counts by ingesting them)
         tracker_migrations = getattr(id_tracker, "checkpoint_migrations", None)
-        self.migrations = tuple(tracker_migrations()) if tracker_migrations else ()
+        self.migrations = tuple(migrations) + (
+            tuple(tracker_migrations()) if tracker_migrations else ())
+        self.specs = state_shardings
+        self.group = group
+        self.host_keys = frozenset(host_keys)
+        if (state_shardings is None) != (group is None):
+            raise ValueError("state_shardings and group go together")
         self.runlog = runlog
         self.pump = MetricsPump(
             lag=PUMP_LAG, maxlen=HISTORY_MAX,
@@ -353,7 +400,7 @@ class Trainer:
         copy synchronises the stream)."""
         out = {}
         for k, v in batch.items():
-            if k == "step":
+            if k == "step" or k in self.host_keys:
                 continue
             x = np.asarray(v)
             x = x[None] if self.accum == 1 else x.reshape(
@@ -439,7 +486,9 @@ class Trainer:
                     # a complete prefix of the log
                     self.pump.flush()
                     with span("checkpoint"):
-                        self.ckpt.save_async(new_step, self._ckpt_tree())
+                        tree = self._ckpt_tree()
+                        if tree is not None:  # a sharded trainer's rank 0 alone writes
+                            self.ckpt.save_async(new_step, tree)
                     if self.runlog is not None:
                         self.runlog.append("checkpoint_save", step=new_step)
                 step = new_step
@@ -467,14 +516,33 @@ class Trainer:
         self.state = self.state._replace(params=params, ebuf=buffers, opt=opt, err=err)
         self.clusters_done += 1
         if self.translator is not None:  # mirrors went stale
-            self.translator.update(buffers["emb"])
+            self.translator.update(self._whole_emb_buffers())
+
+    def _whole_emb_buffers(self):
+        """The embedding buffers with every pointer table whole (gathered
+        to this rank's host when the state is sharded)."""
+        if self.specs is None:
+            return self.state.ebuf["emb"]
+        from repro_torch.shard import gather_tree
+
+        whole = gather_tree(self.state.ebuf["emb"], self.specs.ebuf["emb"], self.group)
+        return tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, whole)
 
     def _ckpt_tree(self):
         # clusters_done, the tracker and the trigger ride the checkpoint so
         # that a restart neither re-runs nor skips transitions and the
         # k-means sample resumes exactly; the step is stored as the JAX
-        # package's int32
-        tree = {"state": self._stored_state()._replace(step=np.int32(self.state.step)),
+        # package's int32.  A sharded state is gathered to rank 0, which
+        # alone gets the tree (None on the other ranks).
+        state = self.state
+        if self.specs is not None:
+            from repro_torch.shard import gather_tree
+
+            state = gather_tree(state, self.specs, self.group, dst=0)
+            if dist.get_rank(self.group) != 0:
+                return None
+        tree = {"state": state._replace(ebuf=drop_static(state.ebuf),
+                                        step=np.int32(self.state.step)),
                 "clusters_done": np.int32(self.clusters_done)}
         if self.id_tracker is not None:
             tree["id_counts"] = self.id_tracker.state_tree()
@@ -484,8 +552,22 @@ class Trainer:
 
     def _stored_state(self):
         """The state in the JAX package's checkpoint layout: python-int
-        buffer leaves None."""
-        return self.state._replace(ebuf=drop_static(self.state.ebuf))
+        buffer leaves None.  For a sharded state, a template of the whole
+        layout: each split leaf an uninitialised CPU tensor of the whole
+        shape (a restore fills it; nothing is gathered)."""
+        state = self.state
+        if self.specs is not None:
+            M = dist.get_world_size(self.group)
+
+            def whole(x, d):
+                if d is None or not isinstance(x, torch.Tensor):
+                    return x
+                shape = list(x.shape)
+                shape[d] *= M
+                return torch.empty(shape, dtype=x.dtype)
+
+            state = tree_map(whole, state, self.specs)
+        return state._replace(ebuf=drop_static(state.ebuf))
 
     def _stored_n_leaves(self):
         """Leaf count of the latest committed checkpoint (None if none)."""
@@ -537,6 +619,8 @@ class Trainer:
 
     def restore_latest(self):
         self.ckpt.wait()  # an async save may still be in flight post-crash
+        if self.group is not None:  # rank 0's save has committed
+            dist.barrier(group=self.group)
         templates = self._restore_templates()
         candidates = [(t, None) for t in templates]
         # legacy layouts: each migration's to_old derives an old-layout
@@ -545,6 +629,9 @@ class Trainer:
             candidates += [(to_old(t), to_new) for t in templates]
         step, tree, _ = load_checkpoint(self.ckpt.directory, migrations=candidates)
         state = tree["state"]
+        if self.specs is not None:
+            state = reshard_restore(state, self.specs, dist.get_rank(self.group),
+                                    dist.get_world_size(self.group), device=self.device)
         self.state = state._replace(step=int(state.step),
                                     ebuf=fill_static(state.ebuf, self.state.ebuf))
         self.clusters_done = int(tree.get("clusters_done", 0))
@@ -568,7 +655,7 @@ class Trainer:
             # evaluated again on replay: the log shows each closed window once
             self.trigger.events = [e for e in self.trigger.events if e.step <= step]
         if self.translator is not None:  # mirrors must match restored ptr/hs
-            self.translator.update(self.state.ebuf["emb"])
+            self.translator.update(self._whole_emb_buffers())
         # the restore gap is not a step interval
         self._last_dispatch = None
         if self.runlog is not None:
