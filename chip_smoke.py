@@ -19,13 +19,25 @@
    CCE clustering transition with the optimizer moments remapped (checked
    for its invariants and for bitwise repeatability); trains 4 more steps;
    then serves the trained state through ``DLRMServeEngine.update_state``.
-   Then trains it model-parallel (``shard_train``): an NCCL group of one
-   rank, ``launch.train.build_dlrm_sharded_trainer`` at k_multiple 4
+   Then trains it model-parallel (``shard_train``): a (1, 1) mesh of one
+   NCCL rank, ``launch.train.build_dlrm_sharded_trainer`` at k_multiple 4
    (k_pad 308), 4 steps with the lookup routed by all-to-all, a sharded
    transition, 2 steps, held bit for bit against the 1-device step and
    serial transition; the 4-shard route emulated in one process (each
    shard's lookup and backward at k_loc 77, summed and concatenated)
-   held bit for bit against the unsharded launches, and timed.
+   held bit for bit against the unsharded launches, and timed.  Then the
+   (data, model) mesh (``mesh``) on a world of one NCCL rank: command-r-35b
+   at full width cut to 8 of its 40 layers through
+   ``launch.steps.build_serve_step`` (4 prompts of 16-1900 tokens, each
+   prefilled alone into its row, 16 batched ticks), every logit and cache
+   leaf held bit for bit against ``lm.prefill``/``lm.decode_step``, and a
+   2-layer cut against CPU copies; 4 model ranks emulated in one process on
+   its first layer, token table and head (each rank's flash heads, MLP
+   slices, lookup slice and head scores through ``models/lm.py``'s share
+   functions, gathered and summed in rank order) against the unsharded
+   layer, flash and the lookup timed for a rank's slice and the whole; and
+   ``build_train_step`` on a 2-layer float32 cut (2 x 1024 tokens) held
+   bit for bit against the unsharded step.
 4. Runs the paper's training loop at that width through
    ``launch.train.build_dlrm_trainer``: a ``Trainer`` with the sketch
    frequency tracker (cell count in the step, host fold on a background
@@ -90,7 +102,8 @@
    against their plain versions; holds a 2-layer cut's first loss and
    gradients against CPU copies, and its runs (one crashed and resumed)
    against each other bit for bit.
-13. Trains full-width xlstm-1.3b the same way: 1 step of 2 x 4096 tokens
+13. Trains full-width xlstm-1.3b the same way, cut to 3 of its 6
+   superblocks (24 of 48 blocks): 1 step of 2 x 4096 tokens
    (traced), the token table's transition (the assignment over all 50,304
    ids at d=512), 1 step (timed); the sLSTM blocks' share of the step; the
    kernels at the step's token rows and the transition's inputs; the
@@ -129,9 +142,10 @@ after.  Prints the kernels' JSON line, the card line and, last,
 
     python3 chip_smoke.py --phases flash,lm_serve
 
-runs only the named phases (of lookup, bwd, kmeans, train, shard_train, loop, serve,
-methods, flash, lm_serve, hybrid_serve, vlm_serve, xlstm_serve, moe_serve,
-audio_serve, lm_train, xlstm_train) and prints neither result line.
+runs only the named phases (of lookup, bwd, kmeans, train, shard_train, mesh, loop,
+serve, methods, flash, lm_serve, hybrid_serve, vlm_serve, xlstm_serve, moe_serve,
+audio_serve, lm_train, xlstm_train)
+and prints neither result line.
 
 Exits non-zero, with no result line, when there is no CUDA device, when the
 port is missing, or when any phase fails.  Imports nothing of JAX.
@@ -179,6 +193,21 @@ SHARD_POST = 2  # and after it
 SHARD_ROUTE = 4  # model shards of the route emulated in one process (and CONFIG's k_multiple)
 SHARD_SEED = 5
 SHARD_TIMED = 5  # synchronised steps a timing of the sharded and the 1-device step
+MESH_ARCH = "command-r-35b"  # the mesh phase's LM, at full width
+MESH_SEED = 6
+MESH_SERVE_LAYERS = 8  # (a): 8 of its 40 layers, 22.6 GB of float32 weights beside the tables
+MESH_PROMPT_LENS = (16, 640, 1281, 1900)  # (a): each prefilled alone into its cache row
+MESH_TICKS = 16  # (a): batched decode ticks after the prefills
+MESH_MAX_SEQ = 2048
+MESH_CUT_PROMPT = 64  # (a): the 2-layer cut's prompt, card vs CPU (the CPU's bf16 is slow)
+MESH_CUT_DECODE = 2
+MESH_RANKS = 4  # (b): the model ranks emulated in one process
+MESH_LAYER_SEQ = 512  # (b): the emulated layer's prompt (float32)
+MESH_TIMED_B = (2048, 8)  # (b): the lookup's rows, a prefill's tokens and a decode tick's
+MESH_TRAIN_LAYERS = 2  # (c): build_train_step's cut, float32
+MESH_TRAIN_SEQ = 1024  # (c): one micro-batch of 2 x 1024 tokens
+MESH_TRAIN_BATCH = 2
+MESH_TRAIN_STEPS = 2  # the schedule's first lr is 0: the second step moves the params
 LOOKUP_BATCHES = (1, 7, SERVE_BATCH, TRAIN_BATCH, 4096)
 BWD_BATCHES = (256, TRAIN_BATCH, 4096)
 LM_DSUB = 384  # the LM token table's sub-row width (qwen2-1.5b: d 1536 over c=4)
@@ -315,7 +344,9 @@ LM_CUT_STEPS = 4  # the cut's runs: 4 steps, a transition, 2 steps
 # xlstm-1.3b's training (the xlstm_train phase): train_4k's length, one
 # microbatch; a step is ~20 s of host (the sLSTM's loops over 6 x 4096
 # steps), so few steps: the first traced (the step's busy and top kernels),
-# the one after the transition timed
+# the one after the transition timed.  Cut to 3 of its 6 superblocks (24 of 48
+# blocks, each at full width) for the script's time since the mesh phase
+XLSTM_TRAIN_LAYERS = 24
 XLSTM_TRAIN_BATCH = 2
 XLSTM_TRAIN_STEPS = 1  # then the token table's transition
 XLSTM_TRAIN_POST = 1
@@ -1802,8 +1833,9 @@ def shard_fwd_numbers(card: str, label: str, idx, tables) -> dict:
 
 def shard_train_phase(card: str, cfg, device="cuda"):
     """The model-parallel DLRM trainer at full width on a world of one
-    rank: an NCCL group made in-process (``init_method="file://"`` in a
-    temp dir), destroyed at the end so later phases run without it.
+    rank: a (1, 1) mesh over an NCCL group made in-process
+    (``init_method="file://"`` in a temp dir), destroyed at the end so
+    later phases run without it.
     ``launch.train.build_dlrm_sharded_trainer`` on CONFIG at
     ``emb_k_multiple=SHARD_ROUTE`` (k_pad 308), batch TRAIN_BATCH:
     SHARD_STEPS sharded steps (host-translated rows, the lookup routed
@@ -1811,7 +1843,8 @@ def shard_train_phase(card: str, cfg, device="cuda"):
     global ids, the moments remapped, the pointer tables through their
     id tiles), SHARD_POST steps.  Held bit for bit against the 1-device
     step and serial transition on the card from the same state: every
-    loss, ptr and hs, and every state leaf.  Then the sharded and the
+    loss, ptr and hs, and every state leaf (this is the mesh's DLRM check:
+    the 2-D builder at (1, 1)).  Then the sharded and the
     1-device step timed A B B A, and the SHARD_ROUTE-shard route emulated
     in one process: a batch's rows bucketed into SHARD_ROUTE, each shard's
     lookup (k_loc 77) summed equals the unsharded launch bit for bit and
@@ -1836,7 +1869,7 @@ def shard_train_phase(card: str, cfg, device="cuda"):
     from repro_torch.kernels import cce_lookup as cl
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch
-    from repro_torch.launch.mesh import init_model_group
+    from repro_torch.launch.mesh import init_mesh
     from repro_torch.launch.train import sharded_batches
     from repro_torch.models import dlrm
     from repro_torch.optim import sgd
@@ -1859,17 +1892,18 @@ def shard_train_phase(card: str, cfg, device="cuda"):
           f"supertable c={grp.n_cols} T={grp.n_tables} k_pad={grp.k_pad} (k_multiple "
           f"{SHARD_ROUTE}) dsub={grp.dsub}", flush=True)
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))
-    group = init_model_group("cuda", world_size=1, rank=0, init_method=f"file://{tmp / 'store'}")
+    mesh = init_mesh(1, 1, "cuda", rank=0, init_method=f"file://{tmp / 'store'}")
+    group = mesh.model
     try:
         args = argparse.Namespace(
             device=device, seed=SHARD_SEED, momentum=0.9, lr=TRAIN_LR, clip=1.0, accum=1,
             emb="cce", batch=TRAIN_BATCH, ckpt_dir=None, ckpt_every=0,
             cluster_every=SHARD_STEPS, cluster_max=1, fail_at=[])
         t0 = time.perf_counter()
-        trainer = launch.build_dlrm_sharded_trainer(cfg, args, group=group,
+        trainer = launch.build_dlrm_sharded_trainer(cfg, args, mesh=mesh,
                                                     data_from=lambda s: iter(raw[s:]))
-        print(f"shard: Trainer built over a {dist.get_backend(group)} group of "
-              f"{dist.get_world_size(group)} in {time.perf_counter() - t0:.3f} s", flush=True)
+        print(f"shard: Trainer built over a (1, 1) mesh, a {dist.get_backend(group)} group of "
+              f"{dist.get_world_size(group)}, in {time.perf_counter() - t0:.3f} s", flush=True)
         # the 1-device reference starts from the same state (a world of one holds it whole)
         ref_state = loop.TrainState(*(tree_map(torch.clone, x) for x in (
             trainer.state.params, trainer.state.opt, trainer.state.ebuf)), step=0)
@@ -1970,7 +2004,8 @@ def shard_train_phase(card: str, cfg, device="cuda"):
         print(f"[{card}] shard_train: {n_steps} sharded steps at batch {TRAIN_BATCH}, a sharded "
               f"transition after step {SHARD_STEPS}; losses {losses!r}; launches {launches}; "
               f"every loss, the transition's ptr and hs, and every state leaf equal the 1-device "
-              f"step's and serial transition's on the card bit for bit", flush=True)
+              f"step's and serial transition's on the card bit for bit (mesh (d): the 2-D "
+              f"builder at (1, 1))", flush=True)
         print(f"[{card}] shard_train transition: sharded (world of 1) host {trans_ms[0]!r} ms, "
               f"serial host {serial_ms!r} ms (by phase: " + ", ".join(
                   f"{k} {v!r} ms" for k, v in serial_clock.ms.items()) + "); both after a "
@@ -2054,8 +2089,8 @@ def shard_train_phase(card: str, cfg, device="cuda"):
               f"{bwd['unsharded_device_ms']!r}", flush=True)
         shape = dict(c=grp.n_cols, T=grp.n_tables, k_loc=k_loc, dsub=grp.dsub, B=TRAIN_BATCH,
                      shards=SHARD_ROUTE, valid_share=fwd["valid_share"])
-        return {"shard_train": launches}, dict(fwd=dict(fwd, shape=shape),
-                                               bwd=dict(bwd, shape=shape), max_abs_err=bwd_err)
+        return ({"shard_train": launches}, dict(fwd=dict(fwd, shape=shape),
+                                                bwd=dict(bwd, shape=shape), max_abs_err=bwd_err))
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4443,9 +4478,333 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call it replaces)
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:97"),
 }
-PHASES = ("lookup", "bwd", "kmeans", "train", "shard_train", "loop", "serve", "methods", "flash",
-          "lm_serve", "hybrid_serve", "vlm_serve", "xlstm_serve", "moe_serve", "audio_serve",
-          "lm_train", "xlstm_train")
+
+
+def _clone_tree(tree):
+    import torch
+
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _all_equal(a, b) -> bool:
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y for x, y in zip(la, lb))
+
+
+def _n_params(params) -> int:
+    from repro_torch.tree import tree_leaves
+
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def mesh_serve(card: str, cfg, mesh, params, buffers, device="cuda") -> dict:
+    """(a) ``launch.steps.build_serve_step`` on the (1, 1) mesh: the
+    MESH_PROMPT_LENS prompts, each prefilled alone into its row of a
+    4-row cache, then MESH_TICKS batched greedy ticks, held bit for bit
+    against ``lm.prefill``/``lm.decode_step`` on the card (every logit and
+    every cache leaf); the launches of the sharded run; a 1900-token
+    prefill's and a tick's host and device busy time.  Returns the
+    launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.shard import shard_tree
+
+    prefill, _, (pspecs, cspecs) = steps.build_serve_step(cfg, mesh, "prefill_32k")
+    decode, _, _ = steps.build_serve_step(cfg, mesh, "decode_32k")
+    local = shard_tree(params, pspecs, mesh.coords[1], mesh.shape["model"])
+    rng = np.random.default_rng(MESH_SEED)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, (1, n))).to(device)
+               for n in MESH_PROMPT_LENS]
+    lens = torch.tensor(MESH_PROMPT_LENS, device=device)
+    B = len(prompts)
+
+    def serve(pre, dec, cache, picks=None):
+        """Each prompt into its row, then the ticks: (logits of every call,
+        the tokens each tick was fed: ``picks``, else the greedy ones)."""
+        out, fed = [], []
+        for i, toks in enumerate(prompts):
+            lg, _ = pre(toks, {k: v[:, i:i + 1] for k, v in cache.items()})
+            out.append(lg)
+        nxt = torch.cat(out).float().argmax(-1)
+        for t in range(MESH_TICKS):
+            nxt = nxt if picks is None else picks[t]
+            fed.append(nxt)
+            lg, _ = dec(nxt, lens + t, cache)
+            out.append(lg)
+            nxt = lg.float().argmax(-1)
+        return out, fed
+
+    with torch.inference_mode():
+        cache = lm.init_cache(cfg, B, MESH_MAX_SEQ, device=device, group=mesh.model)
+        ref_cache = lm.init_cache(cfg, B, MESH_MAX_SEQ, device=device)
+        check(cspecs["k"].model == 3 and all(cache[k].shape == ref_cache[k].shape for k in cache),
+              f"the (1, 1) cache {tuple(cache['k'].shape)} is not the unsharded one")
+        torch.cuda.synchronize()
+        ops.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        got, fed = serve(lambda t, c: prefill(local, buffers, t, c),
+                         lambda n, p, c: decode(local, buffers, n, p, c), cache)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        want, _ = serve(lambda t, c: lm.prefill(params, buffers, cfg, t, c),
+                        lambda n, p, c: lm.decode_step(params, buffers, cfg, n, p, c),
+                        ref_cache, picks=fed)
+        check(launches.get("flash_attention") == cfg.n_layers * B
+              and launches.get("cce_lookup_fwd") == B + MESH_TICKS,
+              f"mesh serve launches {launches}: want {cfg.n_layers * B} flash and "
+              f"{B + MESH_TICKS} lookups")
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              "the (1, 1) serve step's logits differ from lm.prefill/decode_step's")
+        check(all(torch.equal(cache[k], ref_cache[k]) for k in ref_cache),
+              "the (1, 1) serve step's cache differs from lm.prefill/decode_step's")
+        check(all(bool(torch.isfinite(x).all()) for x in got), "non-finite mesh logits")
+        print(f"[{card}] mesh (a) build_serve_step on a (1, 1) mesh of one "
+              f"{dist.get_backend(mesh.world)} rank: {B} prompts {list(MESH_PROMPT_LENS)} "
+              f"prefilled alone into their rows, {MESH_TICKS} batched ticks, {host_s!r} s; "
+              f"launches {launches}; every logit ({len(got)} calls) and cache leaf equal to "
+              f"lm.prefill/decode_step's on the card bit for bit", flush=True)
+        row = {k: v[:, B - 1:B] for k, v in cache.items()}
+
+        def one_prefill():
+            prefill(local, buffers, prompts[-1], row)
+
+        def one_tick():
+            decode(local, buffers, fed[-1], lens + MESH_TICKS, cache)
+
+        timing = {}
+        for name, fn, iters in (("prefill", one_prefill, 3), ("tick", one_tick, 10)):
+            timing[name] = (time_ms(fn, iters=iters, reps=3, warmup=2),
+                            device_busy_ms(fn, iters=iters))
+        print(f"[{card}] mesh (a) {cfg.name} {cfg.n_layers} layers: prefill "
+              f"{MESH_PROMPT_LENS[-1]}: host {timing['prefill'][0]!r} ms, device busy "
+              f"{timing['prefill'][1]!r} ms; decode tick ({B} rows): host {timing['tick'][0]!r} "
+              f"ms, device busy {timing['tick'][1]!r} ms", flush=True)
+    return launches
+
+
+def mesh_emulated(card: str, cfg, params, buffers, device="cuda") -> dict:
+    """(b) the model axis of MESH_RANKS ranks emulated in one process, on
+    the first full-width layer, the token table and the head: each rank's
+    slices (``lm.param_specs``) run in turn through the functions the
+    sharded ``lm.prefill`` calls around its collectives, in float32 on a
+    MESH_LAYER_SEQ-token prompt (``lm.embed_share``: its dsub slice of the
+    lookup; ``lm.prefill_attention_share``: its query and KV heads through
+    flash; ``lm.parallel_share``: its ``wi``/``wg``/``wo`` slices;
+    ``lm.head_share``: its partial head scores), with the all-gather and
+    the all-reduces replaced by a concatenation and sums in rank order;
+    held against the unsharded 1-layer prefill (the lookup bit for bit;
+    logits and each rank's k/v within LM_LOGIT_RTOL).
+    Then times flash and the lookup for a rank's slice and for the whole,
+    beside their bounds and SDPA's or ``embedding_bag``'s time.  Returns
+    {"flash": {...}, "lookup": {...}} of those numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.shard import shard_tree
+    from repro_torch.tree import tree_map
+
+    M, S = MESH_RANKS, MESH_LAYER_SEQ
+    kvh = cfg.n_kv_heads // M
+    cut = dataclasses.replace(cfg, n_layers=1, dtype=torch.float32)
+    cut_p = dict(params, blocks=tree_map(lambda t: t[:1], params["blocks"]))
+    ranks = [shard_tree(cut_p, lm.param_specs(cut, M), r, M) for r in range(M)]
+    emb = lm.make_emb(cut)
+    toks = torch.from_numpy(np.random.default_rng(MESH_SEED + 1).integers(
+        0, cfg.vocab, (1, S))).to(device)
+    with torch.inference_mode():
+        ref_cache = lm.init_cache(cut, 1, S, device=device)
+        want, _ = lm.prefill(cut_p, buffers, cut, toks, ref_cache)
+        x = torch.cat([lm.embed_share(rp, buffers, cut, toks) for rp in ranks], dim=-1)
+        x = x.reshape(1, S, cut.d_model)
+        check(torch.equal(x, lm.embed(cut_p, buffers, cut, toks)),
+              "the ranks' lookup slices gathered differ from the lookup")
+        positions = torch.arange(S, device=device)[None]
+        freqs = L.rope_freqs(cut, device=device)
+        h = L.apply_norm(lm.layer_params(cut_p["blocks"], 0)["ln1"], x)
+        partial, kv = None, []
+        for r, rp in enumerate(ranks):
+            lp = lm.layer_params(rp["blocks"], 0)
+            attn, k, v = lm.prefill_attention_share(lp, cut, h, positions, freqs, r, M)
+            check(attn.shape == x.shape and k.shape[2] == kvh,
+                  f"a rank's attention {tuple(attn.shape)}, KV heads {k.shape[2]}")
+            kv.append((k, v))
+            share = lm.parallel_share(lp, cut, attn, h)
+            partial = share if partial is None else partial + share
+        x1 = lm.parallel_residual(lm.layer_params(cut_p["blocks"], 0), cut, x, partial)
+        y = L.apply_norm(cut_p["ln_f"], x1)[:, -1]
+        scores = None
+        for r, rp in enumerate(ranks):
+            sc = lm.head_share(rp, cut, y, r, M)
+            scores = sc if scores is None else scores + sc
+        got = lm.head_logits(buffers, cut, scores)
+        errs = {"logits": _max_rel(got, want.cpu())}
+        for key, i in (("k", 0), ("v", 1)):
+            errs[key] = max(_max_rel(kv[r][i],
+                                     ref_cache[key][0, :, :, r * kvh:(r + 1) * kvh].cpu())
+                            for r in range(M))
+        for what, err in errs.items():
+            check(err <= LM_LOGIT_RTOL["float32"], f"mesh (b) {what}: the {M} ranks' sum vs "
+                  f"the unsharded layer {err} of the largest > {LM_LOGIT_RTOL['float32']}")
+    print(f"[{card}] mesh (b) {M} model ranks emulated on {cfg.name}'s first layer, token table "
+          f"and head (float32, a {S}-token prompt): each rank {cfg.n_heads // M} query and "
+          f"{kvh} KV heads, d_ff {cfg.d_ff // M}, dsub {emb.dsub // M}; the lookup slices "
+          f"gathered equal the lookup bit for bit; vs the unsharded 1-layer prefill, relative "
+          f"to the largest magnitude: " + ", ".join(f"{k} {v!r}" for k, v in errs.items()),
+          flush=True)
+    out = {"flash": {}, "lookup": {}}
+    for name, H, KVH in (("whole", cfg.n_heads, cfg.n_kv_heads),
+                         (f"rank_of_{M}", cfg.n_heads // M, kvh)):
+        out["flash"][name] = flash_timed(card, 2048, H, KVH, cfg.head_dim, device=device)
+    tables = params["emb"]["tables"].contiguous()
+    ids = torch.from_numpy(np.random.default_rng(MESH_SEED + 3).integers(
+        0, cfg.vocab, max(MESH_TIMED_B))).to(device)
+    for name, tab in (("whole", tables),
+                      (f"rank_of_{M}", tables[..., :emb.dsub // M].contiguous())):
+        out["lookup"][name] = {}
+        for n in MESH_TIMED_B:
+            idx = emb._rows(buffers["emb"], ids[:n]).reshape(emb.c, -1, 2)
+            out["lookup"][name][n] = lm_fwd_numbers(card, f"{cfg.name} {name}", idx, tab)
+    return out
+
+
+def mesh_train(card: str, mesh, device="cuda") -> dict:
+    """(c) ``launch.steps.build_train_step`` on the (1, 1) mesh: MESH_ARCH
+    at full width cut to MESH_TRAIN_LAYERS layers in float32, one
+    micro-batch of MESH_TRAIN_BATCH x MESH_TRAIN_SEQ tokens, MESH_TRAIN_STEPS
+    steps, held bit for bit against the unsharded ``make_train_step`` (the
+    same adamw, schedule and clip): every loss, gnorm, param and moment.
+    Returns the sharded steps' launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shapes, steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train import loop
+
+    cfg = configs.get(MESH_ARCH, n_layers=MESH_TRAIN_LAYERS, dtype=torch.float32,
+                      train_microbatch=MESH_TRAIN_BATCH)
+    shape = shapes.Shape("mesh_train", MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, "train")
+    step, (_, batch_struct), specs = steps.build_train_step(cfg, mesh, shape=shape)
+    check(batch_struct["tokens"][0] == (1, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ),
+          f"one micro-batch: {batch_struct}")
+    t0 = time.perf_counter()
+    params, buffers = lm.init(cfg, torch.Generator(device=device).manual_seed(MESH_SEED),
+                              device=device)
+    opt = adamw(weight_decay=0.1)
+    ref = loop.init_state(_clone_tree(params), opt, _clone_tree(buffers))
+    state = steps.shard_state(loop.init_state(params, opt, buffers), specs, mesh)
+    torch.cuda.synchronize()
+    print(f"[{card}] mesh (c) {cfg.name} cut to {cfg.n_layers} layers, float32: "
+          f"{_n_params(params)} params, two adamw states in {time.perf_counter() - t0:.3f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    toks = torch.from_numpy(np.random.default_rng(MESH_SEED + 2).integers(
+        0, cfg.vocab, (1, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ))).to(device)
+    ref_step = loop.make_train_step(lambda p, b, mb: lm.next_token_loss(p, b, cfg, mb), opt,
+                                    cosine_schedule(3e-4, 100, 10_000), accum=1, clip_norm=1.0)
+    base = reset_peak()
+    ops.LAUNCHES.clear()
+    got, host = [], []
+    for _ in range(MESH_TRAIN_STEPS):
+        t = time.perf_counter()
+        state, m = step(state, {"tokens": toks})
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+        got.append((m["loss"].item(), m["gnorm"].item()))
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = []
+    for _ in range(MESH_TRAIN_STEPS):
+        ref, m = ref_step(ref, {"tokens": toks})
+        want.append((m["loss"].item(), m["gnorm"].item()))
+    check(launches.get("cce_lookup_fwd") == MESH_TRAIN_STEPS
+          and launches.get("cce_lookup_bwd") == MESH_TRAIN_STEPS,
+          f"mesh train launches {launches}: want {MESH_TRAIN_STEPS} of each lookup kernel")
+    check(got == want, f"build_train_step's (loss, gnorm) {got} != the unsharded step's {want}")
+    check(_all_equal(state.params, ref.params) and _all_equal(state.opt, ref.opt),
+          "build_train_step's params or moments differ from the unsharded step's")
+    print(f"[{card}] mesh (c) build_train_step on the (1, 1) mesh, {MESH_TRAIN_STEPS} steps of "
+          f"{MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ} tokens: (loss, gnorm) {got!r}, host "
+          f"{host!r} ms, peak {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} over the "
+          f"{base / 1e9:.2f} GB of both states at the reset); launches {launches}; every loss, "
+          f"gnorm, param and adamw moment equal to the unsharded step's bit for bit", flush=True)
+    return launches
+
+
+def mesh_phase(card: str, device="cuda"):
+    """The (data, model) mesh on the card, a world of one NCCL rank (one
+    card), and the model axis emulated in one process: (a) ``mesh_serve``
+    at MESH_ARCH's full width cut to MESH_SERVE_LAYERS layers, and its
+    2-layer cut through ``lm_cut_check`` against CPU copies; (b)
+    ``mesh_emulated``; (c) ``mesh_train``.  (d), DLRM through the 2-D
+    builder at (1, 1), is ``shard_train_phase``: its trainer is that
+    builder.  Returns ({path: launches}, (b)'s numbers)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models import lm
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    mesh = init_mesh(1, 1, "cuda", rank=0, init_method=f"file://{tmp / 'store'}")
+    try:
+        check(dist.get_backend(mesh.world) == "nccl", "the mesh's world is not NCCL")
+        full = configs.get(MESH_ARCH)
+        cfg = configs.get(MESH_ARCH, n_layers=MESH_SERVE_LAYERS)
+        base = reset_peak()
+        t0 = time.perf_counter()
+        params, buffers = lm.init(cfg, torch.Generator(device=device).manual_seed(MESH_SEED),
+                                  device=device)
+        torch.cuda.synchronize()
+        n = _n_params(params)
+        print(f"[{card}] mesh init: {cfg.name} {cfg.n_layers} of {full.n_layers} layers, "
+              f"d={cfg.d_model} {cfg.n_heads}H/{cfg.n_kv_heads}KV d_ff={cfg.d_ff} "
+              f"({full.n_params()} params at full depth): {n} params, {n * 4 / 2**30:.2f} GiB "
+              f"in {time.perf_counter() - t0:.3f} s", flush=True)
+        launches = {"mesh_serve": mesh_serve(card, cfg, mesh, params, buffers, device)}
+        cut = lm_cut_check(card, cfg.name, cfg, params, buffers,
+                           list(range(1, MESH_CUT_PROMPT + 1)), MESH_CUT_DECODE, device)
+        emulated = mesh_emulated(card, cfg, params, buffers, device)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[{card}] mesh (a)-(b) peak {(peak - base) / 1e9:.2f} GB over the "
+              f"{base / 1e9:.2f} GB allocated before ({peak / 1e9:.2f} GB raw); the cut's worst "
+              f"{cut!r}", flush=True)
+        del params, buffers
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["mesh_train"] = mesh_train(card, mesh, device)
+        return launches, emulated
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+PHASES = ("lookup", "bwd", "kmeans", "train", "shard_train", "mesh", "loop", "serve", "methods",
+          "flash", "lm_serve", "hybrid_serve", "vlm_serve", "xlstm_serve", "moe_serve",
+          "audio_serve", "lm_train", "xlstm_train")
 
 
 def main(argv=None) -> int:
@@ -4505,6 +4864,9 @@ def main(argv=None) -> int:
     shard = phase("shard_train", shard_train_phase, card, CONFIG)
     if shard is not None:
         launches.update(shard[0])
+    mesh = phase("mesh", mesh_phase, card)
+    if mesh is not None:
+        launches.update(mesh[0])
     launches.update(phase("loop", loop_phase, card, CONFIG) or {})
     serve = phase("serve", serve_phase, card, CONFIG, SERVE_BATCHES)
     if serve is not None:
@@ -4534,7 +4896,8 @@ def main(argv=None) -> int:
     lm_train = phase("lm_train", lm_train_phase, card, configs.get(LM_ARCH))
     if lm_train is not None:
         launches.update(lm_train[0])
-    xlstm_train = phase("xlstm_train", xlstm_train_phase, card, configs.get(XLSTM_ARCH))
+    xlstm_train = phase("xlstm_train", xlstm_train_phase, card,
+                        configs.get(XLSTM_ARCH, n_layers=XLSTM_TRAIN_LAYERS))
     if xlstm_train is not None:
         launches.update(xlstm_train[0])
     if set(phases) != set(PHASES):
@@ -4560,12 +4923,14 @@ def main(argv=None) -> int:
                 "launches_by_path": by_path(name), "max_abs_err": err, **at, **extra}
 
     shard_at = shard[1]
+    mesh_at = mesh[1]
     steps = ("train", "train_after_transition", "shard_train", "loop", "methods", "lm_train",
-             "xlstm_train", "audio_train")
+             "xlstm_train", "audio_train", "mesh_train")
     S = FLASH_TIMED[-1]
     kernels = [
         entry("cce_lookup_fwd",
-              steps + ("lm_serve", "hybrid_serve", "vlm_serve", "xlstm_serve", "moe_serve"),
+              steps + ("lm_serve", "hybrid_serve", "vlm_serve", "xlstm_serve", "moe_serve",
+                       "mesh_serve"),
               max(fwd_err, methods_err, lm_fwd_at["max_abs_err"], xl_fwd_at["max_abs_err"],
                   shard_at["max_abs_err"],
                   *(v["max_abs_err"] for v in (*hybrid_lookup.values(), *vlm_lookup.values(),
@@ -4574,7 +4939,7 @@ def main(argv=None) -> int:
               at_lm_shape=lm_lookup, at_lm_train_shape=lm_fwd_at, at_hymba_shape=hybrid_lookup,
               at_paligemma_shape=vlm_lookup, at_xlstm_shape=xlstm_lookup,
               at_xlstm_train_shape=xl_fwd_at, at_phi3_5_moe_shape=moe_lookup,
-              at_shard_shape=shard_at["fwd"],
+              at_shard_shape=shard_at["fwd"], at_command_r_shape=mesh_at["lookup"],
               **{f"at_{m}_shape": methods_at[m]["fwd"] for m in METHOD_KERNEL_SHAPES}),
         entry("cce_lookup_bwd", steps,
               max(bwd_err, methods_err, lm_bwd_err, xl_bwd_err, shard_at["max_abs_err"]), bwd_at,
@@ -4587,7 +4952,7 @@ def main(argv=None) -> int:
               max(assign_err, lm_assign_err, xl_assign_err), assign_at,
               at_lm_table_shape=lm_assign_at, at_xlstm_table_shape=xl_assign_at),
         entry("flash_attention",
-              ("lm_serve", "hybrid_serve", "vlm_serve", "moe_serve", "audio_serve"),
+              ("lm_serve", "hybrid_serve", "vlm_serve", "moe_serve", "audio_serve", "mesh_serve"),
               flash_err["bfloat16"],
               flash_at[S],
               max_abs_err_float32=flash_err["float32"],
@@ -4611,7 +4976,9 @@ def main(argv=None) -> int:
               at_musicgen_medium_shape=dict(
                   shape=dict(B=1, H=FLASH_MUSICGEN[0], KVH=FLASH_MUSICGEN[1],
                              D=FLASH_MUSICGEN[2], dtype="bfloat16", causal=True),
-                  by_length=flash_musicgen_at)),
+                  by_length=flash_musicgen_at),
+              at_command_r_shape=dict(S=2048, dtype="bfloat16", causal=True,
+                                      **mesh_at["flash"])),
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_run:.1f} s")
     print(f"card: {card}")

@@ -119,8 +119,11 @@ class CCE:
 
     def init(self, generator: torch.Generator, device="cuda"):
         scale = 1.0 / math.sqrt(self.d2)
-        tables = torch.randn((self.c, 2, self.k, self.dsub), generator=generator,
-                             device=generator.device) * scale
+        if generator is None:  # shapes only (``lm.init`` on the meta device)
+            tables = torch.empty((self.c, 2, self.k, self.dsub), device="meta")
+        else:
+            tables = torch.randn((self.c, 2, self.k, self.dsub), generator=generator,
+                                 device=generator.device) * scale
         b = self.init_buffers()
         buffers = {
             "ptr": torch.from_numpy(b["ptr"]).to(device),
@@ -165,15 +168,34 @@ class CCE:
         with scores_i = h_col_i @ [M_i; M'_i]^T (..., 2k).  Adds main then
         helper, column by column, in the dtype h and the tables promote to:
         the JAX package's order, so float32 agrees with it."""
-        hc = h.reshape(*h.shape[:-1], self.c, self.dsub)
-        rows = self._rows(buffers, torch.arange(self.d1, device=h.device)).to(torch.int64)
+        return self.logits_from_scores(buffers, self.logit_scores(params, h))
+
+    def logit_scores(self, params, h):
+        """The head's k-sized products, column by column: column i's
+        ``h_col_i @ [M_i; M'_i]^T`` (..., 2k), made as the caller takes it
+        (a generator, so that ``logits`` holds one column's products at a
+        time).  ``params["tables"]`` may hold a slice of the dsub axis (c,
+        2, k, dsub/M) and ``h`` the same slice of each column (..., c *
+        dsub/M): the scores are then that slice's partial sums (the
+        tensor-parallel head stacks them and adds them over the ranks)."""
+        tables = params["tables"]
+        ds = tables.shape[-1]
+        hc = h.reshape(*h.shape[:-1], self.c, ds)
+        return (emb_lib.promote_matmul(hc[..., i, :], tables[i].reshape(2 * self.k, ds).T)
+                for i in range(self.c))
+
+    def logits_from_scores(self, buffers, scores):
+        """The c columns' (..., 2k) scores, in column order -> (..., d1)
+        logits: per column the main and the helper row's score gathered over
+        the vocabulary and added."""
+        rows = None
         out = None
-        for i in range(self.c):
-            scores = emb_lib.promote_matmul(
-                hc[..., i, :], params["tables"][i].reshape(2 * self.k, self.dsub).T)
-            main = scores[..., rows[i, :, 0]]
+        for i, s in enumerate(scores):
+            if rows is None:
+                rows = self._rows(buffers, torch.arange(self.d1, device=s.device)).to(torch.int64)
+            main = s[..., rows[i, :, 0]]
             out = main if out is None else out + main
-            out = out + scores[..., self.k + rows[i, :, 1]]
+            out = out + s[..., self.k + rows[i, :, 1]]
         return out
 
     def sketch_matrix(self, buffers) -> np.ndarray:

@@ -13,6 +13,8 @@ comparison methods), the paper's loop, and the dense LMs.
         --steps 4 --cluster-every 2
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train --model-shards 4 \
         --device cpu --steps 40 --cluster-every 20
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train --data-shards 2 \
+        --model-shards 2 --device cpu --steps 40 --cluster-every 20
 
 ``--arch dlrm`` trains the reduced Criteo DLRM configuration on the
 synthetic clickstream with the sketch frequency tracker (cell count in
@@ -39,12 +41,14 @@ tracker, the transition and the trigger run with "cce" only, as in the
 JAX package.  The options both packages' launchers share have the JAX
 package's defaults.
 
-``--model-shards M`` (DLRM, under ``torchrun --nproc-per-node M``; also
-any run under ``torchrun``) trains the model-parallel DLRM
+``--model-shards M`` and ``--data-shards D`` (DLRM, under ``torchrun
+--nproc-per-node D*M``; also any run under ``torchrun``) train the
+model-parallel DLRM on the (data, model) mesh, JAX's 2-D layout
 (``build_dlrm_sharded_trainer``): one process a rank, NCCL on the card
-(one card a rank: more shards than cards raise) and gloo with
-``--device cpu``, the world size checked against M.  ``--data-shards`` > 1,
-JAX's 2-D (data, model) mesh, is not ported yet and raises.
+(one card a rank: more ranks than cards raise) and gloo with ``--device
+cpu``, the world size checked against D x M.  The supertable splits over
+the M ranks of a model group and is replicated over the D data replicas;
+the batch splits over every rank.
 
 ``build_dlrm_trainer``, ``build_dlrm_sharded_trainer`` and
 ``build_lm_trainer`` take the configuration as an argument, so a caller
@@ -173,9 +177,11 @@ def build_dlrm_trainer(cfg, args, *, stream=None, trigger=None, data_from=None):
 
 
 def sharded_batches(batches, translator, rank: int, n_shards: int):
-    """Each global batch -> rank ``rank``'s contiguous slice of it, its
-    rows host-translated and pre-bucketed by owning shard (the sharded
-    lookup reads rows, not ids), and the global batch's ids as
+    """Each global batch -> rank ``rank``'s contiguous slice of it, of
+    ``n_shards`` (on a (data, model) mesh the world rank of data x model
+    ranks), its rows host-translated and pre-bucketed by owning model
+    shard (the sharded lookup reads rows, not ids), and the global batch's
+    ids as
     ``global_sparse``, for the host alone: the frequency tracker counts
     them on every rank, so the ranks' counts, and their transitions,
     agree (``Trainer(host_keys=)`` keeps them off the device)."""
@@ -189,9 +195,11 @@ def sharded_batches(batches, translator, rank: int, n_shards: int):
         yield out
 
 
-def build_dlrm_sharded_trainer(cfg, args, *, group, data_from=None):
-    """The model-parallel DLRM ``Trainer`` on this rank of ``group``
-    (``launch.mesh.init_model_group``): the 1-device trainer's init (the
+def build_dlrm_sharded_trainer(cfg, args, *, mesh, data_from=None):
+    """The model-parallel DLRM ``Trainer`` on this rank of ``mesh`` (a
+    ``launch.mesh.Mesh``: the supertable over its model group, replicated
+    over its data group, each world rank a slice of the batch; data
+    replica 0 writes the checkpoints): the 1-device trainer's init (the
     whole state made on the host from ``args.seed``, then this rank's
     shard moved to ``args.device``), sgd with ``args.momentum``, clip
     ``args.clip``, the step of ``launch.steps.build_dlrm_train_step``
@@ -199,14 +207,17 @@ def build_dlrm_sharded_trainer(cfg, args, *, group, data_from=None):
     global batch's ids, the sharded transition, whole-layout checkpoints
     and ``dlrm.checkpoint_migrations``.  ``data_from(start_step)`` gives
     the global batches (default ``dlrm_data``); each rank keeps its
-    slice.  ``cfg.emb_k_multiple`` must be a multiple of the world size.
-    A run log is written by rank 0 only."""
+    slice.  ``cfg.emb_k_multiple`` must be a multiple of the model ranks.
+    Every model group runs the same transition on the same global counts,
+    so the data replicas stay equal bit for bit.  A run log is written by
+    world rank 0 only."""
     from repro_torch.checkpoint import reshard_restore
     from repro_torch.data.translate import HostTranslator
     from repro_torch.launch.steps import build_dlrm_train_step, dlrm_state_specs
 
     device = getattr(args, "device", "cuda")
-    rank, M = dist.get_rank(group), dist.get_world_size(group)
+    group = mesh.model
+    rank, M = mesh.coords[1], mesh.shape["model"]
     if cfg.emb_k_multiple % M:
         raise ValueError(f"emb_k_multiple {cfg.emb_k_multiple} is no multiple of {M} shards")
     params, buffers = dlrm.init(cfg, torch.Generator().manual_seed(args.seed), device="cpu")
@@ -217,11 +228,11 @@ def build_dlrm_sharded_trainer(cfg, args, *, group, data_from=None):
     translator = HostTranslator(cfg.collection, buffers["emb"], n_shards=M)
     del whole, params, buffers
     telemetry, obs_kw = _obs_kit(args, "dlrm_sharded")
-    if rank != 0:
+    if mesh.rank != 0:
         obs_kw.pop("runlog", None)
     lr = args.lr
     step, _ = build_dlrm_train_step(
-        cfg, group, specs, batch_size=args.batch, accum=args.accum, optimizer=optimizer,
+        cfg, mesh, specs, batch_size=args.batch, accum=args.accum, optimizer=optimizer,
         lr_fn=lambda s: lr, clip_norm=getattr(args, "clip", 1.0), telemetry=telemetry)
     track = args.emb == "cce"
     tracker = IdFrequencyTracker(cfg.vocab_sizes, key="global_sparse") if track else None
@@ -232,7 +243,7 @@ def build_dlrm_sharded_trainer(cfg, args, *, group, data_from=None):
     global_from = data_from or dlrm_data(cfg, args)
 
     def local_from(start_step: int):
-        return sharded_batches(global_from(start_step), translator, rank, M)
+        return sharded_batches(global_from(start_step), translator, mesh.rank, mesh.size)
 
     return Trainer(
         step, state, local_from(0),
@@ -244,7 +255,8 @@ def build_dlrm_sharded_trainer(cfg, args, *, group, data_from=None):
         failures=FailureInjector(tuple(args.fail_at)),
         seed=args.seed,
         migrations=dlrm.checkpoint_migrations(cfg),
-        state_shardings=specs, group=group, host_keys=("global_sparse",),
+        state_shardings=specs, mesh=mesh,
+        host_keys=("global_sparse",),
         **obs_kw,
     )
 
@@ -360,9 +372,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--model-shards", type=int, default=1,
                     help="DLRM: shard the supertable over this many ranks (run under "
-                    "torchrun --nproc-per-node M)")
+                    "torchrun --nproc-per-node D*M)")
     ap.add_argument("--data-shards", type=int, default=1,
-                    help="the data axis of JAX's 2-D mesh: not ported yet, only 1")
+                    help="DLRM: replicas of the sharded supertable, the data axis of the "
+                    "(data, model) mesh")
     ap.add_argument("--obs", default=None, metavar="RUN.jsonl")
     ap.add_argument("--profile-steps", type=int, nargs=2, default=None)
     ap.add_argument("--profile-dir", default="profile")
@@ -374,27 +387,22 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.fail_at and not (args.ckpt_dir and args.ckpt_every):
         ap.error("--fail-at needs --ckpt-dir and --ckpt-every to resume from")
-    if args.data_shards > 1:
-        raise NotImplementedError(
-            "--data-shards > 1 (JAX's 2-D data x model mesh: the slab replicated over the "
-            "data axis, a second group for its gradient all-reduce) is not ported yet; "
-            "see ROADMAP.md, Queue 1")
-    group = None
-    if args.model_shards > 1 or "WORLD_SIZE" in os.environ:
+    mesh = None
+    if args.model_shards > 1 or args.data_shards > 1 or "WORLD_SIZE" in os.environ:
         if args.arch != "dlrm":
-            ap.error("--model-shards: the model-parallel trainer is DLRM's")
-        group = model_group(args)
-    if group is not None:
+            ap.error("--model-shards/--data-shards: the sharded trainer is DLRM's")
+        mesh = launch_mesh(args)
+    if mesh is not None:
         from repro_torch.configs import dlrm_criteo
 
         cfg = dlrm_criteo.reduced(emb_method=args.emb, cap=args.emb_cap,
                                   k_multiple=args.model_shards)
         global_from = dlrm_data(cfg, args)
-        trainer = build_dlrm_sharded_trainer(cfg, args, group=group, data_from=global_from)
+        trainer = build_dlrm_sharded_trainer(cfg, args, mesh=mesh, data_from=global_from)
 
         def data_from(start_step: int):
             return sharded_batches(global_from(start_step), trainer.translator,
-                                   dist.get_rank(group), args.model_shards)
+                                   mesh.rank, mesh.size)
     elif args.arch == "dlrm":
         from repro_torch.configs import dlrm_criteo
 
@@ -416,11 +424,14 @@ def main(argv=None):
     dt = time.time() - t0
     losses = [h["loss"] for h in trainer.history]
     rank = 0
-    if group is not None:
-        rank = dist.get_rank(group)
+    if mesh is not None:
+        rank = mesh.rank
         dist.destroy_process_group()
     if rank == 0:
-        shards = f", {args.model_shards} model shards" if group is not None else ""
+        shards = ""
+        if mesh is not None:
+            shards = f", {args.model_shards} model shards" + (
+                f" x {args.data_shards} data shards" if args.data_shards > 1 else "")
         print(f"{args.arch} on {args.device}{shards}: step {trainer.state.step} in {dt:.1f}s, "
               f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, clusterings {trainer.clusters_done}, "
               f"restored at {restored}, stragglers={len(trainer.monitor.flagged)}")
@@ -431,21 +442,23 @@ def main(argv=None):
     return trainer
 
 
-def model_group(args):
-    """The model group of ``--model-shards``: refuses more shards than
-    cards on ``cuda`` and a world (``torchrun``'s ``WORLD_SIZE``) of another
-    size, then joins it (``launch.mesh.init_model_group``)."""
-    from repro_torch.launch.mesh import init_model_group
+def launch_mesh(args):
+    """The (data, model) mesh of ``--data-shards D --model-shards M``:
+    refuses more ranks than cards on ``cuda`` and a world (``torchrun``'s
+    ``WORLD_SIZE``) of another size than D x M, then joins it
+    (``launch.mesh.init_mesh``)."""
+    from repro_torch.launch.mesh import init_mesh
 
-    M = args.model_shards
-    if args.device == "cuda" and M > torch.cuda.device_count():
-        raise RuntimeError(f"--model-shards {M} needs {M} CUDA devices, this machine has "
-                           f"{torch.cuda.device_count()}")
+    D, M = args.data_shards, args.model_shards
+    n = D * M
+    if args.device == "cuda" and n > torch.cuda.device_count():
+        raise RuntimeError(f"--data-shards {D} --model-shards {M} needs {n} CUDA devices, "
+                           f"this machine has {torch.cuda.device_count()}")
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world != M:
-        raise ValueError(f"--model-shards {M} runs as {M} processes "
-                         f"(torchrun --nproc-per-node {M}); the world has {world}")
-    return init_model_group(args.device, world_size=M)
+    if world != n:
+        raise ValueError(f"--data-shards {D} --model-shards {M} runs as {n} processes "
+                         f"(torchrun --nproc-per-node {n}); the world has {world}")
+    return init_mesh(D, M, args.device)
 
 
 if __name__ == "__main__":

@@ -13,9 +13,20 @@ chunks; both are plain torch, as the JAX package computes them outside
 any kernel, and both take a gradient.  The LM's prefill calls the flash
 kernel itself (``models/lm.py``), which has no backward.  Decode
 attention over the cache is ``_sdpa`` too; with a sliding window the
-cache is a ring of ``min(max_seq, window)`` rows.  Not ported: the
-sharding hints; ``attn_impl="dense_bf16p"`` and logit soft-caps raise
-``NotImplementedError``.
+cache is a ring of ``min(max_seq, window)`` rows.  ``attn_impl="dense_bf16p"``
+and logit soft-caps raise ``NotImplementedError``.
+
+Tensor parallel (``group=``, a model group of M ranks; ``models/lm.py``):
+the functions take a rank's slices of the weights and count heads from
+their shapes.  q and wo split by heads, the MLP's ``wi``/``wg``/``bi``
+and ``wo`` by the ff axis; the attention output and ``mlp_partial`` are
+this rank's partial sums, which the caller adds over the group.  The KV
+projections split by KV heads when M divides them (``kv_heads_split``);
+otherwise every rank holds them whole, computes every KV head (its cache
+holds them all) and attends with the one its query heads read.  A
+replicated weight used inside the region enters it through
+``shard.copy_to_group``, so that its gradient is summed over the ranks'
+shares.  Without a group every function is the unsharded one.
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.shard import copy_to_group, group_size, rank_and_size
 
 Params = Any
 
@@ -34,7 +46,11 @@ Params = Any
 def truncated_normal(generator: torch.Generator, shape, scale, dtype=torch.float32):
     """Normal draws cut to [-2, 2], times ``scale``, on the generator's
     device.  Another stream of numbers than ``jax.random``'s: tests carry
-    the JAX package's params over with ``convert``."""
+    the JAX package's params over with ``convert``.  With no generator,
+    an empty tensor on the meta device (shapes only: ``lm.init`` on
+    "meta")."""
+    if generator is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (x * scale).to(dtype)
@@ -131,23 +147,54 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
     return p
 
 
-def _project_qkv(p, cfg: ModelConfig, x):
-    """x (B, S, d) -> q (B, S, H, D), k/v (B, S, KVH, D)."""
+def kv_heads_split(cfg: ModelConfig, n_model: int) -> bool:
+    """Whether the KV heads split over ``n_model`` ranks (each rank its
+    KVH/M), or every rank holds them all (M a multiple of KVH: each rank's
+    query heads then read one KV head).  Raises when the query heads do
+    not split, or neither divides the other."""
+    if cfg.n_heads % n_model:
+        raise ValueError(f"{cfg.n_heads} query heads do not split over {n_model} ranks")
+    if cfg.n_kv_heads % n_model == 0:
+        return True
+    if n_model % cfg.n_kv_heads == 0:
+        return False
+    raise ValueError(f"{cfg.n_kv_heads} KV heads neither split over nor divide "
+                     f"{n_model} ranks")
+
+
+def local_kv(cfg: ModelConfig, k, rank: int, M: int):
+    """The KV heads the query heads of ``rank`` of M read, out of the KV
+    heads it holds (k (..., KVH_held, D), heads on dim -2): all of them
+    when they split, else the one of ``rank // (M / KVH)``."""
+    if kv_heads_split(cfg, M):
+        return k
+    j = rank // (M // cfg.n_kv_heads)
+    return k[..., j:j + 1, :]
+
+
+def _project_qkv(p, cfg: ModelConfig, x, group=None):
+    """x (B, S, d) -> q (B, S, H, D), k/v (B, S, KVH, D): this rank's
+    query heads and the KV heads it holds under ``group``."""
     B, S, _ = x.shape
     dt = x.dtype
+    whole = group_size(group) > 1 and not kv_heads_split(cfg, group_size(group))
+
+    def kv(name):  # a replicated KV weight enters the region
+        return copy_to_group(p[name], group) if whole else p[name]
+
     q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    k = x @ kv("wk").to(dt)
+    v = x @ kv("wv").to(dt)
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+        k = k + kv("bk").to(dt)
+        v = v + kv("bv").to(dt)
+    q = q.reshape(B, S, -1, cfg.head_dim)
+    k = k.reshape(B, S, -1, cfg.head_dim)
+    v = v.reshape(B, S, -1, cfg.head_dim)
     if cfg.qk_norm:
-        q = rms_norm_dim(q, p["q_norm"])
-        k = rms_norm_dim(k, p["k_norm"])
+        q = rms_norm_dim(q, copy_to_group(p["q_norm"], group))
+        k = rms_norm_dim(k, copy_to_group(p["k_norm"], group))
     return q, k, v
 
 
@@ -236,12 +283,15 @@ def _sdpa_chunked(cfg: ModelConfig, q, k, v) -> torch.Tensor:
     return out.transpose(1, 2).to(q.dtype)
 
 
-def attention_train(p, cfg: ModelConfig, x, positions, freqs) -> torch.Tensor:
+def attention_train(p, cfg: ModelConfig, x, positions, freqs, group=None) -> torch.Tensor:
     """Full-sequence causal attention for training: the dense ``_sdpa``,
     or ``_sdpa_chunked`` for ``attn_impl="chunked"`` past ``attn_chunk``
-    tokens, as the JAX package routes it."""
+    tokens, as the JAX package routes it.  Under ``group``, this rank's
+    heads and its partial sum of the output projection."""
     check_attention(cfg)
-    q, k, v = _project_qkv(p, cfg, x)
+    q, k, v = _project_qkv(p, cfg, x, group)
+    rank, M = rank_and_size(group)
+    k, v = local_kv(cfg, k, rank, M), local_kv(cfg, v, rank, M)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, freqs)
         k = apply_rope(k, positions, freqs)
@@ -250,20 +300,21 @@ def attention_train(p, cfg: ModelConfig, x, positions, freqs) -> torch.Tensor:
         out = _sdpa_chunked(cfg, q, k, v)
     else:
         out = _sdpa(cfg, q, k, v, causal_mask(S, S, cfg.sliding_window, device=x.device))
-    return out.reshape(*x.shape[:2], cfg.q_dim) @ p["wo"].to(x.dtype)
+    return out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
 
 
-def attention_decode(p, cfg: ModelConfig, x, pos, cache_k, cache_v, freqs):
+def attention_decode(p, cfg: ModelConfig, x, pos, cache_k, cache_v, freqs, group=None):
     """One-token decode with a KV cache.
 
     x (B, 1, d); pos (B,) int positions; cache_k/v (B, S_max, KVH, D),
     written in place at each row's position, or, with a sliding window,
     at ``pos % S_max`` of the ring (S_max = min(max_seq, window)), every
     slot of which is live once ``pos >= S_max``.  Returns (out (B, 1, d),
-    cache_k, cache_v)."""
+    cache_k, cache_v).  Under ``group`` the cache holds the KV heads this
+    rank holds, and ``out`` is its partial sum."""
     check_attention(cfg)
     B = x.shape[0]
-    q, k, v = _project_qkv(p, cfg, x)  # q (B,1,H,D), k/v (B,1,KVH,D)
+    q, k, v = _project_qkv(p, cfg, x, group)  # q (B,1,H,D), k/v (B,1,KVH,D)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, pos[:, None], freqs)
         k = apply_rope(k, pos[:, None], freqs)
@@ -276,8 +327,10 @@ def attention_decode(p, cfg: ModelConfig, x, pos, cache_k, cache_v, freqs):
     valid = torch.arange(S_max, device=x.device)[None, :] <= slot[:, None]
     if ring:
         valid = valid | (pos[:, None] >= S_max)
-    out = _sdpa(cfg, q, cache_k, cache_v, valid[:, None, None, :])
-    out = out.reshape(B, 1, cfg.q_dim) @ p["wo"].to(x.dtype)
+    rank, M = rank_and_size(group)
+    out = _sdpa(cfg, q, local_kv(cfg, cache_k, rank, M), local_kv(cfg, cache_v, rank, M),
+                valid[:, None, None, :])
+    out = out.reshape(B, 1, -1) @ p["wo"].to(x.dtype)
     return out, cache_k, cache_v
 
 
@@ -304,10 +357,22 @@ def init_mlp(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
     }
 
 
-def apply_mlp(p, cfg: ModelConfig, x):
+def mlp_partial(p, cfg: ModelConfig, x):
+    """The MLP without its output bias: under tensor parallelism this
+    rank's partial sum over its slice of the ff axis."""
     dt = x.dtype
     if cfg.act == "swiglu":
         h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wi"].to(dt))
-        return h @ p["wo"].to(dt)
-    h = F.gelu(x @ p["wi"].to(dt) + p["bi"].to(dt), approximate="tanh")  # jax.nn.gelu's default
-    return h @ p["wo"].to(dt) + p["bo"].to(dt)
+    else:
+        h = F.gelu(x @ p["wi"].to(dt) + p["bi"].to(dt), approximate="tanh")  # jax.nn.gelu's default
+    return h @ p["wo"].to(dt)
+
+
+def mlp_bias(p, cfg: ModelConfig, y):
+    """``y`` plus the MLP's output bias (the GELU MLP's ``bo``; swiglu has
+    none), added once after the partial sums."""
+    return y if cfg.act == "swiglu" else y + p["bo"].to(y.dtype)
+
+
+def apply_mlp(p, cfg: ModelConfig, x):
+    return mlp_bias(p, cfg, mlp_partial(p, cfg, x))

@@ -40,11 +40,36 @@ through ``cfg.moe_impl``'s route in ``forward`` ("einsum", "sort" or
 JAX package does.  The audio family's tokens are (B, S, n_codebooks)
 (a decode step's (B, n_codebooks)), codebook j looked up at rows
 j x vocab + token of one table, and its logits (..., n_codebooks,
-vocab).  Not ported: ``remat="dots"``.
+vocab).  Not ported: ``remat="dots"``, and the JAX package's sharding
+options that no configuration sets (``seq_shard``, ``zero2_grads``,
+``parallelism="fsdp"``), which raise by name.
+
+Tensor parallel, the dense family (``group=``, a model group of M ranks;
+``param_specs`` and ``cache_specs`` give the layout, ``launch/steps.py``
+builds the steps): each rank holds its slices of the weights, and
+``forward``, ``next_token_loss``, ``prefill`` and ``decode_step`` run a
+rank's share.  A block enters the region through ``shard.copy_to_group``
+(identity forward, gradient summed over the group) and leaves it through
+``shard.reduce_from_group`` (one all-reduce of the partial sums); under
+``parallel_block`` attention's and the MLP's partial sums are added
+first, then reduced once (a group of one keeps the unsharded order of the
+sums).  The CCE token table splits each column's dsub: a rank looks up
+its slice of every column through the lookup kernel and ``gather_last``
+puts the columns back together.  The CCE head splits the same way: a
+rank's k-sized products (``CCE.logit_scores``) of its slices are summed
+over the group, (tokens, c, 2k), 4x fewer values than the vocabulary's
+logits for command-r-35b, and every rank gathers the whole logits from
+them.  What a rank computes between the collectives is a function of its
+own (``embed_share``, ``prefill_attention_share``, ``parallel_share``,
+``head_share``), which takes its (rank, M): with the collectives
+replaced by a concatenation or a sum in rank order, the same calls
+emulate the M ranks in one process.  Without a group every function is
+the unsharded one.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -58,15 +83,40 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.shard import (
+    Spec,
+    copy_to_group,
+    gather_last,
+    group_size,
+    rank_and_size,
+    reduce_from_group,
+)
 
 
-def _check(cfg: ModelConfig) -> None:
+def _check(cfg: ModelConfig, group=None) -> None:
     if cfg.family not in ("dense", "moe", "hybrid", "xlstm", "vlm", "audio"):
         raise NotImplementedError(f"LM family {cfg.family!r} is not ported "
                                   f"(dense, moe, hybrid, xlstm, vlm and audio only)")
     if cfg.pos_emb not in ("rope", "sinusoidal", "none"):
         raise NotImplementedError(f"pos_emb={cfg.pos_emb!r} is not ported")
+    for name in ("seq_shard", "zero2_grads"):
+        if getattr(cfg, name):
+            raise NotImplementedError(f"{name}=True is not ported")
+    if cfg.parallelism != "tp":
+        raise NotImplementedError(f"parallelism={cfg.parallelism!r} is not ported (tp only)")
     L.check_attention(cfg)
+    if group is not None:
+        _check_tp(cfg)
+
+
+def _check_tp(cfg: ModelConfig) -> None:
+    """The tensor-parallel layout is the dense family's, with CCE tables."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the {cfg.family} family's sharded layout is not ported "
+                                  f"(the dense family only)")
+    if cfg.emb_method != "cce":
+        raise NotImplementedError(f"emb_method={cfg.emb_method!r} under tensor parallelism "
+                                  f"(CCE tables only)")
 
 
 # --- embedding table construction -------------------------------------------
@@ -228,15 +278,89 @@ def _unstack(blocks, n: int) -> list:
     return torch.unbind(blocks, 0)
 
 
+# --- sharding specs -----------------------------------------------------------
+
+
+def param_specs(cfg: ModelConfig, n_model: int = 1):
+    """The ``shard.Spec`` of every leaf of ``init``'s params over a model
+    axis of ``n_model`` ranks (the dense family): the JAX package's
+    ``param_specs`` as dims, stacked leaves counting their layer axis.
+
+    * the CCE token table and head (c, 2, k, dsub) split dsub (3);
+    * attention: wq, bq and wk, wv, bk, bv split their head axis, wo its
+      rows; q_norm and k_norm whole;
+    * the MLP: wi, wg, bi split the ff axis, wo its rows; bo whole;
+    * the norms whole.
+
+    One deviation: where ``n_model`` does not divide the KV heads (qwen2's
+    2 at 4 ranks) the JAX package splits wk and wv through half heads; the
+    port holds them, bk and bv whole on every rank (``layers.kv_heads_split``),
+    so that a rank computes whole KV heads."""
+    _check(cfg)
+    _check_tp(cfg)
+    kv = 1 if L.kv_heads_split(cfg, n_model) else None
+    whole = Spec()
+
+    def norm():
+        return {"scale": whole} | ({"bias": whole} if cfg.norm == "layernorm" else {})
+
+    attn = {"wq": Spec(model=1), "wk": Spec(model=kv), "wv": Spec(model=kv),
+            "wo": Spec(model=0)}
+    if cfg.qkv_bias:
+        attn |= {"bq": Spec(model=0), "bk": Spec(model=0 if kv else None),
+                 "bv": Spec(model=0 if kv else None)}
+    if cfg.qk_norm:
+        attn |= {"q_norm": whole, "k_norm": whole}
+    if cfg.act == "swiglu":
+        mlp = {"wi": Spec(model=1), "wg": Spec(model=1), "wo": Spec(model=0)}
+    else:
+        mlp = {"wi": Spec(model=1), "bi": Spec(model=0), "wo": Spec(model=0), "bo": whole}
+    layer = {"ln1": norm(), "attn": attn}
+    if not cfg.parallel_block:
+        layer["ln2"] = norm()
+    if cfg.d_ff:
+        layer["mlp"] = mlp
+
+    def stacked(spec):  # the leading layer axis
+        if isinstance(spec, dict):
+            return {k: stacked(v) for k, v in spec.items()}
+        return Spec() if spec.model is None else Spec(model=spec.model + 1)
+
+    table = {"tables": Spec(model=3)}
+    specs = {"emb": table, "blocks": stacked(layer), "ln_f": norm()}
+    if not cfg.tie_embeddings:
+        specs["head"] = table
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, n_model: int = 1, *, batch_split: bool = True):
+    """The ``shard.Spec`` of the cache's "k" and "v" (L, B, S, KVH, D): the
+    batch over the data axis (``batch_split``), the KV heads (3) over the
+    model axis.  The JAX package splits head_dim (4) instead, since its
+    KV-head counts rarely divide the axis; the port's attention reads
+    whole heads, so it splits the heads where they divide, and where they
+    do not (``layers.kv_heads_split``) every rank holds them all."""
+    _check(cfg)
+    _check_tp(cfg)
+    spec = Spec(model=3 if L.kv_heads_split(cfg, n_model) else None,
+                data=1 if batch_split else None)
+    return {"k": spec, "v": spec}
+
+
 # --- embedding lookup / logits -----------------------------------------------
 
 
-def embed(params, buffers, cfg: ModelConfig, tokens):
+def embed(params, buffers, cfg: ModelConfig, tokens, group=None):
     """tokens (B, S), or (B, S, n_codebooks) for the audio family, whose
     codebooks' rows are summed -> (B, S, d) in ``cfg.dtype``; a CCE table
-    takes the fused lookup (the kernel on CUDA tensors)."""
+    takes the fused lookup (the kernel on CUDA tensors).  Under ``group``
+    the table holds this rank's dsub slice of every column: one lookup of
+    the slices, then the columns gathered from the ranks."""
     emb = make_emb(cfg)
-    if cfg.n_codebooks:
+    if group_size(group) > 1:
+        x = gather_last(embed_share(params, buffers, cfg, tokens), group)
+        x = x.reshape(*tokens.shape, emb.d2)
+    elif cfg.n_codebooks:
         offs = torch.arange(cfg.n_codebooks, dtype=tokens.dtype, device=tokens.device) * cfg.vocab
         x = emb.lookup(params["emb"], buffers["emb"], tokens + offs).sum(dim=-2)
     else:
@@ -246,11 +370,16 @@ def embed(params, buffers, cfg: ModelConfig, tokens):
     return x.to(cfg.dtype)
 
 
-def logits_fn(params, buffers, cfg: ModelConfig, h):
+def logits_fn(params, buffers, cfg: ModelConfig, h, group=None):
     """h (..., d) -> (..., vocab), or (..., n_codebooks, vocab).  A table
     head (tied or compressed) promotes ``cfg.dtype`` activations against
     its ``param_dtype`` table, as jnp does; an untied full head multiplies
-    in ``cfg.dtype``."""
+    in ``cfg.dtype``.  Under ``group`` the CCE head's scores of this rank's
+    slices are summed over the group and every rank gathers the whole
+    logits."""
+    if group_size(group) > 1:
+        scores = head_share(params, cfg, copy_to_group(h, group), *rank_and_size(group))
+        return head_logits(buffers, cfg, reduce_from_group(scores, group))
     if cfg.tie_embeddings or cfg.emb_method != "full":
         key = "emb" if cfg.tie_embeddings else "head"
         out = make_emb(cfg).logits(params[key], buffers[key], h.to(cfg.dtype))
@@ -259,6 +388,80 @@ def logits_fn(params, buffers, cfg: ModelConfig, h):
     if cfg.n_codebooks:
         out = out.reshape(*h.shape[:-1], cfg.n_codebooks, cfg.vocab)
     return out
+
+
+# --- a model rank's share (tensor parallel) -----------------------------------
+# What one rank of a model group computes between the collectives.  The
+# sharded functions call these with ``rank_and_size(group)`` around one
+# all-gather or all-reduce; with the collectives replaced by a
+# concatenation or a sum in rank order, the same calls emulate M ranks in
+# one process.
+
+
+def embed_share(params, buffers, cfg: ModelConfig, tokens):
+    """A rank's slice of the token table's lookup, (n, c, dsub/M): the
+    lookup kernel (on CUDA tensors) on its dsub slice of every column,
+    ``params["emb"]["tables"]`` (c, 2, k, dsub/M).  The ranks' slices,
+    concatenated in rank order on the last dim, are the lookup."""
+    emb = make_emb(cfg)
+    tables = params["emb"]["tables"]
+    rows = emb._rows(buffers["emb"], tokens).reshape(emb.c, -1, 2)
+    return kops.cce_lookup(rows, tables.contiguous()).reshape(-1, emb.c, tables.shape[-1])
+
+
+def head_share(params, cfg: ModelConfig, h, rank: int, M: int):
+    """Rank ``rank`` of M's partial scores of the CCE head, (..., c, 2k):
+    its dsub slice of each column of h (..., d) against its slice of the
+    table.  Summed over the ranks, they are the head's scores
+    (``head_logits``)."""
+    key = "emb" if cfg.tie_embeddings else "head"
+    tab = make_emb(cfg)
+    ds = tab.dsub // M
+    hc = h.to(cfg.dtype).reshape(*h.shape[:-1], tab.c, tab.dsub)[..., rank * ds:(rank + 1) * ds]
+    cols = tab.logit_scores(params[key], hc.reshape(*h.shape[:-1], tab.c * ds))
+    return torch.stack(list(cols), dim=-2)
+
+
+def head_logits(buffers, cfg: ModelConfig, scores):
+    """The whole logits (..., vocab) from the head's scores (..., c, 2k)
+    summed over the ranks."""
+    key = "emb" if cfg.tie_embeddings else "head"
+    return make_emb(cfg).logits_from_scores(buffers[key], scores.unbind(-2))
+
+
+def prefill_attention_share(lp, cfg: ModelConfig, h, positions, freqs, rank: int, M: int,
+                            group=None):
+    """Rank ``rank`` of M's share of a prefill's attention on one layer's
+    params ``lp`` (its slices): (its partial output (B, S, d), through its
+    rows of ``wo``; k and v (B, S, KVH_held, D), the KV heads it holds, for
+    the cache).  The flash kernel on its query heads and the KV heads they
+    read (``layers.local_kv``), or SDPA past a sliding window.  ``group``
+    only routes the gradient of replicated KV weights
+    (``layers._project_qkv``)."""
+    B, S = h.shape[0], h.shape[1]
+    q, k, v = L._project_qkv(lp["attn"], cfg, h, group)
+    if cfg.pos_emb == "rope":
+        q = L.apply_rope(q, positions, freqs)
+        k = L.apply_rope(k, positions, freqs)
+    kl, vl = L.local_kv(cfg, k, rank, M), L.local_kv(cfg, v, rank, M)
+    if not cfg.sliding_window or S <= cfg.sliding_window:
+        attn = kops.flash_attention(q, kl, vl, causal=True)
+    else:
+        attn = L._sdpa(cfg, q, kl, vl, L.causal_mask(S, S, cfg.sliding_window, device=h.device))
+    return attn.reshape(B, S, -1) @ lp["attn"]["wo"].to(h.dtype), k, v
+
+
+def parallel_share(p, cfg: ModelConfig, attn, ht):
+    """A ``parallel_block`` layer's share of its residual update: this
+    rank's partial attention output ``attn`` plus its MLP's partial sum
+    over its ff slice, both reading ``ht`` = ln1(x)."""
+    return attn + L.mlp_partial(p["mlp"], cfg, ht)
+
+
+def parallel_residual(p, cfg: ModelConfig, x, y):
+    """A ``parallel_block`` layer's output from ``y``, the ranks'
+    ``parallel_share`` summed: x + y + the MLP's output bias."""
+    return x + L.mlp_bias(p["mlp"], cfg, y)
 
 
 def _add_positions(cfg: ModelConfig, x, positions):
@@ -272,17 +475,19 @@ def _add_positions(cfg: ModelConfig, x, positions):
 # --- forward (training / prefill) ---------------------------------------------
 
 
-def _block_train(p, cfg: ModelConfig, x, positions, freqs, *, decode_cache=None):
+def _block_train(p, cfg: ModelConfig, x, positions, freqs, *, decode_cache=None, group=None):
     """One block over a full sequence, or one decode token when
     ``decode_cache`` (this layer's rows of the cache, written in place) is
     given.  Returns (x, aux): aux the moe family's load-balancing loss
-    over a sequence, else None."""
+    over a sequence, else None.  Under ``group`` this rank's share of a
+    dense block (``_dense_out``)."""
     h = L.apply_norm(p["ln1"], x)
+    ht = copy_to_group(h, group)
     if decode_cache is None:
-        attn = L.attention_train(p["attn"], cfg, h, positions, freqs)
+        attn = L.attention_train(p["attn"], cfg, ht, positions, freqs, group)
     else:
-        attn, _, _ = L.attention_decode(p["attn"], cfg, h, positions, decode_cache["k"],
-                                        decode_cache["v"], freqs)
+        attn, _, _ = L.attention_decode(p["attn"], cfg, ht, positions, decode_cache["k"],
+                                        decode_cache["v"], freqs, group)
     if cfg.family == "hybrid":
         if decode_cache is None:
             s = ssm_lib.ssm_train(p["ssm"], cfg, h)
@@ -292,11 +497,8 @@ def _block_train(p, cfg: ModelConfig, x, positions, freqs, *, decode_cache=None)
             decode_cache["ssm"].copy_(hst)
             decode_cache["conv"].copy_(cst)
         return _hybrid_out(p, cfg, x, attn, s), None
-    if cfg.parallel_block:
-        # command-r: attn and FFN both read ln1(x), summed into the residual
-        return x + attn + L.apply_mlp(p["mlp"], cfg, h), None
-    x = x + attn
     if cfg.family == "moe":
+        x = x + attn
         h2 = L.apply_norm(p["ln2"], x)
         if decode_cache is not None:
             return x + moe_lib.apply_moe_decode(p["moe"], cfg, h2), None
@@ -304,9 +506,29 @@ def _block_train(p, cfg: ModelConfig, x, positions, freqs, *, decode_cache=None)
                  "einsum": moe_lib.apply_moe}[cfg.moe_impl]
         mo, aux = route(p["moe"], cfg, h2, group_size=cfg.moe_group)
         return x + mo, aux
+    return _dense_out(p, cfg, x, attn, ht, group), None
+
+
+def _dense_out(p, cfg: ModelConfig, x, attn, ht, group):
+    """A block's residual update after attention, for every family but the
+    moe and hybrid ones: from ``attn``, this rank's partial attention
+    output, and ``ht``, the block's normed input inside the region.
+    ``parallel_block`` (command-r: attention and the MLP both read ln1(x))
+    adds the two partial sums (``parallel_share``), then reduces them once;
+    otherwise attention's sum is reduced, and the MLP reads ln2 of the new
+    x.  A group of one (or none) keeps the unsharded order
+    ``x + attn + mlp``."""
+    if cfg.parallel_block:
+        if group_size(group) == 1:
+            return x + attn + L.apply_mlp(p["mlp"], cfg, ht)
+        y = reduce_from_group(parallel_share(p, cfg, attn, ht), group)
+        return parallel_residual(p, cfg, x, y)
+    x = x + reduce_from_group(attn, group)
     if cfg.d_ff:
-        x = x + L.apply_mlp(p["mlp"], cfg, L.apply_norm(p["ln2"], x))
-    return x, None
+        h2 = copy_to_group(L.apply_norm(p["ln2"], x), group)
+        x = x + L.mlp_bias(p["mlp"], cfg,
+                           reduce_from_group(L.mlp_partial(p["mlp"], cfg, h2), group))
+    return x
 
 
 def _hybrid_out(p, cfg: ModelConfig, x, attn, s):
@@ -320,17 +542,18 @@ def _hybrid_out(p, cfg: ModelConfig, x, attn, s):
     return x
 
 
-def forward(params, buffers, cfg: ModelConfig, batch):
+def forward(params, buffers, cfg: ModelConfig, batch, *, group=None):
     """Full-sequence forward.  batch: {"tokens": (B, S) integer, or (B, S,
     n_codebooks)} and, for the vlm family, optionally "patch_emb" (B,
     n_patches, d): projected by ``patch_proj`` in ``cfg.dtype`` and
     prepended to the text, with positions over the whole sequence; only
     the text positions give logits.  Returns (logits (B, S, vocab) or (B,
     S, n_codebooks, vocab), aux), aux float32: the moe family's
-    load-balancing losses summed over the layers, else zero."""
-    _check(cfg)
+    load-balancing losses summed over the layers, else zero.  Under
+    ``group`` (the dense family) each rank returns the whole logits."""
+    _check(cfg, group)
     tokens = batch["tokens"]
-    x = embed(params, buffers, cfg, tokens)
+    x = embed(params, buffers, cfg, tokens, group)
     patches = cfg.family == "vlm" and "patch_emb" in batch
     if patches:
         pe = batch["patch_emb"].to(cfg.dtype) @ params["patch_proj"].to(cfg.dtype)
@@ -348,14 +571,15 @@ def forward(params, buffers, cfg: ModelConfig, batch):
                                                                device=x.device)
     freqs = L.rope_freqs(cfg, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = functools.partial(_block_train, group=group)
     for lp in _unstack(params["blocks"], cfg.n_layers):
-        x, aux = _maybe_checkpoint(remat, _block_train, lp, cfg, x, positions, freqs)
+        x, aux = _maybe_checkpoint(remat, block, lp, cfg, x, positions, freqs)
         if aux is not None:
             aux_total = aux_total + aux
     x = L.apply_norm(params["ln_f"], x)
     if patches:
         x = x[:, -tokens.shape[1]:]
-    return logits_fn(params, buffers, cfg, x), aux_total
+    return logits_fn(params, buffers, cfg, x, group), aux_total
 
 
 _XLSTM_STATE = {"m": ("C", "n", "m"), "s": ("s_c", "s_n", "s_h", "s_m")}  # cache keys a block
@@ -426,37 +650,50 @@ def _xlstm_train_forward(blocks, cfg: ModelConfig, x):
     return x
 
 
-def next_token_loss(params, buffers, cfg: ModelConfig, batch):
+def next_token_loss(params, buffers, cfg: ModelConfig, batch, *, group=None,
+                    global_batch=None):
     """Causal LM loss with next-token targets: the mean over (B, S - 1),
     and the codebooks of the audio family, of the float32 ``logsumexp`` of
     the logits minus the target's logit, plus 0.01 x the auxiliary loss.
     The target's logit is gathered, where the JAX package sums a one-hot
     product over the vocabulary: the same number, since x·1 plus zeros is
-    exact.  Returns (loss, {"ce", "aux"})."""
-    logits, aux = forward(params, buffers, cfg, batch)
+    exact.  Returns (loss, {"ce", "aux"}).  ``group``: ``forward``'s model
+    group.  ``global_batch``: the sequences of the whole (data-parallel)
+    batch, of which this rank holds B; the loss is then this rank's term of
+    the global mean, its local mean times B / global_batch (the data
+    ranks' terms sum to it; with B == global_batch the factor is left out
+    and the loss is the unsharded one bit for bit)."""
+    logits, aux = forward(params, buffers, cfg, batch, group=group)
     lg = logits[:, :-1].to(torch.float32)
     tg = batch["tokens"][:, 1:].to(torch.int64)
     logz = torch.logsumexp(lg, dim=-1)
     picked = torch.gather(lg, -1, tg[..., None])[..., 0]
     ce = (logz - picked).mean()
-    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+    loss = ce + 0.01 * aux
+    B = batch["tokens"].shape[0]
+    if global_batch is not None and global_batch != B:
+        loss = loss * (B / global_batch)
+    return loss, {"ce": ce, "aux": aux}
 
 
 # --- decode --------------------------------------------------------------------
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda", group=None):
     """Decode cache of zeros: "k", "v" (L, batch, S, KVH, D) in
     ``cfg.dtype``, S = max_seq, or min(max_seq, window), a ring, under a
     sliding window; the hybrid family adds "ssm" (L, batch, di, ds) and
     "conv" (L, batch, K-1, di), both float32.  The xlstm family's cache is
-    its recurrent state (``_init_xlstm_cache``), whatever ``max_seq``."""
-    _check(cfg)
+    its recurrent state (``_init_xlstm_cache``), whatever ``max_seq``.
+    Under ``group`` the KV heads this rank holds (``cache_specs``)."""
+    _check(cfg, group)
     if cfg.family == "xlstm":
         return _init_xlstm_cache(cfg, batch, device)
     S = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
     Lc = cfg.n_layers
-    shape = (Lc, batch, S, cfg.n_kv_heads, cfg.head_dim)
+    M = group_size(group)
+    kvh = cfg.n_kv_heads // M if L.kv_heads_split(cfg, M) else cfg.n_kv_heads
+    shape = (Lc, batch, S, kvh, cfg.head_dim)
     cache = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
              "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
     if cfg.family == "hybrid":
@@ -494,15 +731,16 @@ def cache_batch_axis(cfg: ModelConfig):
     return base
 
 
-def decode_step(params, buffers, cfg: ModelConfig, tokens, pos, cache):
+def decode_step(params, buffers, cfg: ModelConfig, tokens, pos, cache, *, group=None):
     """One-token decode.  tokens (B,), or (B, n_codebooks) for the audio
     family, pos (B,) integer positions; the token's k/v go into ``cache``
     in place at ``pos`` (its ring slot under a sliding window), and the
     hybrid family's SSM and conv states move on by one token in place, as
     do the xlstm family's recurrent states (which ignore ``pos``).
-    Returns (logits (B, vocab) or (B, n_codebooks, vocab), cache)."""
-    _check(cfg)
-    x = _add_positions(cfg, embed(params, buffers, cfg, tokens[:, None]), pos[:, None])
+    Returns (logits (B, vocab) or (B, n_codebooks, vocab), cache).  Under
+    ``group`` this rank's heads and cache; every rank returns the logits."""
+    _check(cfg, group)
+    x = _add_positions(cfg, embed(params, buffers, cfg, tokens[:, None], group), pos[:, None])
     if cfg.family == "xlstm":
         x = L.apply_norm(params["ln_f"], _xlstm_decode(params["blocks"], cfg, x, cache))
         return logits_fn(params, buffers, cfg, x[:, 0]), cache
@@ -511,9 +749,9 @@ def decode_step(params, buffers, cfg: ModelConfig, tokens, pos, cache):
     for i in range(cfg.n_layers):
         lc = {key: c[i] for key, c in cache.items()}
         x, _ = _block_train(layer_params(params["blocks"], i), cfg, x, pos, freqs,
-                            decode_cache=lc)
+                            decode_cache=lc, group=group)
     x = L.apply_norm(params["ln_f"], x)
-    return logits_fn(params, buffers, cfg, x[:, 0]), cache
+    return logits_fn(params, buffers, cfg, x[:, 0], group), cache
 
 
 def _xlstm_decode(blocks, cfg: ModelConfig, x, cache):
@@ -532,7 +770,7 @@ def _xlstm_decode(blocks, cfg: ModelConfig, x, cache):
     return x
 
 
-def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None):
+def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None, group=None):
     """Process a full prompt, tokens (B, S) or (B, S, n_codebooks): write
     its k/v into ``cache[:, :, :S]`` in place and return (logits of one
     position (B, vocab) or (B, n_codebooks, vocab), cache).  Under a
@@ -550,10 +788,12 @@ def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None):
     state pad: ring and recurrent caches would take the pads in).  The vlm
     family prefills text only, as in the JAX package.  The xlstm family
     runs its chunkwise and sequential forms and writes every block's
-    terminal state into ``cache``, every leaf of the slice whole."""
-    _check(cfg)
+    terminal state into ``cache``, every leaf of the slice whole.  Under
+    ``group`` (the dense family) each rank runs the flash kernel on its
+    heads, writes the KV heads it holds and returns the logits."""
+    _check(cfg, group)
     B, S = tokens.shape[0], tokens.shape[1]
-    x = embed(params, buffers, cfg, tokens)
+    x = embed(params, buffers, cfg, tokens, group)
     last = S - 1 if last_idx is None else int(last_idx)
     if cfg.family == "xlstm":
         x = _xlstm_forward(params["blocks"], cfg, x, cache=cache)
@@ -561,13 +801,11 @@ def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None):
     positions = torch.arange(S, device=x.device).expand(B, S)
     x = _add_positions(cfg, x, positions)
     freqs = L.rope_freqs(cfg, device=x.device)
+    rank, M = rank_and_size(group)
     for i in range(cfg.n_layers):
         lp = layer_params(params["blocks"], i)
         h = L.apply_norm(lp["ln1"], x)
-        q, k, v = L._project_qkv(lp["attn"], cfg, h)
-        if cfg.pos_emb == "rope":
-            q = L.apply_rope(q, positions, freqs)
-            k = L.apply_rope(k, positions, freqs)
+        attn, k, v = prefill_attention_share(lp, cfg, h, positions, freqs, rank, M, group)
         Sc = cache["k"].shape[2]
         if cfg.sliding_window and Sc < S:
             # keep only the last window of k/v in the ring buffer
@@ -577,28 +815,18 @@ def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None):
         else:
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
-        if not cfg.sliding_window or S <= cfg.sliding_window:
-            attn = kops.flash_attention(q, k, v, causal=True)
-        else:
-            attn = L._sdpa(cfg, q, k, v, L.causal_mask(S, S, cfg.sliding_window,
-                                                       device=x.device))
-        attn = attn.reshape(B, S, cfg.q_dim) @ lp["attn"]["wo"].to(x.dtype)
         if cfg.family == "hybrid":
             s, (st, cv) = ssm_lib.ssm_train(lp["ssm"], cfg, h, return_state=True)
             cache["ssm"][i] = st
             cache["conv"][i] = cv
             x = _hybrid_out(lp, cfg, x, attn, s)
-            continue
-        if cfg.parallel_block:
-            x = x + attn + L.apply_mlp(lp["mlp"], cfg, h)
-            continue
-        x = x + attn
-        if cfg.family == "moe":
+        elif cfg.family == "moe":
+            x = x + attn
             # the JAX package's prefill takes the einsum route under "sort_sm"
             route = moe_lib.apply_moe_sort if cfg.moe_impl == "sort" else moe_lib.apply_moe
             x = x + route(lp["moe"], cfg, L.apply_norm(lp["ln2"], x),
                           group_size=cfg.moe_group)[0]
-        elif cfg.d_ff:
-            x = x + L.apply_mlp(lp["mlp"], cfg, L.apply_norm(lp["ln2"], x))
+        else:
+            x = _dense_out(lp, cfg, x, attn, h, group)
     x = L.apply_norm(params["ln_f"], x[:, last])
-    return logits_fn(params, buffers, cfg, x), cache
+    return logits_fn(params, buffers, cfg, x, group), cache

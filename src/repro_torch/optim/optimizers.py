@@ -8,6 +8,12 @@ and returns the same trees, so a step allocates no second copy of the
 state.  ``torch.optim`` is not used: the clustering transition remaps the
 moment tree (``optim/remap.py``), which needs the moments as a tree that
 mirrors params.
+
+ZeRO-1: ``zero1_specs`` extends a param spec tree (``shard.Spec`` leaves)
+so that the optimizer moments also split over the data axis wherever a
+dim divides; ``zero1(optimizer, moment_specs, group)`` makes the update of
+that layout: each data rank updates its slice of the moments and of the
+params, then the params' slices are gathered over the data group.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.shard import Spec, all_gather_cat, rank_and_size, spec_dim
 from repro_torch.tree import tree_leaves, tree_map
 
 Pytree = Any
@@ -113,3 +120,70 @@ def cosine_schedule(base_lr: float, warmup: int, total: int, min_frac: float = 0
         return torch.where(step < warmup, warm, cos)
 
     return lr
+
+
+def zero1_specs(param_specs: Pytree, params_shape: Pytree, dp_size: int = 0) -> Pytree:
+    """The moments' specs: each param spec with the data axis added on the
+    largest dim that no axis splits yet and ``dp_size`` divides (the
+    first such dim on a tie), as the JAX package's ``zero1_specs`` picks
+    it; unchanged where none divides, where the data axis is already used
+    or for ``dp_size`` 0.  ``params_shape``: the whole params (tensors,
+    meta tensors or anything with ``.shape``)."""
+
+    def extend(spec, leaf):
+        if spec.data is not None or not dp_size:
+            return spec
+        best, best_dim = -1, None
+        for i, n in enumerate(leaf.shape):
+            if i != spec.model and n % dp_size == 0 and n > best:
+                best, best_dim = n, i
+        return Spec(model=spec.model, data=best_dim)
+
+    return tree_map(extend, param_specs, params_shape)
+
+
+def moment_specs(opt_name: str, param_specs: Pytree, params_shape: Pytree,
+                 dp_size: int = 0) -> Pytree:
+    """The spec tree of the optimizer state: "sgd" {}, "sgdm" {"m"},
+    "adamw" {"m", "v", "t"}, the moments under ``zero1_specs``."""
+    z = zero1_specs(param_specs, params_shape, dp_size)
+    if opt_name == "sgd":
+        return {}
+    if opt_name == "sgdm":
+        return {"m": z}
+    return {"m": z, "v": z, "t": Spec()}
+
+
+def zero1(optimizer: Optimizer, moment_specs: Pytree, group) -> Optimizer:
+    """``optimizer`` over moments split by ``moment_specs``' data dims
+    (its "m" tree) across the data ``group``: ``update`` takes whole
+    params and gradients (the gradients already summed over the group)
+    and this rank's moment slices, updates the matching slices of the
+    params in place, then gathers every split param over the group.  With
+    a group of one (or none) each slice is the whole leaf and the update is
+    ``optimizer``'s bit for bit.  ``init`` is left to the caller: the
+    moments come from slicing a whole state (``shard.shard_tree``)."""
+    rank, n = rank_and_size(group)
+    dims = moment_specs["m"]
+
+    def view(x, spec):
+        d = spec_dim(spec, "data")
+        if d is None or n == 1:
+            return x
+        size = x.shape[d] // n
+        return x.narrow(d, rank * size, size)
+
+    @torch.no_grad()
+    def update(grads, state, params, lr):
+        pv = tree_map(view, params, dims)
+        _, new_state = optimizer.update(tree_map(view, grads, dims), state, pv, lr)
+        if n > 1:
+            def gather(p, v, spec):
+                d = spec_dim(spec, "data")
+                if d is not None:
+                    p.copy_(all_gather_cat(v, d, group))
+
+            tree_map(gather, params, pv, dims)
+        return params, new_state
+
+    return Optimizer(optimizer.init, update)

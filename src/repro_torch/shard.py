@@ -1,26 +1,38 @@
-"""Rank slices of a model-parallel state and the collectives that move them.
+"""Rank slices of a sharded state and the collectives that move them.
 
 A sharded state is a tree whose every leaf has a spec, in a tree of the
-same structure (``launch.steps.dlrm_state_specs``): the dim the leaf splits
-over the model group's M ranks, or None for a leaf every rank holds whole.
-Every split is even (the supertable's ``k_pad`` is a multiple of M, the
-pointer tables split only a dim M divides), so rank r holds the r-th of M
-equal slices.
+same structure (``launch.steps.dlrm_state_specs``, ``models.lm.param_specs``,
+``optim.optimizers.zero1_specs``): a ``Spec``, which names the dim the leaf
+splits over each axis of the (data, model) mesh (``launch.mesh.Mesh``),
+the counterpart of a JAX ``PartitionSpec``.  ``Spec()`` is a leaf every
+rank holds whole.  An int (or None) in place of a ``Spec`` is a model dim
+alone.  Every split is even (the supertable's ``k_pad`` is a multiple of M,
+the pointer tables split only a dim M divides, the LM's head and ff axes
+divide by M), so rank r of an axis of size n holds the r-th of n equal
+slices; a leaf split over both axes is cut by its model rank first.
 
-* ``shard_tree(tree, specs, rank, M)`` cuts rank r's slices out of a whole
-  tree: a 1-device state, a checkpoint's host tree or the JAX package's
-  arrays (numpy leaves stay numpy).
-* ``gather_tree(tree, specs, group, dst=None)`` puts the slices back
-  together, on every rank, or on ``dst`` alone (None elsewhere).
+* ``shard_tree(tree, specs, rank, n, axis="model")`` cuts rank r's slices
+  along ``axis`` out of a whole tree: a 1-device state, a checkpoint's host
+  tree or the JAX package's arrays (numpy leaves stay numpy).
+* ``gather_tree(tree, specs, group, dst=None, axis="model")`` puts the
+  slices back together, on every rank, or on ``dst`` alone (None elsewhere).
 * ``all_to_all`` is the differentiable all-to-all of the routed lookup;
   ``all_reduce_`` and ``all_gather_cat`` are the sums and gathers the
   step and the transition write by hand where GSPMD inserted them in JAX.
   Code that runs with or without a group (the transition) passes
   ``group=None`` for none: ``all_reduce_`` then returns its input, and
   ``rank_and_size`` gives (0, 1).
+* ``copy_to_group`` and ``reduce_from_group`` are the conjugate pair of a
+  tensor-parallel region (Megatron's f and g): the first is the identity
+  forward and sums its gradient over the group, the second sums its
+  input over the group and passes its gradient on unchanged.
+  ``gather_last`` concatenates the ranks' slices along the last dim and
+  hands each rank its slice of the gradient.  Without a group, or over a
+  group of one, all three are the identity.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -30,6 +42,24 @@ import torch.distributed as dist
 from repro_torch.tree import tree_map
 
 Pytree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """The dims a leaf splits over the mesh's axes: ``model`` and ``data``
+    (None: held whole over that axis).  A leaf of the tree maps, not a
+    node: ``tree_map`` passes it whole."""
+
+    model: int | None = None
+    data: int | None = None
+
+
+def spec_dim(spec, axis: str = "model") -> int | None:
+    """The dim ``spec`` splits over ``axis``: a ``Spec``'s, or an int (a
+    model dim alone)."""
+    if isinstance(spec, Spec):
+        return getattr(spec, axis)
+    return spec if axis == "model" else None
 
 
 def shard_leaf(x, dim: int | None, rank: int, n_shards: int):
@@ -48,9 +78,11 @@ def shard_leaf(x, dim: int | None, rank: int, n_shards: int):
     return np.ascontiguousarray(np.asarray(x)[tuple(sl)])
 
 
-def shard_tree(tree: Pytree, specs: Pytree, rank: int, n_shards: int) -> Pytree:
-    """Rank ``rank``'s part of a whole ``tree`` under ``specs``."""
-    return tree_map(lambda x, d: shard_leaf(x, d, rank, n_shards), tree, specs)
+def shard_tree(tree: Pytree, specs: Pytree, rank: int, n_shards: int,
+               axis: str = "model") -> Pytree:
+    """Rank ``rank``'s part along ``axis`` of a whole ``tree`` under
+    ``specs``."""
+    return tree_map(lambda x, s: shard_leaf(x, spec_dim(s, axis), rank, n_shards), tree, specs)
 
 
 def all_gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -72,14 +104,16 @@ def gather_cat(x: torch.Tensor, dim: int, group, dst: int = 0) -> torch.Tensor |
     return torch.cat(parts, dim=dim) if rank == dst else None
 
 
-def gather_tree(tree: Pytree, specs: Pytree, group, dst: int | None = None) -> Pytree:
-    """The whole tree from every rank's slices: on every rank when ``dst``
-    is None, else on group rank ``dst`` (the other ranks get None at every
-    split leaf and their own whole leaves)."""
+def gather_tree(tree: Pytree, specs: Pytree, group, dst: int | None = None,
+                axis: str = "model") -> Pytree:
+    """The whole tree along ``axis`` from the slices of ``group``'s ranks:
+    on every rank when ``dst`` is None, else on group rank ``dst`` (the
+    other ranks get None at every split leaf and their own whole leaves)."""
     if dist.get_world_size(group) == 1:
         return tree
 
-    def leaf(x, d):
+    def leaf(x, s):
+        d = spec_dim(s, axis)
         if d is None or not isinstance(x, torch.Tensor):
             return x
         return all_gather_cat(x, d, group) if dst is None else gather_cat(x, d, group, dst)
@@ -92,6 +126,11 @@ def rank_and_size(group) -> tuple[int, int]:
     if group is None:
         return 0, 1
     return dist.get_rank(group), dist.get_world_size(group)
+
+
+def group_size(group) -> int:
+    """The size of ``group``; 1 for no group."""
+    return 1 if group is None else dist.get_world_size(group)
 
 
 def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
@@ -130,3 +169,74 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     if x.requires_grad:
         return _AllToAll.apply(x, group)
     return _a2a(x, group)
+
+
+# --- the tensor-parallel region (models/lm.py over a model group) ------------
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the gradient summed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """The input summed over the group; the gradient passed on."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherLast(torch.autograd.Function):
+    """The ranks' slices concatenated along the last dim in rank order;
+    the gradient's slice of this rank."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.n = group, x.shape[-1]
+        return all_gather_cat(x, x.dim() - 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g[..., r * ctx.n:(r + 1) * ctx.n], None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Enter a tensor-parallel region: ``x`` forward, its gradient summed
+    over ``group`` backward (each rank's part of the region adds its share)."""
+    if group_size(group) == 1:
+        return x
+    return _CopyToGroup.apply(x, group) if torch.is_grad_enabled() else x
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Leave a tensor-parallel region: the ranks' partial sums ``x`` added
+    over ``group``; the gradient reaches every rank whole."""
+    if group_size(group) == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceFromGroup.apply(x, group)
+    return all_reduce_(x.clone(memory_format=torch.contiguous_format), group)
+
+
+def gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``x`` (equal shapes) concatenated along the last dim in
+    rank order; backward, each rank keeps its slice of the gradient."""
+    if group_size(group) == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherLast.apply(x, group)
+    return all_gather_cat(x, x.dim() - 1, group)

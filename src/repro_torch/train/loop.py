@@ -24,13 +24,15 @@ JAX package's layout: the python-int hash coefficients of the
 non-transitioning tables are None there (``tree.drop_static``) and come
 back from the live state on restore.
 
-The model-parallel trainer (``Trainer(state_shardings=specs, group=)``,
-built by ``launch.train.build_dlrm_sharded_trainer``) holds this rank's
-shard of the state (``launch.steps.dlrm_state_specs``) and its slice of
-each batch; its step carries a ``GradSync`` (``make_train_step(sync=)``).
-Checkpoints stay in the whole (1-device) layout: the shards are gathered
-to rank 0, which writes; on restore every rank reads the whole tree and
-keeps its slice (``checkpoint.reshard_restore``).
+The model-parallel trainer (``Trainer(state_shardings=specs, mesh=)``,
+built by ``launch.train.build_dlrm_sharded_trainer`` on a (data, model)
+``launch.mesh.Mesh``) holds this rank's shard of the state
+(``launch.steps.dlrm_state_specs``), replicated over the data group, and
+its slice of each batch; its step carries a ``GradSync``
+(``make_train_step(sync=)``).  Checkpoints stay in the whole (1-device)
+layout: data replica 0's shards are gathered to its model rank 0, which
+writes; on restore every rank reads the whole tree and keeps its slice
+(``checkpoint.reshard_restore``).
 """
 from __future__ import annotations
 
@@ -301,11 +303,13 @@ class Trainer:
     ``migrations`` are (to_old, to_new) pairs for checkpoints of older
     layouts (``dlrm.checkpoint_migrations``), tried after the current
     layout.  ``state_shardings`` (``launch.steps.dlrm_state_specs``) and
-    ``group`` make it the model-parallel trainer: the state is this rank's
-    shard, ``cluster_fn`` runs the sharded transition, checkpoints are
-    gathered to group rank 0 (which alone writes) and restored whole on
-    every rank, which keeps its slice; a ``translator`` is updated with
-    the whole pointer tables, gathered to every rank's host.
+    ``mesh`` (``launch.mesh.Mesh``) make it the model-parallel trainer:
+    the state is this rank's shard over the model group (a replica over
+    the data group), ``cluster_fn`` runs the sharded transition,
+    checkpoints are gathered from data replica 0 to its model rank 0
+    (which alone writes) and restored whole on every rank, which keeps its
+    slice; a ``translator`` is updated with the whole pointer tables,
+    gathered to every rank's host.
     ``host_keys`` name batch entries that only the host reads (the
     tracker's ids): they are never copied to the device."""
 
@@ -329,7 +333,7 @@ class Trainer:
         seed: int = 0,
         migrations=(),
         state_shardings=None,
-        group=None,
+        mesh=None,
         host_keys: tuple[str, ...] = (),
         runlog=None,
         profile_steps: tuple[int, int] | None = None,
@@ -375,10 +379,11 @@ class Trainer:
         self.migrations = tuple(migrations) + (
             tuple(tracker_migrations()) if tracker_migrations else ())
         self.specs = state_shardings
-        self.group = group
+        self.mesh = mesh
+        self.group = None if mesh is None else mesh.model
         self.host_keys = frozenset(host_keys)
-        if (state_shardings is None) != (group is None):
-            raise ValueError("state_shardings and group go together")
+        if (state_shardings is None) != (mesh is None):
+            raise ValueError("state_shardings and mesh go together")
         self.runlog = runlog
         self.pump = MetricsPump(
             lag=PUMP_LAG, maxlen=HISTORY_MAX,
@@ -538,6 +543,8 @@ class Trainer:
         if self.specs is not None:
             from repro_torch.shard import gather_tree
 
+            if self.mesh.coords[0] != 0:
+                return None  # a replica of data replica 0's state
             state = gather_tree(state, self.specs, self.group, dst=0)
             if dist.get_rank(self.group) != 0:
                 return None
@@ -557,9 +564,12 @@ class Trainer:
         shape (a restore fills it; nothing is gathered)."""
         state = self.state
         if self.specs is not None:
+            from repro_torch.shard import spec_dim
+
             M = dist.get_world_size(self.group)
 
-            def whole(x, d):
+            def whole(x, s):
+                d = spec_dim(s)
                 if d is None or not isinstance(x, torch.Tensor):
                     return x
                 shape = list(x.shape)
@@ -619,8 +629,8 @@ class Trainer:
 
     def restore_latest(self):
         self.ckpt.wait()  # an async save may still be in flight post-crash
-        if self.group is not None:  # rank 0's save has committed
-            dist.barrier(group=self.group)
+        if self.mesh is not None:  # rank 0's save has committed
+            dist.barrier(group=self.mesh.world)
         templates = self._restore_templates()
         candidates = [(t, None) for t in templates]
         # legacy layouts: each migration's to_old derives an old-layout

@@ -23,7 +23,9 @@ def test_every_port_module_imports_without_jax():
     for lm_slice in ("repro_torch.models.lm", "repro_torch.models.layers",
                      "repro_torch.models.config", "repro_torch.configs",
                      "repro_torch.kernels.flash_attention", "repro_torch.serve.engine",
-                     "repro_torch.launch.serve"):
+                     "repro_torch.launch.serve", "repro_torch.launch.mesh",
+                     "repro_torch.launch.shapes", "repro_torch.launch.steps",
+                     "repro_torch.configs.command_r_35b", "repro_torch.shard"):
         assert lm_slice in mods
     code = (
         "import importlib, sys\n"

@@ -226,15 +226,17 @@ def test_main_trains_musicgen_under_cce_and_clusters_twice_on_cpu(capsys):
     assert "musicgen-medium on cpu: step 4" in capsys.readouterr().out
 
 
-def test_unported_arch_raises_and_names_its_family():
-    with pytest.raises(NotImplementedError, match="dense family"):
-        tlaunch.main(["--arch", "command-r-35b", "--device", "cpu"])
+def test_unported_arch_raises_and_names_its_family(monkeypatch):
+    """Every configuration of the JAX package is ported (``UNPORTED`` is
+    empty): the launcher trains reduced command-r-35b, the last one ported;
+    a name put in ``UNPORTED`` raises with its family."""
     assert set(tconfigs.ARCHS) | set(tconfigs.UNPORTED) == set(jconfigs.ARCHS)
-    assert not set(tconfigs.ARCHS) & set(tconfigs.UNPORTED)
-    for name, family in tconfigs.UNPORTED.items():
-        assert jconfigs.get(name).family == family
-        with pytest.raises(NotImplementedError, match=family):
-            tconfigs.get_reduced(name)
+    assert not set(tconfigs.ARCHS) & set(tconfigs.UNPORTED) and not tconfigs.UNPORTED
+    tr = tlaunch.main(["--arch", "command-r-35b", "--device", "cpu", "--steps", "2"])
+    assert tr.state.step == 2 and all(np.isfinite(h["loss"]) for h in tr.history)
+    monkeypatch.setitem(tconfigs.UNPORTED, "command-r-35b", "dense")
+    with pytest.raises(NotImplementedError, match="dense family"):
+        tconfigs.get_reduced("command-r-35b")
 
 
 def test_launcher_defaults_match_jax(monkeypatch):

@@ -16,8 +16,10 @@ unpadded, up to JAX's 256-token limit) at one and three slots, the tokens
 and each prefill's logits.  On reduced phi3.5-moe-42b-a6.6b (the moe
 family: 4 experts, top-2, capacity 1.25; prompts padded into buckets,
 the pads routed and taking expert capacity as in JAX) at two slot
-counts, the tokens and each prefill's logits.  Also drives the port's
-serve launcher on the CPU, dense, hybrid, xlstm, vlm and moe."""
+counts, the tokens and each prefill's logits.  On reduced command-r-35b
+(dense: a parallel block, layernorm, CCE table and head; prompts padded
+into buckets) the same.  Also drives the port's serve launcher on the
+CPU, dense (qwen2-1.5b, command-r-35b), hybrid, xlstm, vlm and moe."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -82,6 +84,14 @@ def phi_moe():
     params, buffers = jax.jit(jlm.init, static_argnums=1)(jax.random.PRNGKey(4), jcfg)
     tp, tb = convert.lm_to_torch(*jax.tree.map(np.asarray, (params, buffers)), "cpu")
     return (jcfg, params, buffers), (tconfigs.get_reduced("phi3.5-moe-42b-a6.6b"), tp, tb)
+
+
+@pytest.fixture(scope="module")
+def command_r():
+    jcfg = jconfigs.get_reduced("command-r-35b")
+    params, buffers = jax.jit(jlm.init, static_argnums=1)(jax.random.PRNGKey(5), jcfg)
+    tp, tb = convert.lm_to_torch(*jax.tree.map(np.asarray, (params, buffers)), "cpu")
+    return (jcfg, params, buffers), (tconfigs.get_reduced("command-r-35b"), tp, tb)
 
 
 def _serve(engine_cls, request_cls, state, requests, **kw):
@@ -215,6 +225,23 @@ def test_moe_engine_tokens_and_prefill_logits_match_jax(phi_moe, max_batch):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("max_batch", [2, 3])
+def test_command_r_engine_tokens_and_prefill_logits_match_jax(command_r, max_batch):
+    """Five requests of 3..13 prompt tokens over fewer slots, each padded
+    into its power-of-two bucket on both sides: each prefill's logits
+    within rtol 1e-4 / atol 1e-5 of JAX's, and the same tokens."""
+    jstate, tstate = command_r
+    rng = np.random.default_rng(8)
+    reqs = [(i, rng.integers(0, 257, s).astype(np.int32), 5, None)
+            for i, s in enumerate((3, 13, 8, 5, 9))]
+    (want, jcalls), (got, tcalls) = _tokens_and_prefill_logits(jstate, tstate, reqs, max_batch,
+                                                                32)
+    assert got == want
+    assert [n for n, _ in tcalls] == [n for n, _ in jcalls] == [4, 16, 8, 8, 16]
+    for (_, a), (_, b) in zip(tcalls, jcalls):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
 def test_eos_matches_jax(model):
     jstate, tstate = model
     prompt = np.asarray([5, 17, 3], np.int32)
@@ -241,7 +268,7 @@ def test_prefill_count_latency_histogram_and_run_log(model, tmp_path):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "hymba-1.5b", "paligemma-3b", "xlstm-1.3b",
-                                  "phi3.5-moe-42b-a6.6b"])
+                                  "phi3.5-moe-42b-a6.6b", "command-r-35b"])
 def test_launch_serve_runs_on_the_cpu(capsys, arch):
     done = tserve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
                         "--max-tokens", "3"])

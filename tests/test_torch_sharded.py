@@ -76,6 +76,14 @@ def _group(rank, M, store):
     return init_model_group("cpu", world_size=M, rank=rank, store=dist.FileStore(store, M))
 
 
+def _mesh(M):
+    """The (1, M) mesh over the world ``_group`` joined: its model group is
+    the world."""
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh(1, M)
+
+
 def _cfg():
     from repro_torch.configs import dlrm_criteo
 
@@ -183,6 +191,7 @@ def _rank_main(rank, M, store, out, seeds):
     from repro_torch.tree import tree_leaves, tree_map
 
     group = _group(rank, M, store)
+    mesh = _mesh(M)
     own_kmeans_pp = tkm.kmeans_plus_plus
     res = {}
     cfg = _cfg()
@@ -269,7 +278,7 @@ def _rank_main(rank, M, store, out, seeds):
     res["cluster_hs"], res["cluster_epoch"] = cb["hs"].numpy(), cb["epoch"].numpy()
 
     # the first sharded step, and (one rank) the sharded transition
-    step, _ = build_dlrm_train_step(cfg, group, specs, batch_size=B, optimizer=opt,
+    step, _ = build_dlrm_train_step(cfg, mesh, specs, batch_size=B, optimizer=opt,
                                     lr_fn=lambda s: 0.05)
     mb = {"dense": torch.from_numpy(raw["dense"][mine])[None],
           "label": torch.from_numpy(raw["label"][mine])[None], "rows": rows_b[None]}
@@ -279,7 +288,7 @@ def _rank_main(rank, M, store, out, seeds):
         pre, st.ebuf, tree_map(lambda v: v[0], mb))
     from repro_torch.launch.steps import GradSync
 
-    GradSync(specs.params, group).grads(grads)
+    GradSync(specs.params, mesh).grads(grads)
     gathered = gather_tree(grads, specs.params, group)
     res["grad_leaves"] = np.array([len(tree_leaves(gathered))])
     for i, leaf in enumerate(tree_leaves(gathered)):
@@ -321,7 +330,7 @@ def _rank_main(rank, M, store, out, seeds):
             res[f"transition_{i}"] = leaf.numpy()
         from repro_torch.launch.train import build_dlrm_sharded_trainer
 
-        tr = build_dlrm_sharded_trainer(cfg, _trainer_args(), group=group)
+        tr = build_dlrm_sharded_trainer(cfg, _trainer_args(), mesh=mesh)
         tr.run(TRAINER_STEPS)
         res["trainer_losses"] = np.array([h["loss"] for h in tr.history])
         for i, leaf in enumerate(tree_leaves((tr.state.params, tr.state.opt, tr.state.ebuf))):

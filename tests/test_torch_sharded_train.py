@@ -21,7 +21,8 @@ nothing of JAX at its top, so the ranks, which import it, do not load it.
   port's ``to_old`` equals JAX's on the same state, and a checkpoint
   written in the old layout by the JAX package restores bit for bit.
 * ``ptr_partition_spec``'s policy, and the launcher's refusals:
-  ``--data-shards 2``, and ``--model-shards 2`` on ``cuda`` with one card.
+  ``--data-shards 2`` in a world of one process, and ``--model-shards 2``
+  on ``cuda`` with one card.
 """
 import argparse
 import os
@@ -93,13 +94,15 @@ def _rank_main(rank, store, out, ckpt_dir, cases):
     and whole state); then each of ``cases`` (checkpoint dir, step,
     per-feature leaves, id counts) restores into a fresh 4-rank trainer bit
     for bit, as a shard, and trains on."""
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.train import build_dlrm_sharded_trainer
     from repro_torch.shard import gather_tree
 
     group = _group(rank, store)
+    mesh = Mesh(1, M)
     cfg = _cfg(M)
     tr = build_dlrm_sharded_trainer(cfg, _args(ckpt_dir, ckpt_every=STEPS, cluster_every=3),
-                                    group=group)
+                                    mesh=mesh)
     tr.run(STEPS)
     assert tr.clusters_done == 2, tr.clusters_done
     losses = [h["loss"] for h in tr.history]
@@ -112,7 +115,7 @@ def _rank_main(rank, store, out, ckpt_dir, cases):
         np.savez(os.path.join(out, "train.npz"), losses=np.array(losses),
                  *_per_feature(cfg, whole))
     for ckpt, step, want, counts in cases:
-        tr = build_dlrm_sharded_trainer(cfg, _args(ckpt, seed=SEED + 7), group=group)
+        tr = build_dlrm_sharded_trainer(cfg, _args(ckpt, seed=SEED + 7), mesh=mesh)
         assert tr.restore_latest() == step
         assert _shard_bytes_ok(tr)
         _assert_same(_per_feature(cfg, gather_tree(tr.state, tr.specs, group)), want)
@@ -278,17 +281,19 @@ def test_ptr_partition_spec_policy(c, d1, n, want):
 
 
 @pytest.mark.parametrize("argv, err", [
-    (["--data-shards", "2", "--device", "cpu"], NotImplementedError),
+    (["--data-shards", "2", "--device", "cpu"], ValueError),
     (["--model-shards", "2", "--device", "cuda"], RuntimeError)])
 def test_launcher_refusals(argv, err, monkeypatch):
-    """``--data-shards 2`` names ROADMAP; two model shards on a machine with
-    one card refuse before any process group (no fallback to gloo)."""
+    """``--data-shards 2`` runs as 2 processes, and a world of one refuses
+    it; two model shards on a machine with one card refuse before any
+    process group (no fallback to gloo)."""
     from repro_torch.launch import train as tlaunch
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     monkeypatch.setattr(dist, "init_process_group",
                         lambda *a, **k: pytest.fail("a group was made"))
-    with pytest.raises(err, match="ROADMAP" if err is NotImplementedError else "CUDA devices"):
+    with pytest.raises(err, match="the world has 1" if err is ValueError else "CUDA devices"):
         tlaunch.main(argv)
 
 
