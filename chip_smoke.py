@@ -208,6 +208,14 @@ MESH_TRAIN_LAYERS = 2  # (c): build_train_step's cut, float32
 MESH_TRAIN_SEQ = 1024  # (c): one micro-batch of 2 x 1024 tokens
 MESH_TRAIN_BATCH = 2
 MESH_TRAIN_STEPS = 2  # the schedule's first lr is 0: the second step moves the params
+# (e)-(g): the vlm, audio and moe families on the mesh, at full width
+MESH_FAMILIES = ("paligemma-3b", "musicgen-medium", "phi3.5-moe-42b-a6.6b")
+# (e): their depth, full but for phi3.5-moe's 2 of 32 layers (10.4 GB of float32)
+MESH_FAMILY_LAYERS = {"phi3.5-moe-42b-a6.6b": 2}
+MESH_FAMILY_TICKS = 8  # (e): batched decode ticks after MESH_PROMPT_LENS' prefills
+MESH_EP_RANKS = 4  # (f): phi3.5-moe's data ranks emulated, 4 of its 16 experts each
+MESH_EP_ROWS = 4  # (f): rows of the MoE layer's input, each one moe_group of 2048 tokens
+MESH_MOE_TRAIN_LAYERS = 2  # (g): phi3.5-moe's cut, float32: ~42 GB of state and gradients
 LOOKUP_BATCHES = (1, 7, SERVE_BATCH, TRAIN_BATCH, 4096)
 BWD_BATCHES = (256, TRAIN_BATCH, 4096)
 LM_DSUB = 384  # the LM token table's sub-row width (qwen2-1.5b: d 1536 over c=4)
@@ -345,7 +353,10 @@ LM_CUT_STEPS = 4  # the cut's runs: 4 steps, a transition, 2 steps
 # microbatch; a step is ~20 s of host (the sLSTM's loops over 6 x 4096
 # steps), so few steps: the first traced (the step's busy and top kernels),
 # the one after the transition timed.  Cut to 3 of its 6 superblocks (24 of 48
-# blocks, each at full width) for the script's time since the mesh phase
+# blocks, each at full width) for the script's time since the mesh phase.  The
+# init draws every mLSTM block before the sLSTM blocks, so this depth also picks
+# the 2-block cut's weights: at 16 blocks its bfloat16 check fails (the mLSTM's
+# bf at 1.63 x the CPU's own error; tools/probe_bf16_grads.py --layers 16)
 XLSTM_TRAIN_LAYERS = 24
 XLSTM_TRAIN_BATCH = 2
 XLSTM_TRAIN_STEPS = 1  # then the token table's transition
@@ -3729,12 +3740,12 @@ def moe_busy(cfg, params, buffers, toks, device="cuda") -> dict:
             return torch.einsum("gtec,gtd->gecd", (w > 0).to(hin.dtype), xg)
 
         expert_in = dispatch()
-        expert_out = moe_lib._grouped_experts(p, expert_in)
+        expert_out = moe_lib.grouped_experts(p, expert_in)
         return {"layers": n * device_busy_ms(
                     lambda: moe_lib.apply_moe(p, cfg, hin, group_size=cfg.moe_group)),
                 "router": n * device_busy_ms(lambda: moe_lib.route(p, cfg, xg)),
                 "dispatch": n * device_busy_ms(dispatch),
-                "experts": n * device_busy_ms(lambda: moe_lib._grouped_experts(p, expert_in)),
+                "experts": n * device_busy_ms(lambda: moe_lib.grouped_experts(p, expert_in)),
                 "combine": n * device_busy_ms(lambda: torch.einsum(
                     "gtec,gecd->gtd", combine.to(hin.dtype), expert_out))}
 
@@ -4504,14 +4515,15 @@ def _n_params(params) -> int:
     return sum(t.numel() for t in tree_leaves(params))
 
 
-def mesh_serve(card: str, cfg, mesh, params, buffers, device="cuda") -> dict:
-    """(a) ``launch.steps.build_serve_step`` on the (1, 1) mesh: the
-    MESH_PROMPT_LENS prompts, each prefilled alone into its row of a
-    4-row cache, then MESH_TICKS batched greedy ticks, held bit for bit
-    against ``lm.prefill``/``lm.decode_step`` on the card (every logit and
-    every cache leaf); the launches of the sharded run; a 1900-token
-    prefill's and a tick's host and device busy time.  Returns the
-    launches."""
+def mesh_serve(card: str, cfg, mesh, params, buffers, device="cuda", *, part="(a)",
+               ticks=None) -> dict:
+    """(a), and (e) for the other families: ``launch.steps.build_serve_step``
+    on the (1, 1) mesh: the MESH_PROMPT_LENS prompts (the audio family's
+    of n_codebooks streams), each prefilled alone into its row of a 4-row
+    cache, then ``ticks`` (MESH_TICKS) batched greedy ticks, held bit for bit against
+    ``lm.prefill``/``lm.decode_step`` on the card (every logit and every
+    cache leaf); the launches of the sharded run; a 1900-token prefill's
+    and a tick's host and device busy time.  Returns the launches."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4524,8 +4536,10 @@ def mesh_serve(card: str, cfg, mesh, params, buffers, device="cuda") -> dict:
     prefill, _, (pspecs, cspecs) = steps.build_serve_step(cfg, mesh, "prefill_32k")
     decode, _, _ = steps.build_serve_step(cfg, mesh, "decode_32k")
     local = shard_tree(params, pspecs, mesh.coords[1], mesh.shape["model"])
+    ticks = MESH_TICKS if ticks is None else ticks
     rng = np.random.default_rng(MESH_SEED)
-    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, (1, n))).to(device)
+    nc = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, (1, n, *nc))).to(device)
                for n in MESH_PROMPT_LENS]
     lens = torch.tensor(MESH_PROMPT_LENS, device=device)
     B = len(prompts)
@@ -4538,7 +4552,7 @@ def mesh_serve(card: str, cfg, mesh, params, buffers, device="cuda") -> dict:
             lg, _ = pre(toks, {k: v[:, i:i + 1] for k, v in cache.items()})
             out.append(lg)
         nxt = torch.cat(out).float().argmax(-1)
-        for t in range(MESH_TICKS):
+        for t in range(ticks):
             nxt = nxt if picks is None else picks[t]
             fed.append(nxt)
             lg, _ = dec(nxt, lens + t, cache)
@@ -4562,18 +4576,19 @@ def mesh_serve(card: str, cfg, mesh, params, buffers, device="cuda") -> dict:
         want, _ = serve(lambda t, c: lm.prefill(params, buffers, cfg, t, c),
                         lambda n, p, c: lm.decode_step(params, buffers, cfg, n, p, c),
                         ref_cache, picks=fed)
+        lookups = B + ticks if cfg.emb_method == "cce" else 0
         check(launches.get("flash_attention") == cfg.n_layers * B
-              and launches.get("cce_lookup_fwd") == B + MESH_TICKS,
+              and launches.get("cce_lookup_fwd", 0) == lookups,
               f"mesh serve launches {launches}: want {cfg.n_layers * B} flash and "
-              f"{B + MESH_TICKS} lookups")
+              f"{lookups} lookups")
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
               "the (1, 1) serve step's logits differ from lm.prefill/decode_step's")
         check(all(torch.equal(cache[k], ref_cache[k]) for k in ref_cache),
               "the (1, 1) serve step's cache differs from lm.prefill/decode_step's")
         check(all(bool(torch.isfinite(x).all()) for x in got), "non-finite mesh logits")
-        print(f"[{card}] mesh (a) build_serve_step on a (1, 1) mesh of one "
+        print(f"[{card}] mesh {part} {cfg.name}: build_serve_step on a (1, 1) mesh of one "
               f"{dist.get_backend(mesh.world)} rank: {B} prompts {list(MESH_PROMPT_LENS)} "
-              f"prefilled alone into their rows, {MESH_TICKS} batched ticks, {host_s!r} s; "
+              f"prefilled alone into their rows, {ticks} batched ticks, {host_s!r} s; "
               f"launches {launches}; every logit ({len(got)} calls) and cache leaf equal to "
               f"lm.prefill/decode_step's on the card bit for bit", flush=True)
         row = {k: v[:, B - 1:B] for k, v in cache.items()}
@@ -4582,34 +4597,33 @@ def mesh_serve(card: str, cfg, mesh, params, buffers, device="cuda") -> dict:
             prefill(local, buffers, prompts[-1], row)
 
         def one_tick():
-            decode(local, buffers, fed[-1], lens + MESH_TICKS, cache)
+            decode(local, buffers, fed[-1], lens + ticks, cache)
 
         timing = {}
         for name, fn, iters in (("prefill", one_prefill, 3), ("tick", one_tick, 10)):
             timing[name] = (time_ms(fn, iters=iters, reps=3, warmup=2),
                             device_busy_ms(fn, iters=iters))
-        print(f"[{card}] mesh (a) {cfg.name} {cfg.n_layers} layers: prefill "
+        print(f"[{card}] mesh {part} {cfg.name} {cfg.n_layers} layers: prefill "
               f"{MESH_PROMPT_LENS[-1]}: host {timing['prefill'][0]!r} ms, device busy "
               f"{timing['prefill'][1]!r} ms; decode tick ({B} rows): host {timing['tick'][0]!r} "
               f"ms, device busy {timing['tick'][1]!r} ms", flush=True)
     return launches
 
 
-def mesh_emulated(card: str, cfg, params, buffers, device="cuda") -> dict:
-    """(b) the model axis of MESH_RANKS ranks emulated in one process, on
-    the first full-width layer, the token table and the head: each rank's
-    slices (``lm.param_specs``) run in turn through the functions the
-    sharded ``lm.prefill`` calls around its collectives, in float32 on a
-    MESH_LAYER_SEQ-token prompt (``lm.embed_share``: its dsub slice of the
-    lookup; ``lm.prefill_attention_share``: its query and KV heads through
-    flash; ``lm.parallel_share``: its ``wi``/``wg``/``wo`` slices;
-    ``lm.head_share``: its partial head scores), with the all-gather and
-    the all-reduces replaced by a concatenation and sums in rank order;
-    held against the unsharded 1-layer prefill (the lookup bit for bit;
-    logits and each rank's k/v within LM_LOGIT_RTOL).
-    Then times flash and the lookup for a rank's slice and for the whole,
-    beside their bounds and SDPA's or ``embedding_bag``'s time.  Returns
-    {"flash": {...}, "lookup": {...}} of those numbers."""
+def emulate_model_ranks(cfg, params, buffers, M: int, S: int, device="cuda") -> dict:
+    """The model axis of M ranks emulated in one process on the first
+    full-width layer of ``params``, the token table and the head, in
+    float32 on an S-token prompt: each rank's slices (``lm.param_specs``)
+    run in turn through the functions the sharded ``lm.prefill`` calls
+    around its collectives (``lm.embed_share``: its slice of the lookup;
+    ``lm.prefill_attention_share``: its query and KV heads through flash;
+    ``lm.parallel_share``, ``layers.mlp_partial`` or ``moe.apply_moe`` on
+    its ff slices; ``lm.head_share``'s partial scores or
+    ``lm.vocab_share``'s rows of the logits), with the all-gathers and
+    all-reduces replaced by concatenations and sums in rank order.  Held
+    against the unsharded 1-layer prefill: the lookup bit for bit, the
+    logits and each rank's k/v within LM_LOGIT_RTOL of the largest
+    magnitude.  Returns {"logits", "k", "v"}: those errors."""
     import dataclasses
 
     import numpy as np
@@ -4617,51 +4631,82 @@ def mesh_emulated(card: str, cfg, params, buffers, device="cuda") -> dict:
 
     from repro_torch.models import layers as L
     from repro_torch.models import lm
+    from repro_torch.models import moe as moe_lib
     from repro_torch.shard import shard_tree
     from repro_torch.tree import tree_map
 
-    M, S = MESH_RANKS, MESH_LAYER_SEQ
-    kvh = cfg.n_kv_heads // M
     cut = dataclasses.replace(cfg, n_layers=1, dtype=torch.float32)
     cut_p = dict(params, blocks=tree_map(lambda t: t[:1], params["blocks"]))
     ranks = [shard_tree(cut_p, lm.param_specs(cut, M), r, M) for r in range(M)]
-    emb = lm.make_emb(cut)
+    split = L.kv_heads_split(cut, M)
+    kvh = cut.n_kv_heads // M if split else cut.n_kv_heads
+    nc = (cut.n_codebooks,) if cut.n_codebooks else ()
     toks = torch.from_numpy(np.random.default_rng(MESH_SEED + 1).integers(
-        0, cfg.vocab, (1, S))).to(device)
+        0, cut.vocab, (1, S, *nc))).to(device)
     with torch.inference_mode():
         ref_cache = lm.init_cache(cut, 1, S, device=device)
         want, _ = lm.prefill(cut_p, buffers, cut, toks, ref_cache)
         x = torch.cat([lm.embed_share(rp, buffers, cut, toks) for rp in ranks], dim=-1)
         x = x.reshape(1, S, cut.d_model)
+        x = (x * math.sqrt(cut.d_model) if cut.emb_scale else x).to(cut.dtype)
         check(torch.equal(x, lm.embed(cut_p, buffers, cut, toks)),
-              "the ranks' lookup slices gathered differ from the lookup")
+              f"{cfg.name}: the ranks' lookup slices gathered differ from the lookup")
         positions = torch.arange(S, device=device)[None]
+        x = lm._add_positions(cut, x, positions)
         freqs = L.rope_freqs(cut, device=device)
-        h = L.apply_norm(lm.layer_params(cut_p["blocks"], 0)["ln1"], x)
-        partial, kv = None, []
-        for r, rp in enumerate(ranks):
-            lp = lm.layer_params(rp["blocks"], 0)
-            attn, k, v = lm.prefill_attention_share(lp, cut, h, positions, freqs, r, M)
-            check(attn.shape == x.shape and k.shape[2] == kvh,
-                  f"a rank's attention {tuple(attn.shape)}, KV heads {k.shape[2]}")
+        lp = lm.layer_params(cut_p["blocks"], 0)
+        lps = [lm.layer_params(rp["blocks"], 0) for rp in ranks]
+        h = L.apply_norm(lp["ln1"], x)
+        attn, kv = [], []
+        for r, q in enumerate(lps):
+            a, k, v = lm.prefill_attention_share(q, cut, h, positions, freqs, r, M)
+            check(a.shape == x.shape and k.shape[2] == kvh,
+                  f"a rank's attention {tuple(a.shape)}, KV heads {k.shape[2]}")
+            attn.append(a)
             kv.append((k, v))
-            share = lm.parallel_share(lp, cut, attn, h)
-            partial = share if partial is None else partial + share
-        x1 = lm.parallel_residual(lm.layer_params(cut_p["blocks"], 0), cut, x, partial)
-        y = L.apply_norm(cut_p["ln_f"], x1)[:, -1]
-        scores = None
-        for r, rp in enumerate(ranks):
-            sc = lm.head_share(rp, cut, y, r, M)
-            scores = sc if scores is None else scores + sc
-        got = lm.head_logits(buffers, cut, scores)
+        if cut.parallel_block:
+            x = lm.parallel_residual(lp, cut, x, sum(lm.parallel_share(q, cut, a, h)
+                                                     for q, a in zip(lps, attn)))
+        else:
+            x = x + sum(attn)
+            h2 = L.apply_norm(lp["ln2"], x)
+            if cut.family == "moe":  # each rank's experts' ff slices, combined in token space
+                x = x + sum(moe_lib.apply_moe(q["moe"], cut, h2, group_size=cut.moe_group)[0]
+                            for q in lps)
+            else:
+                x = x + L.mlp_bias(lp["mlp"], cut,
+                                   sum(L.mlp_partial(q["mlp"], cut, h2) for q in lps))
+        y = L.apply_norm(cut_p["ln_f"], x)[:, -1]
+        if cut.emb_method == "full":
+            got = torch.cat([lm.vocab_share(rp, cut, y) for rp in ranks], dim=-1)
+            got = got.reshape(want.shape)
+        else:
+            got = lm.head_logits(buffers, cut, sum(lm.head_share(rp, cut, y, r, M)
+                                                   for r, rp in enumerate(ranks)))
         errs = {"logits": _max_rel(got, want.cpu())}
         for key, i in (("k", 0), ("v", 1)):
-            errs[key] = max(_max_rel(kv[r][i],
-                                     ref_cache[key][0, :, :, r * kvh:(r + 1) * kvh].cpu())
+            errs[key] = max(_max_rel(kv[r][i], ref_cache[key][0, :, :, (
+                slice(r * kvh, (r + 1) * kvh) if split else slice(None))].cpu())
                             for r in range(M))
         for what, err in errs.items():
-            check(err <= LM_LOGIT_RTOL["float32"], f"mesh (b) {what}: the {M} ranks' sum vs "
+            check(err <= LM_LOGIT_RTOL["float32"], f"{cfg.name} {what}: the {M} ranks' sum vs "
                   f"the unsharded layer {err} of the largest > {LM_LOGIT_RTOL['float32']}")
+    return errs
+
+
+def mesh_emulated(card: str, cfg, params, buffers, device="cuda") -> dict:
+    """(b) the model axis of MESH_RANKS ranks emulated in one process
+    (``emulate_model_ranks``) on MESH_ARCH's first layer, token table and
+    head, on a MESH_LAYER_SEQ-token prompt.  Then times flash and the
+    lookup for a rank's slice and for the whole, beside their bounds and
+    SDPA's or ``embedding_bag``'s time.  Returns {"flash": {...},
+    "lookup": {...}} of those numbers."""
+    from repro_torch.models import lm
+
+    M, S = MESH_RANKS, MESH_LAYER_SEQ
+    kvh = cfg.n_kv_heads // M
+    emb = lm.make_emb(cfg)
+    errs = emulate_model_ranks(cfg, params, buffers, M, S, device)
     print(f"[{card}] mesh (b) {M} model ranks emulated on {cfg.name}'s first layer, token table "
           f"and head (float32, a {S}-token prompt): each rank {cfg.n_heads // M} query and "
           f"{kvh} KV heads, d_ff {cfg.d_ff // M}, dsub {emb.dsub // M}; the lookup slices "
@@ -4672,16 +4717,174 @@ def mesh_emulated(card: str, cfg, params, buffers, device="cuda") -> dict:
     for name, H, KVH in (("whole", cfg.n_heads, cfg.n_kv_heads),
                          (f"rank_of_{M}", cfg.n_heads // M, kvh)):
         out["flash"][name] = flash_timed(card, 2048, H, KVH, cfg.head_dim, device=device)
+    out["lookup"] = rank_lookup_numbers(card, cfg, params, buffers, M, whole=True, device=device)
+    return out
+
+
+def rank_lookup_numbers(card: str, cfg, params, buffers, M: int, *, whole: bool = False,
+                        rows=None, device="cuda") -> dict:
+    """The lookup kernel on a rank's dsub slice of the token table (and on
+    the whole table), at ``rows`` (MESH_TIMED_B) rows: held against its
+    plain version bit for bit and timed, L2 flushed, beside
+    ``embedding_bag`` (``lm_fwd_numbers``).  Returns {name: {B: numbers}}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+
+    emb = lm.make_emb(cfg)
+    rows = MESH_TIMED_B if rows is None else rows
     tables = params["emb"]["tables"].contiguous()
     ids = torch.from_numpy(np.random.default_rng(MESH_SEED + 3).integers(
-        0, cfg.vocab, max(MESH_TIMED_B))).to(device)
-    for name, tab in (("whole", tables),
-                      (f"rank_of_{M}", tables[..., :emb.dsub // M].contiguous())):
-        out["lookup"][name] = {}
-        for n in MESH_TIMED_B:
+        0, cfg.vocab, max(rows))).to(device)
+    named = [("whole", tables)] if whole else []
+    named.append((f"rank_of_{M}", tables[..., :emb.dsub // M].contiguous()))
+    out = {}
+    for name, tab in named:
+        out[name] = {}
+        for n in rows:
             idx = emb._rows(buffers["emb"], ids[:n]).reshape(emb.c, -1, 2)
-            out["lookup"][name][n] = lm_fwd_numbers(card, f"{cfg.name} {name}", idx, tab)
+            out[name][n] = lm_fwd_numbers(card, f"{cfg.name} {name}", idx, tab)
     return out
+
+
+def flash_rank_case(card: str, H: int, KVH: int, D: int, device="cuda") -> dict:
+    """The flash kernel at a model rank's heads (H, KVH, D), causal, B=1,
+    S=FLASH_TIMED[-1]: held against its plain version as the flash phase
+    holds it (float32 within FLASH_TOL; bfloat16 at every CTA height
+    within FLASH_TOL and FLASH_ROW_TOL of each row's scale), then timed
+    beside SDPA and its bound (``flash_timed``)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    S = FLASH_TIMED[-1]
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        q, k, v = flash_inputs(1, S, S, H, KVH, D, dtype, seed=20_000 + H, device=device)
+        want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
+        for rows in (None,) if dtype == torch.float32 else cta_rows(D):
+            got = fa.flash_attention(q, k, v) if rows is None else fa._launch(q, k, v, True, rows)
+            err = (got.float() - want32.to(dtype).float()).abs().max().item()
+            what = f"{dn} H={H} KVH={KVH} D={D} S={S}{f' rows={rows}' if rows else ''}"
+            check(err <= FLASH_TOL[dn], f"flash kernel vs plain {err} > {FLASH_TOL[dn]} at {what}")
+            if rows:
+                row_err = flash_row_err(got, want32)
+                check(row_err <= FLASH_ROW_TOL, f"flash kernel vs plain {row_err} > "
+                      f"{FLASH_ROW_TOL} of a row's scale at {what}")
+            errs[dn] = max(errs.get(dn, 0.0), err)
+    print(f"[{card}] flash_attention at a rank's heads H={H} KVH={KVH} D={D} S={S}: vs plain "
+          f"max_abs_err {errs!r}", flush=True)
+    return dict(flash_timed(card, S, H, KVH, D, device=device), max_abs_err=errs["bfloat16"],
+                max_abs_err_float32=errs["float32"])
+
+
+def moe_ep_emulated(card: str, cfg, params, device="cuda") -> dict:
+    """(f) the data axis of MESH_EP_RANKS ranks emulated on the first MoE
+    layer of ``params`` (float32): MESH_EP_ROWS rows of one moe_group of
+    tokens each (unit normal), a row's groups routed by its data rank
+    (``moe.dispatch``), the all-to-alls replaced by transposes in rank
+    order (rank s takes every rank's slots of its E/D experts, which
+    ``moe.grouped_experts`` runs, and each rank takes its slots back), held
+    against the unsharded layer (``moe.apply_moe``): every routing
+    decision equal, the output within LM_LOGIT_RTOL of its largest
+    magnitude, and whether bit for bit.  Returns the numbers."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.shard import shard_tree
+    from repro_torch.tree import tree_map
+
+    D = MESH_EP_RANKS
+    cut = dataclasses.replace(cfg, n_layers=1, dtype=torch.float32)
+    stacked = tree_map(lambda t: t[:1], params["blocks"]["moe"])
+    specs = lm.param_specs(cut)["blocks"]["moe"]
+    p = lm.layer_params(stacked, 0)
+    ranks = [lm.layer_params(shard_tree(stacked, specs, d, D, "data"), 0) for d in range(D)]
+    x = torch.randn((MESH_EP_ROWS, cut.moe_group, cut.d_model),
+                    generator=torch.Generator(device=device).manual_seed(MESH_SEED + 4),
+                    device=device)
+    rows = MESH_EP_ROWS // D
+    moe_lib.TRACE = []
+    try:
+        with torch.inference_mode():
+            want, _ = moe_lib.apply_moe(p, cut, x, group_size=cut.moe_group)
+            routed = [moe_lib.dispatch(p, cut, x[d * rows:(d + 1) * rows], impl="einsum",
+                                       group_size=cut.moe_group) for d in range(D)]
+            G, E, C, _ = routed[0].slots.shape
+            El = E // D
+            at = [torch.cat([r.slots[:, s * El:(s + 1) * El] for r in routed]) for s in range(D)]
+            out = [moe_lib.grouped_experts(ranks[s], at[s]) for s in range(D)]
+            got = torch.cat([routed[d].combine(torch.cat([out[s][d * G:(d + 1) * G]
+                                                          for s in range(D)], dim=1))
+                             for d in range(D)]).reshape(x.shape)
+            whole, parts = moe_lib.TRACE[0], moe_lib.TRACE[1:]
+            same_routes = all(torch.equal(torch.cat([t[i] for t in parts]), whole[i])
+                              for i in (1, 2))
+    finally:
+        moe_lib.TRACE = None
+    err = _max_rel(got, want.cpu())
+    bitwise = bool(torch.equal(got, want))
+    check(same_routes, "the data ranks' routing differs from the unsharded layer's")
+    check(err <= LM_LOGIT_RTOL["float32"], f"{cfg.name} expert parallel emulated: {err} of "
+          f"the largest > {LM_LOGIT_RTOL['float32']}")
+    print(f"[{card}] mesh (f) {D} data ranks emulated on {cfg.name}'s first MoE layer (float32, "
+          f"{MESH_EP_ROWS} rows of {cut.moe_group} tokens, {El} experts a rank, {G} group(s) of "
+          f"{cut.moe_group} a rank, capacity {C}): every routing decision equal; vs the "
+          f"unsharded layer {err!r} of the largest, "
+          f"{'bit for bit' if bitwise else 'not bit for bit'}", flush=True)
+    return dict(max_rel=err, bitwise=bitwise, experts_a_rank=El, capacity=C)
+
+
+def mesh_family(card: str, mesh, arch: str, device="cuda") -> tuple[dict, dict]:
+    """(e) and (f) for one of MESH_FAMILIES at full width: (e)
+    ``mesh_serve`` on the (1, 1) mesh; (f) MESH_RANKS model ranks emulated
+    on its first layer (``emulate_model_ranks``), flash at a rank's heads
+    and the lookup at a rank's dsub slice (``flash_rank_case``,
+    ``rank_lookup_numbers``), and for the moe family its data axis
+    (``moe_ep_emulated``).  Returns (the serve launches, the numbers)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    full = configs.get(arch)
+    cfg = configs.get(arch, n_layers=MESH_FAMILY_LAYERS.get(arch, full.n_layers))
+    t0 = time.perf_counter()
+    params, buffers = lm.init(cfg, torch.Generator(device=device).manual_seed(MESH_SEED),
+                              device=device)
+    torch.cuda.synchronize()
+    n = _n_params(params)
+    print(f"[{card}] mesh (e) init: {cfg.name} {cfg.n_layers} of {full.n_layers} layers, "
+          f"d={cfg.d_model} {cfg.n_heads}H/{cfg.n_kv_heads}KV d_ff={cfg.d_ff}: {n} params, "
+          f"{n * 4 / 2**30:.2f} GiB in {time.perf_counter() - t0:.3f} s", flush=True)
+    launches = mesh_serve(card, cfg, mesh, params, buffers, device, part="(e)",
+                          ticks=MESH_FAMILY_TICKS)
+    M = MESH_RANKS
+    errs = emulate_model_ranks(cfg, params, buffers, M, MESH_LAYER_SEQ, device)
+    kvh = cfg.n_kv_heads // M if cfg.n_kv_heads % M == 0 else cfg.n_kv_heads
+    print(f"[{card}] mesh (f) {M} model ranks emulated on {cfg.name}'s first layer, token table "
+          f"and head (float32, a {MESH_LAYER_SEQ}-token prompt): each rank {cfg.n_heads // M} "
+          f"query and {kvh} KV heads, d_ff {cfg.d_ff // M}"
+          + (f" of each of {cfg.n_experts} experts" if cfg.n_experts else "")
+          + ("; the full table's d and head's rows" if cfg.emb_method == "full"
+             else f"; dsub {lm.make_emb(cfg).dsub // M}")
+          + "; the lookup gathered bit for bit; vs the unsharded 1-layer prefill, relative to "
+          "the largest magnitude: " + ", ".join(f"{k} {v!r}" for k, v in errs.items()),
+          flush=True)
+    numbers = {"emulated": errs,
+               "flash": flash_rank_case(card, cfg.n_heads // M, kvh, cfg.head_dim, device)}
+    if cfg.emb_method == "cce":  # a prefill's rows: the tick's were timed at command-r's slice
+        numbers["lookup"] = rank_lookup_numbers(card, cfg, params, buffers, M, rows=(2048,),
+                                                device=device)[f"rank_of_{M}"]
+    if cfg.family == "moe":
+        numbers["ep"] = moe_ep_emulated(card, cfg, params, device)
+    return launches, numbers
 
 
 def mesh_train(card: str, mesh, device="cuda") -> dict:
@@ -4750,14 +4953,105 @@ def mesh_train(card: str, mesh, device="cuda") -> dict:
     return launches
 
 
+def mesh_moe_train(card: str, mesh, device="cuda") -> dict:
+    """(g) ``launch.steps.build_train_step`` on the (1, 1) mesh for
+    phi3.5-moe at full width cut to MESH_MOE_TRAIN_LAYERS layers in
+    float32: one micro-batch of MESH_TRAIN_BATCH x MESH_TRAIN_SEQ tokens
+    (one moe_group), MESH_TRAIN_STEPS steps, held bit for bit against the
+    unsharded ``make_train_step`` from the same init (every loss, gnorm,
+    param and adamw moment).  The two runs take turns on the card, the
+    sharded run's params kept there and its moments in pinned host
+    memory meanwhile: both states and the gradients would not fit 80 GB.
+    Returns the sharded steps' launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shapes, steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train import loop
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = configs.get(MOE_ARCH, n_layers=MESH_MOE_TRAIN_LAYERS, dtype=torch.float32,
+                      train_microbatch=MESH_TRAIN_BATCH)
+    shape = shapes.Shape("mesh_moe_train", MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, "train")
+    step, (_, batch_struct), specs = steps.build_train_step(cfg, mesh, shape=shape)
+    check(batch_struct["tokens"][0] == (1, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ),
+          f"one micro-batch: {batch_struct}")
+    opt = adamw(weight_decay=0.1)
+    toks = {"tokens": torch.from_numpy(np.random.default_rng(MESH_SEED + 5).integers(
+        0, cfg.vocab, (1, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ))).to(device)}
+
+    def init():
+        params, buffers = lm.init(cfg, torch.Generator(device=device).manual_seed(MESH_SEED),
+                                  device=device)
+        return loop.init_state(params, opt, buffers)
+
+    state = steps.shard_state(init(), specs, mesh)
+    base = reset_peak()
+    print(f"[{card}] mesh (g) {cfg.name} cut to {cfg.n_layers} layers, float32: "
+          f"{_n_params(state.params)} params, {base / 1e9:.2f} GB with the adamw moments",
+          flush=True)
+    ops.LAUNCHES.clear()
+    got, host, aux = [], [], []
+    for _ in range(MESH_TRAIN_STEPS):
+        t = time.perf_counter()
+        state, m = step(state, toks)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+        got.append((m["loss"].item(), m["gnorm"].item()))
+        aux.append(m["aux"].item())
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    t = time.perf_counter()
+
+    def to_host(x):
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=x.is_cuda)
+        return out.copy_(x, non_blocking=True)
+
+    kept = (state.params, tree_map(to_host, state.opt))
+    torch.cuda.synchronize()
+    keep_s = time.perf_counter() - t
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = init()
+    ref_step = loop.make_train_step(lambda p, b, mb: lm.next_token_loss(p, b, cfg, mb), opt,
+                                    cosine_schedule(3e-4, 100, 10_000), accum=1, clip_norm=1.0)
+    want = []
+    for _ in range(MESH_TRAIN_STEPS):
+        ref, m = ref_step(ref, toks)
+        want.append((m["loss"].item(), m["gnorm"].item()))
+    check(launches.get("cce_lookup_fwd") == MESH_TRAIN_STEPS
+          and launches.get("cce_lookup_bwd") == MESH_TRAIN_STEPS,
+          f"mesh moe train launches {launches}: want {MESH_TRAIN_STEPS} of each lookup kernel")
+    check(got == want, f"build_train_step's (loss, gnorm) {got} != the unsharded step's {want}")
+    check(all(math.isfinite(a) for a in aux), f"non-finite aux {aux}")
+    check(all(torch.equal(a.to(device), b) for a, b in
+              zip(tree_leaves(kept), tree_leaves((ref.params, ref.opt)))),
+          "build_train_step's moe params or moments differ from the unsharded step's")
+    print(f"[{card}] mesh (g) build_train_step on the (1, 1) mesh, {cfg.name} {cfg.n_layers} "
+          f"layers, {MESH_TRAIN_STEPS} steps of {MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ} tokens: "
+          f"(loss, gnorm) {got!r}, aux {aux!r}, host {host!r} ms, peak {peak / 1e9:.2f} GB "
+          f"({(peak - base) / 1e9:.2f} over the {base / 1e9:.2f} GB of params and adamw moments "
+          f"at the reset); launches {launches}; every loss, gnorm, param and adamw moment equal "
+          f"to the unsharded step's bit for bit (the sharded moments kept in pinned host memory "
+          f"meanwhile, {keep_s:.3f} s)", flush=True)
+    return launches
+
+
 def mesh_phase(card: str, device="cuda"):
     """The (data, model) mesh on the card, a world of one NCCL rank (one
-    card), and the model axis emulated in one process: (a) ``mesh_serve``
-    at MESH_ARCH's full width cut to MESH_SERVE_LAYERS layers, and its
-    2-layer cut through ``lm_cut_check`` against CPU copies; (b)
-    ``mesh_emulated``; (c) ``mesh_train``.  (d), DLRM through the 2-D
-    builder at (1, 1), is ``shard_train_phase``: its trainer is that
-    builder.  Returns ({path: launches}, (b)'s numbers)."""
+    card), and the model and data axes emulated in one process: (a)
+    ``mesh_serve`` at MESH_ARCH's full width cut to MESH_SERVE_LAYERS
+    layers, and its 2-layer cut through ``lm_cut_check`` against CPU
+    copies; (b) ``mesh_emulated``; (c) ``mesh_train``.  (d), DLRM through
+    the 2-D builder at (1, 1), is ``shard_train_phase``: its trainer is
+    that builder.  (e) and (f), ``mesh_family`` for each of MESH_FAMILIES;
+    (g) ``mesh_moe_train``.  Returns ({path: launches}, (b)'s numbers,
+    {arch: (f)'s numbers})."""
     import shutil
     import tempfile
 
@@ -4795,8 +5089,25 @@ def mesh_phase(card: str, device="cuda"):
         del params, buffers
         gc.collect()
         torch.cuda.empty_cache()
+        t = time.perf_counter()
         launches["mesh_train"] = mesh_train(card, mesh, device)
-        return launches, emulated
+        seconds = {"(a)-(c)": time.perf_counter() - t0}
+        families = {}
+        for arch in MESH_FAMILIES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            served, families[arch] = mesh_family(card, mesh, arch, device)
+            launches[f"mesh_serve_{configs.get(arch).family}"] = served
+            seconds[f"(e)-(f) {arch}"] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        launches["mesh_train_moe"] = mesh_moe_train(card, mesh, device)
+        seconds["(g)"] = time.perf_counter() - t
+        print(f"[{card}] mesh parts, s: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()),
+              flush=True)
+        return launches, emulated, families
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4923,23 +5234,27 @@ def main(argv=None) -> int:
                 "launches_by_path": by_path(name), "max_abs_err": err, **at, **extra}
 
     shard_at = shard[1]
-    mesh_at = mesh[1]
+    mesh_at, mesh_families = mesh[1], mesh[2]
     steps = ("train", "train_after_transition", "shard_train", "loop", "methods", "lm_train",
-             "xlstm_train", "audio_train", "mesh_train")
+             "xlstm_train", "audio_train", "mesh_train", "mesh_train_moe")
+    rank_lookups = {a: f["lookup"] for a, f in mesh_families.items() if "lookup" in f}
     S = FLASH_TIMED[-1]
     kernels = [
         entry("cce_lookup_fwd",
               steps + ("lm_serve", "hybrid_serve", "vlm_serve", "xlstm_serve", "moe_serve",
-                       "mesh_serve"),
+                       "mesh_serve", "mesh_serve_vlm", "mesh_serve_moe"),
               max(fwd_err, methods_err, lm_fwd_at["max_abs_err"], xl_fwd_at["max_abs_err"],
                   shard_at["max_abs_err"],
                   *(v["max_abs_err"] for v in (*hybrid_lookup.values(), *vlm_lookup.values(),
-                                                *xlstm_lookup.values(), *moe_lookup.values()))),
+                                                *xlstm_lookup.values(), *moe_lookup.values(),
+                                                *(n for r in rank_lookups.values()
+                                                  for n in r.values())))),
               fwd_at[TRAIN_BATCH], batch=TRAIN_BATCH, at_serve_batch=fwd_at[SERVE_BATCH],
               at_lm_shape=lm_lookup, at_lm_train_shape=lm_fwd_at, at_hymba_shape=hybrid_lookup,
               at_paligemma_shape=vlm_lookup, at_xlstm_shape=xlstm_lookup,
               at_xlstm_train_shape=xl_fwd_at, at_phi3_5_moe_shape=moe_lookup,
               at_shard_shape=shard_at["fwd"], at_command_r_shape=mesh_at["lookup"],
+              at_mesh_rank_shapes=rank_lookups,
               **{f"at_{m}_shape": methods_at[m]["fwd"] for m in METHOD_KERNEL_SHAPES}),
         entry("cce_lookup_bwd", steps,
               max(bwd_err, methods_err, lm_bwd_err, xl_bwd_err, shard_at["max_abs_err"]), bwd_at,
@@ -4952,8 +5267,10 @@ def main(argv=None) -> int:
               max(assign_err, lm_assign_err, xl_assign_err), assign_at,
               at_lm_table_shape=lm_assign_at, at_xlstm_table_shape=xl_assign_at),
         entry("flash_attention",
-              ("lm_serve", "hybrid_serve", "vlm_serve", "moe_serve", "audio_serve", "mesh_serve"),
-              flash_err["bfloat16"],
+              ("lm_serve", "hybrid_serve", "vlm_serve", "moe_serve", "audio_serve", "mesh_serve",
+               "mesh_serve_vlm", "mesh_serve_audio", "mesh_serve_moe"),
+              max(flash_err["bfloat16"], *(f["flash"]["max_abs_err"]
+                                           for f in mesh_families.values())),
               flash_at[S],
               max_abs_err_float32=flash_err["float32"],
               shape=dict(B=1, S=S, H=FLASH_HEADS[0][0], KVH=FLASH_HEADS[0][1], D=FLASH_DIMS[-1],
@@ -4978,7 +5295,9 @@ def main(argv=None) -> int:
                              D=FLASH_MUSICGEN[2], dtype="bfloat16", causal=True),
                   by_length=flash_musicgen_at),
               at_command_r_shape=dict(S=2048, dtype="bfloat16", causal=True,
-                                      **mesh_at["flash"])),
+                                      **mesh_at["flash"]),
+              at_mesh_rank_shapes={a: dict(S=2048, dtype="bfloat16", causal=True, **f["flash"])
+                                   for a, f in mesh_families.items()}),
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_run:.1f} s")
     print(f"card: {card}")

@@ -48,7 +48,10 @@ def _split_budget_rows(budget: int, d2: int, n_tables: int = 1) -> int:
 
 def _randn(generator: torch.Generator, shape, scale: float, dtype, device):
     """Standard normal draws on the generator's device, scaled, then cast
-    and moved."""
+    and moved.  With no generator, an empty tensor on the meta device
+    (shapes only: ``lm.init`` on "meta")."""
+    if generator is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=generator, device=generator.device) * scale
     return x.to(device=device, dtype=dtype)
 

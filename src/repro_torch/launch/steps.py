@@ -10,27 +10,34 @@ all of it.  The batch splits over every rank (``mesh.all_batch_axes``): a
 contiguous slice of the global batch a world rank, in rank order.
 ``dlrm_state_specs`` says which dim of each state leaf is split.
 
-The dense LMs: ``param_specs`` splits the heads, the ff axis and the CCE
-tables' dsub over the model axis (``models/lm.py``), the adamw moments
-split over the data axis too (ZeRO-1, ``optim.optimizers.zero1_specs``),
-the batch splits over the data axis alone and is replicated over the
-model axis (``mesh.batch_axes``).  ``build_train_step`` accumulates the
-micro-batches ``shapes.microbatch`` sets, sums the gradients over the
-data group, clips by the global norm, updates each data rank's slice of
-the moments and params and gathers the params over the data group;
+The LMs (the dense, vlm, audio and moe families): ``param_specs`` splits
+the heads, the ff axis and the tables' columns (the audio family's full
+head its vocabulary) over the model axis, and the moe family's experts
+over the data axis (``models/lm.py``); the adamw moments split over the
+data axis too (ZeRO-1, ``optim.optimizers.zero1_specs``) where the param
+does not already; the batch splits over the data axis alone and is
+replicated over the model axis (``mesh.batch_axes``).
+``build_train_step`` accumulates the micro-batches ``shapes.microbatch``
+sets, sums the gradients over the data group, clips by the global norm,
+updates each data rank's slice of the moments and params and gathers the
+params over the data group;
 ``build_serve_step`` prefills or decodes with the cache laid out by
 ``cache_specs``.
 
 In JAX, GSPMD inserts the steps' collectives.  Here ``GradSync`` writes
-them: a split leaf's gradient is complete over the model group (DLRM: it
-received every id it owns; the LM: each rank computes its own slice), so
-it is summed over the data group alone; a whole leaf's gradient is summed
-over every rank that holds a share of the batch (DLRM: the world; the LM:
-the data group, its model ranks holding equal gradients already); the
-global-norm clip adds the split leaves' squared norms over the model group
-(each split leaf once a data replica) and counts each whole leaf once; the
-loss terms are summed into the global mean.  The lookup's all-to-alls are
-in ``EmbeddingCollection._univ_lookup_sharded``, the LM's tensor-parallel
+them: a leaf split over the model axis has a gradient complete over the
+model group (DLRM: it received every id it owns; the LM: each rank
+computes its own slice), so it is summed over the data group alone; a
+leaf split over the data axis (an expert) has its whole gradient on its
+owner already, which the all-to-alls brought every rank's tokens to, and
+is summed over nothing; a whole leaf's gradient is summed over every rank
+that holds a share of the batch (DLRM: the world; the LM: the data group,
+its model ranks holding equal gradients already); the global-norm clip
+adds the split leaves' squared norms over the model group and those of
+the data-split leaves over the data group too (each slice counted once)
+and counts each whole leaf once; the loss terms are summed into the
+global mean.  The lookup's all-to-alls are in
+``EmbeddingCollection._univ_lookup_sharded``, the LM's tensor-parallel
 collectives in ``models/lm.py``.  On one rank every collective is an
 identity and each step equals the 1-device step bit for bit.
 """
@@ -106,11 +113,11 @@ def dlrm_batch_struct(cfg, batch_size: int, *, accum: int = 1, n_shards: int = 1
 
 
 def _pairs(tree, specs) -> list:
-    """(leaf, model dim) of every tensor leaf of ``tree``, in
+    """(leaf, model dim, data dim) of every tensor leaf of ``tree``, in
     ``tree_leaves`` order."""
     out = []
-    tree_map(lambda x, s: out.append((x, spec_dim(s))) if isinstance(x, torch.Tensor) else None,
-             tree, specs)
+    tree_map(lambda x, s: out.append((x, spec_dim(s), spec_dim(s, "data")))
+             if isinstance(x, torch.Tensor) else None, tree, specs)
     return out
 
 
@@ -130,18 +137,19 @@ class GradSync:
 
     def grads(self, grads):
         """Sum the whole leaves' gradients in place, in one all-reduce, and
-        each split leaf's over the data group."""
+        each leaf split over the model axis alone over the data group; a
+        data-split leaf's is its owner's whole."""
         from repro_torch.shard import all_reduce_
 
         pairs = _pairs(grads, self.specs)
-        whole = [g for g, d in pairs if d is None]
+        whole = [g for g, m, d in pairs if m is None and d is None]
         if whole and self.whole_group is not None:
             flat = all_reduce_(torch.cat([g.reshape(-1) for g in whole]), self.whole_group)
             for g, part in zip(whole, flat.split([g.numel() for g in whole])):
                 g.copy_(part.view_as(g))
         if self.data is not None:
-            for g, d in pairs:
-                if d is not None:
+            for g, m, d in pairs:
+                if m is not None and d is None:
                     all_reduce_(g, self.data)
         return grads
 
@@ -153,21 +161,23 @@ class GradSync:
 
     def clip_(self, grads, max_norm: float):
         """``clip_by_global_norm_`` over the whole model: each split leaf's
-        squared norm summed over the ranks (one all-reduce), each whole
+        squared norm summed over the model ranks (one all-reduce), a
+        data-split leaf's over the data ranks too (one more), each whole
         leaf's taken once, added in leaf order as the 1-device clip adds
         them."""
         from repro_torch.shard import all_reduce_
 
         pairs = _pairs(grads, self.specs)
-        sq = [(g.to(torch.float32) ** 2).sum() for g, _ in pairs]
-        split = [i for i, (_, d) in enumerate(pairs) if d is not None]
-        if split:
-            summed = all_reduce_(torch.stack([sq[i] for i in split]), self.group)
-            for i, s in zip(split, summed.unbind(0)):
-                sq[i] = s
+        sq = [(g.to(torch.float32) ** 2).sum() for g, _, _ in pairs]
+        for group, at in ((self.group, 1), (self.data, 2)):
+            split = [i for i, p in enumerate(pairs) if p[at] is not None]
+            if split and group is not None:
+                summed = all_reduce_(torch.stack([sq[i] for i in split]), group)
+                for i, s in zip(split, summed.unbind(0)):
+                    sq[i] = s
         gnorm = torch.sqrt(sum(sq))
         scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-        for g, _ in pairs:
+        for g, _, _ in pairs:
             g.mul_(scale)
         return grads, gnorm
 
@@ -208,7 +218,7 @@ def build_dlrm_train_step(cfg, mesh, specs, *, batch_size: int, accum: int = 1,
     return step, batch_struct
 
 
-# --- the dense LMs ----------------------------------------------------------------
+# --- the LMs -----------------------------------------------------------------------
 
 
 def abstract_state(cfg, optimizer):
@@ -244,8 +254,10 @@ def state_specs(cfg, state_shape, *, n_model: int = 1, dp_size: int = 1):
 
 
 def shard_state(state, specs, mesh, device=None):
-    """This rank's part of a whole ``state``: its model slices, and of the
-    moments its data slices of those, moved to ``device`` when given."""
+    """This rank's part of a whole ``state`` (or of any tree under
+    ``specs``, the params alone among them): its model slices, and its
+    data slices of those (the moments', the experts'), moved to
+    ``device`` when given."""
     (d, m), (D, M) = mesh.coords, (mesh.shape["data"], mesh.shape["model"])
     out = shard_tree(shard_tree(state, specs, m, M, "model"), specs, d, D, "data")
     if device is None:
@@ -283,9 +295,11 @@ def build_train_step(cfg, mesh, shape_name: str = "train_4k", *, shape=None):
 
     Returns ``(train_step, (state_shape, batch_struct), specs)``:
     ``train_step(state, batch)`` takes this rank's state
-    (``shard_state``) and the global batch, {"tokens": (accum, micro, S)},
-    of which it keeps its data rank's rows; it updates the state in place
-    and returns metrics with the global loss and gnorm."""
+    (``shard_state``) and the global batch, {"tokens": (accum, micro, S)}
+    (and the vlm family's "patch_emb"), of which it keeps its data rank's
+    rows; it updates the state in place and returns metrics with the
+    global loss and gnorm, and for the moe family the global mean of the
+    load-balancing loss, "aux", summed over the data group as the loss is."""
     from repro_torch.models import lm
     from repro_torch.optim import adamw, cosine_schedule
     from repro_torch.optim.optimizers import zero1
@@ -299,27 +313,39 @@ def build_train_step(cfg, mesh, shape_name: str = "train_4k", *, shape=None):
     state_shape = abstract_state(cfg, optimizer)
     specs = state_specs(cfg, state_shape, n_model=M, dp_size=D)
 
+    auxes = []  # the moe family's aux terms of the step's micro-batches
+
     def loss_fn(p, b, mb):
-        return lm.next_token_loss(p, b, cfg, mb, group=mesh.model, global_batch=micro)
+        loss, parts = lm.next_token_loss(p, b, cfg, mb, group=mesh.model, data=mesh.data,
+                                         global_batch=micro)
+        if cfg.family == "moe":
+            auxes.append(parts["aux"].detach() * (mb["tokens"].shape[0] / micro))
+        return loss, parts
 
     sync = GradSync(specs.params, mesh, batch_over_model=False)
     step = make_train_step(loss_fn, zero1(optimizer, specs.opt, mesh.data), lr_fn,
                            accum=accum, clip_norm=1.0, sync=sync)
 
     def train_step(state, batch):
-        return step(state, {k: _data_slice(v, mesh, 1) for k, v in batch.items()})
+        auxes.clear()
+        state, metrics = step(state, {k: _data_slice(v, mesh, 1) for k, v in batch.items()})
+        if auxes:
+            metrics["aux"] = sync.loss(sum(auxes) / len(auxes))
+        return state, metrics
 
     return train_step, (state_shape, shp.train_input_specs(cfg, shape, D)), specs
 
 
 def build_serve_step(cfg, mesh, shape_name: str, *, shape=None):
     """The sharded prefill or decode step (the shape's kind) on ``mesh``:
-    the params split by ``lm.param_specs`` over the model axis, the batch
-    over the data axis where it divides (else every data rank serves all
-    of it), the cache laid out by ``lm.cache_specs``.
+    the params split by ``lm.param_specs`` over the model axis and the moe
+    family's experts over the data axis, the batch over the data axis
+    where it divides (else every data rank serves all of it), the cache
+    laid out by ``lm.cache_specs``.
 
     Returns ``(step, args, (param_specs, cache_specs))``.  The step takes
-    this rank's params, the buffers, the global tokens (and positions) and
+    this rank's params (``shard_state(params, param_specs, mesh)``), the
+    buffers, the global tokens (and positions) and
     this rank's cache (``lm.init_cache(cfg, B_loc, S, group=mesh.model)``),
     writes the cache in place and returns the global logits on every rank:
     decode ``step(params, buffers, tokens, pos, cache)``, prefill
@@ -343,7 +369,7 @@ def build_serve_step(cfg, mesh, shape_name: str, *, shape=None):
     if shape.kind == "decode":
         def step(params, buffers, tokens, pos, cache):
             logits, cache = lm.decode_step(params, buffers, cfg, local(tokens), local(pos),
-                                           cache, group=mesh.model)
+                                           cache, group=mesh.model, data=mesh.data)
             return whole(logits), cache
 
         specs = shp.decode_input_specs(cfg, shape)
@@ -352,7 +378,7 @@ def build_serve_step(cfg, mesh, shape_name: str, *, shape=None):
     else:
         def step(params, buffers, tokens, cache, last_idx=None):
             logits, cache = lm.prefill(params, buffers, cfg, local(tokens), cache,
-                                       last_idx=last_idx, group=mesh.model)
+                                       last_idx=last_idx, group=mesh.model, data=mesh.data)
             return whole(logits), cache
 
         specs = shp.prefill_input_specs(cfg, shape)

@@ -44,9 +44,11 @@ vocab).  Not ported: ``remat="dots"``, and the JAX package's sharding
 options that no configuration sets (``seq_shard``, ``zero2_grads``,
 ``parallelism="fsdp"``), which raise by name.
 
-Tensor parallel, the dense family (``group=``, a model group of M ranks;
-``param_specs`` and ``cache_specs`` give the layout, ``launch/steps.py``
-builds the steps): each rank holds its slices of the weights, and
+Tensor parallel, the dense, vlm, audio and moe families (``group=``, a
+model group of M ranks; ``data=``, the data group, which the moe family's
+experts split over; ``param_specs`` and ``cache_specs`` give the layout,
+``launch/steps.py`` builds the steps): each rank holds its slices of the
+weights, and
 ``forward``, ``next_token_loss``, ``prefill`` and ``decode_step`` run a
 rank's share.  A block enters the region through ``shard.copy_to_group``
 (identity forward, gradient summed over the group) and leaves it through
@@ -59,12 +61,23 @@ puts the columns back together.  The CCE head splits the same way: a
 rank's k-sized products (``CCE.logit_scores``) of its slices are summed
 over the group, (tokens, c, 2k), 4x fewer values than the vocabulary's
 logits for command-r-35b, and every rank gathers the whole logits from
-them.  What a rank computes between the collectives is a function of its
-own (``embed_share``, ``prefill_attention_share``, ``parallel_share``,
-``head_share``), which takes its (rank, M): with the collectives
-replaced by a concatenation or a sum in rank order, the same calls
-emulate the M ranks in one process.  Without a group every function is
-the unsharded one.
+them.  The audio family's full token table splits d (a rank looks up its
+columns, gathered as the CCE slices are) and its untied full head splits
+the vocabulary's rows: a rank's slice of the logits, gathered along the
+vocabulary, so that every rank returns the whole (..., n_codebooks,
+vocab).  The vlm family's ``patch_proj`` splits its output columns,
+gathered before the patches are prepended.  The moe family's FFN is
+``models/moe.py``'s: experts over the data group, their ff axis over the
+model group, one reduce in token space.  What a rank computes between the
+collectives is a function of its own (``embed_share``,
+``patch_share``, ``prefill_attention_share``, ``parallel_share``,
+``head_share``, ``vocab_share``; ``moe.dispatch`` and
+``moe.grouped_experts``), which takes its (rank, M) where its slice of
+the inputs depends on it: with the collectives replaced by a
+concatenation or a sum in rank order, the same calls emulate the M
+ranks in one process.  Without a group every function is the unsharded
+one.  The hybrid and xlstm families have no sharded layout yet and raise
+by name.
 """
 from __future__ import annotations
 
@@ -109,14 +122,18 @@ def _check(cfg: ModelConfig, group=None) -> None:
         _check_tp(cfg)
 
 
+TP_FAMILIES = ("dense", "vlm", "audio", "moe")
+
+
 def _check_tp(cfg: ModelConfig) -> None:
-    """The tensor-parallel layout is the dense family's, with CCE tables."""
-    if cfg.family != "dense":
+    """The tensor-parallel layout: the dense, vlm, audio and moe families,
+    with CCE tables, or the audio family's full table and head."""
+    if cfg.family not in TP_FAMILIES:
         raise NotImplementedError(f"the {cfg.family} family's sharded layout is not ported "
-                                  f"(the dense family only)")
-    if cfg.emb_method != "cce":
+                                  f"(the {', '.join(TP_FAMILIES)} families only)")
+    if cfg.emb_method != "cce" and not (cfg.emb_method == "full" and cfg.family == "audio"):
         raise NotImplementedError(f"emb_method={cfg.emb_method!r} under tensor parallelism "
-                                  f"(CCE tables only)")
+                                  f"(CCE tables, and the audio family's full table)")
 
 
 # --- embedding table construction -------------------------------------------
@@ -283,13 +300,20 @@ def _unstack(blocks, n: int) -> list:
 
 def param_specs(cfg: ModelConfig, n_model: int = 1):
     """The ``shard.Spec`` of every leaf of ``init``'s params over a model
-    axis of ``n_model`` ranks (the dense family): the JAX package's
-    ``param_specs`` as dims, stacked leaves counting their layer axis.
+    axis of ``n_model`` ranks and the data axis: the JAX package's
+    ``param_specs`` (``ep="data"``) as dims, stacked leaves counting their
+    layer axis.
 
-    * the CCE token table and head (c, 2, k, dsub) split dsub (3);
+    * the CCE token table and head (c, 2, k, dsub) split dsub (3); the
+      audio family's full table (n_codebooks x vocab, d) splits d (1) and
+      its full head the vocabulary's rows (0);
+    * the vlm family's ``patch_proj`` (d, d) splits its columns (1);
     * attention: wq, bq and wk, wv, bk, bv split their head axis, wo its
       rows; q_norm and k_norm whole;
     * the MLP: wi, wg, bi split the ff axis, wo its rows; bo whole;
+    * the moe family's experts: wi, wg (E, d, f) and wo (E, f, d) split
+      the experts (0) over the data axis and the ff axis over the model
+      axis; the router whole;
     * the norms whole.
 
     One deviation: where ``n_model`` does not divide the KV heads (qwen2's
@@ -318,25 +342,32 @@ def param_specs(cfg: ModelConfig, n_model: int = 1):
     layer = {"ln1": norm(), "attn": attn}
     if not cfg.parallel_block:
         layer["ln2"] = norm()
-    if cfg.d_ff:
+    if cfg.family == "moe":
+        layer["moe"] = {"router": whole, "wi": Spec(model=2, data=0),
+                        "wg": Spec(model=2, data=0), "wo": Spec(model=1, data=0)}
+    elif cfg.d_ff:
         layer["mlp"] = mlp
 
     def stacked(spec):  # the leading layer axis
         if isinstance(spec, dict):
             return {k: stacked(v) for k, v in spec.items()}
-        return Spec() if spec.model is None else Spec(model=spec.model + 1)
+        return Spec(*(None if d is None else d + 1 for d in (spec.model, spec.data)))
 
-    table = {"tables": Spec(model=3)}
-    specs = {"emb": table, "blocks": stacked(layer), "ln_f": norm()}
+    full = cfg.emb_method == "full"
+    specs = {"emb": {"table": Spec(model=1)} if full else {"tables": Spec(model=3)},
+             "blocks": stacked(layer), "ln_f": norm()}
     if not cfg.tie_embeddings:
-        specs["head"] = table
+        specs["head"] = Spec(model=0) if full else {"tables": Spec(model=3)}
+    if cfg.family == "vlm":
+        specs["patch_proj"] = Spec(model=1)
     return specs
 
 
 def cache_specs(cfg: ModelConfig, n_model: int = 1, *, batch_split: bool = True):
-    """The ``shard.Spec`` of the cache's "k" and "v" (L, B, S, KVH, D): the
-    batch over the data axis (``batch_split``), the KV heads (3) over the
-    model axis.  The JAX package splits head_dim (4) instead, since its
+    """The ``shard.Spec`` of the cache's "k" and "v" (L, B, S, KVH, D), for
+    every family with a sharded layout: the batch over the data axis
+    (``batch_split``), the KV heads (3) over the model axis.  The JAX
+    package splits head_dim (4) instead, since its
     KV-head counts rarely divide the axis; the port's attention reads
     whole heads, so it splits the heads where they divide, and where they
     do not (``layers.kv_heads_split``) every rank holds them all."""
@@ -354,20 +385,27 @@ def embed(params, buffers, cfg: ModelConfig, tokens, group=None):
     """tokens (B, S), or (B, S, n_codebooks) for the audio family, whose
     codebooks' rows are summed -> (B, S, d) in ``cfg.dtype``; a CCE table
     takes the fused lookup (the kernel on CUDA tensors).  Under ``group``
-    the table holds this rank's dsub slice of every column: one lookup of
-    the slices, then the columns gathered from the ranks."""
+    the table holds this rank's dsub slice of every column (a full
+    table's, its columns): one lookup of the slices, then the columns
+    gathered from the ranks."""
     emb = make_emb(cfg)
     if group_size(group) > 1:
         x = gather_last(embed_share(params, buffers, cfg, tokens), group)
-        x = x.reshape(*tokens.shape, emb.d2)
+        x = x.reshape(*tokens.shape[:2], cfg.d_model)
     elif cfg.n_codebooks:
-        offs = torch.arange(cfg.n_codebooks, dtype=tokens.dtype, device=tokens.device) * cfg.vocab
-        x = emb.lookup(params["emb"], buffers["emb"], tokens + offs).sum(dim=-2)
+        x = emb.lookup(params["emb"], buffers["emb"], _codebook_rows(cfg, tokens)).sum(dim=-2)
     else:
         x = emb.lookup(params["emb"], buffers["emb"], tokens)
     if cfg.emb_scale:
         x = x * math.sqrt(cfg.d_model)
     return x.to(cfg.dtype)
+
+
+def _codebook_rows(cfg: ModelConfig, tokens):
+    """The audio family's (..., n_codebooks) tokens as rows of its table:
+    codebook j's at j x vocab on."""
+    offs = torch.arange(cfg.n_codebooks, dtype=tokens.dtype, device=tokens.device) * cfg.vocab
+    return tokens + offs
 
 
 def logits_fn(params, buffers, cfg: ModelConfig, h, group=None):
@@ -376,15 +414,19 @@ def logits_fn(params, buffers, cfg: ModelConfig, h, group=None):
     its ``param_dtype`` table, as jnp does; an untied full head multiplies
     in ``cfg.dtype``.  Under ``group`` the CCE head's scores of this rank's
     slices are summed over the group and every rank gathers the whole
-    logits."""
+    logits; a full head's ranks each give their rows' logits, gathered."""
     if group_size(group) > 1:
-        scores = head_share(params, cfg, copy_to_group(h, group), *rank_and_size(group))
-        return head_logits(buffers, cfg, reduce_from_group(scores, group))
-    if cfg.tie_embeddings or cfg.emb_method != "full":
+        hc = copy_to_group(h, group)
+        if cfg.emb_method == "full":
+            out = gather_last(vocab_share(params, cfg, hc), group)
+        else:
+            scores = head_share(params, cfg, hc, *rank_and_size(group))
+            out = head_logits(buffers, cfg, reduce_from_group(scores, group))
+    elif cfg.tie_embeddings or cfg.emb_method != "full":
         key = "emb" if cfg.tie_embeddings else "head"
         out = make_emb(cfg).logits(params[key], buffers[key], h.to(cfg.dtype))
     else:
-        out = h.to(cfg.dtype) @ params["head"].to(cfg.dtype).T
+        out = vocab_share(params, cfg, h)
     if cfg.n_codebooks:
         out = out.reshape(*h.shape[:-1], cfg.n_codebooks, cfg.vocab)
     return out
@@ -399,14 +441,38 @@ def logits_fn(params, buffers, cfg: ModelConfig, h, group=None):
 
 
 def embed_share(params, buffers, cfg: ModelConfig, tokens):
-    """A rank's slice of the token table's lookup, (n, c, dsub/M): the
+    """A rank's slice of the token table's lookup of tokens (B, S), or (B,
+    S, n_codebooks) summed over the codebooks: (B, S, c, dsub/M), the
     lookup kernel (on CUDA tensors) on its dsub slice of every column,
-    ``params["emb"]["tables"]`` (c, 2, k, dsub/M).  The ranks' slices,
-    concatenated in rank order on the last dim, are the lookup."""
+    ``params["emb"]["tables"]`` (c, 2, k, dsub/M); a full table's (B, S,
+    d/M), a torch gather of its columns (the JAX package's ``jnp.take``).
+    The ranks' slices, concatenated in rank order on the last dim, are
+    the lookup."""
     emb = make_emb(cfg)
-    tables = params["emb"]["tables"]
-    rows = emb._rows(buffers["emb"], tokens).reshape(emb.c, -1, 2)
-    return kops.cce_lookup(rows, tables.contiguous()).reshape(-1, emb.c, tables.shape[-1])
+    ids = _codebook_rows(cfg, tokens) if cfg.n_codebooks else tokens
+    if cfg.emb_method == "full":
+        x = emb.lookup(params["emb"], buffers["emb"], ids)
+    else:
+        tables = params["emb"]["tables"]
+        rows = emb._rows(buffers["emb"], ids).reshape(emb.c, -1, 2)
+        x = kops.cce_lookup(rows, tables.contiguous()).reshape(*ids.shape, emb.c,
+                                                                tables.shape[-1])
+    return x.sum(dim=2) if cfg.n_codebooks else x
+
+
+def patch_share(params, cfg: ModelConfig, patch_emb):
+    """A rank's columns of the vlm family's projected patches, (B,
+    n_patches, d/M): ``patch_emb`` (B, n_patches, d) times its slice of
+    ``patch_proj``, in ``cfg.dtype``."""
+    return patch_emb.to(cfg.dtype) @ params["patch_proj"].to(cfg.dtype)
+
+
+def vocab_share(params, cfg: ModelConfig, h):
+    """A rank's slice of an untied full head's logits, (..., rows/M): h
+    (..., d) in ``cfg.dtype`` against its rows of ``params["head"]``
+    (n_codebooks x vocab / M, d).  Concatenated in rank order on the last
+    dim, they are the logits."""
+    return h.to(cfg.dtype) @ params["head"].to(cfg.dtype).T
 
 
 def head_share(params, cfg: ModelConfig, h, rank: int, M: int):
@@ -475,12 +541,14 @@ def _add_positions(cfg: ModelConfig, x, positions):
 # --- forward (training / prefill) ---------------------------------------------
 
 
-def _block_train(p, cfg: ModelConfig, x, positions, freqs, *, decode_cache=None, group=None):
+def _block_train(p, cfg: ModelConfig, x, positions, freqs, *, decode_cache=None, group=None,
+                 data=None):
     """One block over a full sequence, or one decode token when
     ``decode_cache`` (this layer's rows of the cache, written in place) is
     given.  Returns (x, aux): aux the moe family's load-balancing loss
     over a sequence, else None.  Under ``group`` this rank's share of a
-    dense block (``_dense_out``)."""
+    dense block (``_dense_out``) or of a moe block (its attention heads,
+    its experts' ff slices; its experts over ``data``)."""
     h = L.apply_norm(p["ln1"], x)
     ht = copy_to_group(h, group)
     if decode_cache is None:
@@ -498,13 +566,13 @@ def _block_train(p, cfg: ModelConfig, x, positions, freqs, *, decode_cache=None,
             decode_cache["conv"].copy_(cst)
         return _hybrid_out(p, cfg, x, attn, s), None
     if cfg.family == "moe":
-        x = x + attn
+        x = x + reduce_from_group(attn, group)
         h2 = L.apply_norm(p["ln2"], x)
         if decode_cache is not None:
-            return x + moe_lib.apply_moe_decode(p["moe"], cfg, h2), None
+            return x + moe_lib.apply_moe_decode(p["moe"], cfg, h2, group=group, data=data), None
         route = {"sort": moe_lib.apply_moe_sort, "sort_sm": moe_lib.apply_moe_sort_sm,
                  "einsum": moe_lib.apply_moe}[cfg.moe_impl]
-        mo, aux = route(p["moe"], cfg, h2, group_size=cfg.moe_group)
+        mo, aux = route(p["moe"], cfg, h2, group_size=cfg.moe_group, group=group, data=data)
         return x + mo, aux
     return _dense_out(p, cfg, x, attn, ht, group), None
 
@@ -542,7 +610,7 @@ def _hybrid_out(p, cfg: ModelConfig, x, attn, s):
     return x
 
 
-def forward(params, buffers, cfg: ModelConfig, batch, *, group=None):
+def forward(params, buffers, cfg: ModelConfig, batch, *, group=None, data=None):
     """Full-sequence forward.  batch: {"tokens": (B, S) integer, or (B, S,
     n_codebooks)} and, for the vlm family, optionally "patch_emb" (B,
     n_patches, d): projected by ``patch_proj`` in ``cfg.dtype`` and
@@ -550,14 +618,15 @@ def forward(params, buffers, cfg: ModelConfig, batch, *, group=None):
     the text positions give logits.  Returns (logits (B, S, vocab) or (B,
     S, n_codebooks, vocab), aux), aux float32: the moe family's
     load-balancing losses summed over the layers, else zero.  Under
-    ``group`` (the dense family) each rank returns the whole logits."""
+    ``group`` each rank returns the whole logits; ``data`` is the data
+    group the moe family's experts split over (its aux is then this
+    rank's term: ``next_token_loss``)."""
     _check(cfg, group)
     tokens = batch["tokens"]
     x = embed(params, buffers, cfg, tokens, group)
     patches = cfg.family == "vlm" and "patch_emb" in batch
     if patches:
-        pe = batch["patch_emb"].to(cfg.dtype) @ params["patch_proj"].to(cfg.dtype)
-        x = torch.cat([pe, x], dim=1)
+        x = torch.cat([gather_last(patch_share(params, cfg, batch["patch_emb"]), group), x], dim=1)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     x = _add_positions(cfg, x, positions)
@@ -571,7 +640,7 @@ def forward(params, buffers, cfg: ModelConfig, batch, *, group=None):
                                                                device=x.device)
     freqs = L.rope_freqs(cfg, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    block = functools.partial(_block_train, group=group)
+    block = functools.partial(_block_train, group=group, data=data)
     for lp in _unstack(params["blocks"], cfg.n_layers):
         x, aux = _maybe_checkpoint(remat, block, lp, cfg, x, positions, freqs)
         if aux is not None:
@@ -650,20 +719,21 @@ def _xlstm_train_forward(blocks, cfg: ModelConfig, x):
     return x
 
 
-def next_token_loss(params, buffers, cfg: ModelConfig, batch, *, group=None,
+def next_token_loss(params, buffers, cfg: ModelConfig, batch, *, group=None, data=None,
                     global_batch=None):
     """Causal LM loss with next-token targets: the mean over (B, S - 1),
     and the codebooks of the audio family, of the float32 ``logsumexp`` of
     the logits minus the target's logit, plus 0.01 x the auxiliary loss.
     The target's logit is gathered, where the JAX package sums a one-hot
     product over the vocabulary: the same number, since x·1 plus zeros is
-    exact.  Returns (loss, {"ce", "aux"}).  ``group``: ``forward``'s model
-    group.  ``global_batch``: the sequences of the whole (data-parallel)
-    batch, of which this rank holds B; the loss is then this rank's term of
-    the global mean, its local mean times B / global_batch (the data
-    ranks' terms sum to it; with B == global_batch the factor is left out
-    and the loss is the unsharded one bit for bit)."""
-    logits, aux = forward(params, buffers, cfg, batch, group=group)
+    exact.  Returns (loss, {"ce", "aux"}).  ``group``, ``data``:
+    ``forward``'s model and data groups.  ``global_batch``: the sequences
+    of the whole (data-parallel) batch, of which this rank holds B; the
+    loss is then this rank's term of the global mean, its local mean times
+    B / global_batch (the data ranks' terms sum to it, the moe family's
+    aux among them; with B == global_batch the factor is left out and the
+    loss is the unsharded one bit for bit)."""
+    logits, aux = forward(params, buffers, cfg, batch, group=group, data=data)
     lg = logits[:, :-1].to(torch.float32)
     tg = batch["tokens"][:, 1:].to(torch.int64)
     logz = torch.logsumexp(lg, dim=-1)
@@ -731,14 +801,16 @@ def cache_batch_axis(cfg: ModelConfig):
     return base
 
 
-def decode_step(params, buffers, cfg: ModelConfig, tokens, pos, cache, *, group=None):
+def decode_step(params, buffers, cfg: ModelConfig, tokens, pos, cache, *, group=None,
+                data=None):
     """One-token decode.  tokens (B,), or (B, n_codebooks) for the audio
     family, pos (B,) integer positions; the token's k/v go into ``cache``
     in place at ``pos`` (its ring slot under a sliding window), and the
     hybrid family's SSM and conv states move on by one token in place, as
     do the xlstm family's recurrent states (which ignore ``pos``).
     Returns (logits (B, vocab) or (B, n_codebooks, vocab), cache).  Under
-    ``group`` this rank's heads and cache; every rank returns the logits."""
+    ``group`` this rank's heads and cache; every rank returns the logits.
+    ``data``: the data group the moe family's experts split over."""
     _check(cfg, group)
     x = _add_positions(cfg, embed(params, buffers, cfg, tokens[:, None], group), pos[:, None])
     if cfg.family == "xlstm":
@@ -749,7 +821,7 @@ def decode_step(params, buffers, cfg: ModelConfig, tokens, pos, cache, *, group=
     for i in range(cfg.n_layers):
         lc = {key: c[i] for key, c in cache.items()}
         x, _ = _block_train(layer_params(params["blocks"], i), cfg, x, pos, freqs,
-                            decode_cache=lc, group=group)
+                            decode_cache=lc, group=group, data=data)
     x = L.apply_norm(params["ln_f"], x)
     return logits_fn(params, buffers, cfg, x[:, 0], group), cache
 
@@ -770,7 +842,8 @@ def _xlstm_decode(blocks, cfg: ModelConfig, x, cache):
     return x
 
 
-def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None, group=None):
+def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None, group=None,
+            data=None):
     """Process a full prompt, tokens (B, S) or (B, S, n_codebooks): write
     its k/v into ``cache[:, :, :S]`` in place and return (logits of one
     position (B, vocab) or (B, n_codebooks, vocab), cache).  Under a
@@ -789,8 +862,9 @@ def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None, 
     family prefills text only, as in the JAX package.  The xlstm family
     runs its chunkwise and sequential forms and writes every block's
     terminal state into ``cache``, every leaf of the slice whole.  Under
-    ``group`` (the dense family) each rank runs the flash kernel on its
-    heads, writes the KV heads it holds and returns the logits."""
+    ``group`` each rank runs the flash kernel on its heads, writes the KV
+    heads it holds and returns the logits; the moe family's experts split
+    over ``data``, whose ranks each prefill whole groups of tokens."""
     _check(cfg, group)
     B, S = tokens.shape[0], tokens.shape[1]
     x = embed(params, buffers, cfg, tokens, group)
@@ -821,11 +895,11 @@ def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None, 
             cache["conv"][i] = cv
             x = _hybrid_out(lp, cfg, x, attn, s)
         elif cfg.family == "moe":
-            x = x + attn
+            x = x + reduce_from_group(attn, group)
             # the JAX package's prefill takes the einsum route under "sort_sm"
             route = moe_lib.apply_moe_sort if cfg.moe_impl == "sort" else moe_lib.apply_moe
             x = x + route(lp["moe"], cfg, L.apply_norm(lp["ln2"], x),
-                          group_size=cfg.moe_group)[0]
+                          group_size=cfg.moe_group, group=group, data=data)[0]
         else:
             x = _dense_out(lp, cfg, x, attn, h, group)
     x = L.apply_norm(params["ln_f"], x[:, last])

@@ -13,7 +13,10 @@ ZeRO-1: ``zero1_specs`` extends a param spec tree (``shard.Spec`` leaves)
 so that the optimizer moments also split over the data axis wherever a
 dim divides; ``zero1(optimizer, moment_specs, group)`` makes the update of
 that layout: each data rank updates its slice of the moments and of the
-params, then the params' slices are gathered over the data group.
+params, then the params' slices are gathered over the data group.  A
+param split over the data axis itself (the moe family's experts) is this
+rank's slice already, as are its moments and gradients: it is updated
+whole and not gathered.
 """
 from __future__ import annotations
 
@@ -156,34 +159,36 @@ def moment_specs(opt_name: str, param_specs: Pytree, params_shape: Pytree,
 
 def zero1(optimizer: Optimizer, moment_specs: Pytree, group) -> Optimizer:
     """``optimizer`` over moments split by ``moment_specs``' data dims
-    (its "m" tree) across the data ``group``: ``update`` takes whole
-    params and gradients (the gradients already summed over the group)
-    and this rank's moment slices, updates the matching slices of the
-    params in place, then gathers every split param over the group.  With
-    a group of one (or none) each slice is the whole leaf and the update is
-    ``optimizer``'s bit for bit.  ``init`` is left to the caller: the
-    moments come from slicing a whole state (``shard.shard_tree``)."""
+    (its "m" tree) across the data ``group``: ``update`` takes the params
+    and gradients (the gradients already summed over the group) and this
+    rank's moment slices, updates the matching slices of the params in
+    place, then gathers every split param over the group.  A param whose
+    moments have its own shape is this rank's slice already (split over
+    the data axis by its own spec), as is its gradient: updated whole,
+    not gathered.  With a group of one (or none) each slice is the whole
+    leaf and the update is ``optimizer``'s bit for bit.  ``init`` is left
+    to the caller: the moments come from slicing a whole state
+    (``shard.shard_tree``)."""
     rank, n = rank_and_size(group)
-    dims = moment_specs["m"]
 
-    def view(x, spec):
-        d = spec_dim(spec, "data")
-        if d is None or n == 1:
+    def view(x, d):
+        if d is None:
             return x
         size = x.shape[d] // n
         return x.narrow(d, rank * size, size)
 
     @torch.no_grad()
     def update(grads, state, params, lr):
+        dims = tree_map(lambda s, p, m: spec_dim(s, "data") if n > 1 and p.shape != m.shape
+                        else None, moment_specs["m"], params, state["m"])
         pv = tree_map(view, params, dims)
         _, new_state = optimizer.update(tree_map(view, grads, dims), state, pv, lr)
-        if n > 1:
-            def gather(p, v, spec):
-                d = spec_dim(spec, "data")
-                if d is not None:
-                    p.copy_(all_gather_cat(v, d, group))
 
-            tree_map(gather, params, pv, dims)
+        def gather(p, v, d):
+            if d is not None:
+                p.copy_(all_gather_cat(v, d, group))
+
+        tree_map(gather, params, pv, dims)
         return params, new_state
 
     return Optimizer(optimizer.init, update)

@@ -5,7 +5,9 @@ on reduced configs (2 layers, d 64, vocab 257, float32) on the CPU.
   state (the JAX trainer's state crosses into the port's), 3 steps, a
   transition of the CCE token table (dense token counts, adamw moments
   remapped) and 2 more steps, on reduced qwen2-1.5b, qwen3-4b,
-  xlstm-1.3b and musicgen-medium under CCE (no tracker: its codebook
+  xlstm-1.3b, paligemma-3b (text batches; its tied table is also the
+  head, which reads the re-clustered table after the transition) and
+  musicgen-medium under CCE (no tracker: its codebook
   tokens are not its table's rows, so its transition samples the rows
   uniformly), with JAX's kmeans++ seeds handed to the port (its float
   draws are not JAX's; ``test_torch_transition.py`` does the same): every
@@ -45,8 +47,9 @@ from repro_torch.tree import jax_leaves, jax_leaves_with_paths
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-# QKV bias; qk_norm; mLSTM and sLSTM; codebooks, layernorm and sinusoidal positions
-ARCHS = ("qwen2-1.5b", "qwen3-4b", "xlstm-1.3b", "musicgen-medium")
+# QKV bias; qk_norm; mLSTM and sLSTM; a tied table, GELU, MQA; codebooks, layernorm
+# and sinusoidal positions
+ARCHS = ("qwen2-1.5b", "qwen3-4b", "xlstm-1.3b", "paligemma-3b", "musicgen-medium")
 # musicgen-medium keeps a full table: under CCE its reduced config takes the
 # budget the port's launcher gives it
 OVERRIDES = {"musicgen-medium": dict(emb_method="cce", emb_budget=tlaunch.REDUCED_EMB_BUDGET)}
@@ -118,11 +121,14 @@ def test_slice_tracks_jax_through_a_transition(both):
     assert ttr.clusters_done == jtr.clusters_done == 1
     assert ttr.state.step == int(jtr.state.step) == STEPS
     got, want = jax_leaves(convert.to_numpy(ttr.state.ebuf)), _np_leaves(jtr.state.ebuf)
-    assert len(got) == len(want) == 6  # ptr, hs, epoch of the token table and the head
+    tied = _reduced(tconfigs, both["arch"]).tie_embeddings
+    # ptr, hs, epoch of the token table, and of the head unless it is the table
+    assert len(got) == len(want) == (3 if tied else 6)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
-    assert int(ttr.state.ebuf["emb"]["epoch"]) == 1 and int(ttr.state.ebuf["head"]["epoch"]) == 0
+    assert int(ttr.state.ebuf["emb"]["epoch"]) == 1
+    assert tied or int(ttr.state.ebuf["head"]["epoch"]) == 0
     if both["arch"] == "musicgen-medium":
         assert ttr.id_tracker is None and jtr.id_tracker is None
     else:

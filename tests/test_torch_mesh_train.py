@@ -1,12 +1,12 @@
-"""The (data, model) mesh over gloo ranks: the dense LM's sharded train
-and serve steps and the 2-D DLRM trainer, held against the unsharded
-port.
+"""The (data, model) mesh over gloo ranks: the LMs' sharded train and
+serve steps and the 2-D DLRM trainer, held against the unsharded port.
 
 Three worlds run side by side, one ``torch.multiprocessing.spawn`` each
 (a ``FileStore`` in ``tmp_path``, one thread a rank): a world of 1 (the
-LM at (1, 1)), of 2 (the LM at (1, 2), then DLRM at (2, 1) and (1, 2))
-and of 4 (the LM at (2, 2), then DLRM at (2, 2)).  This module imports
-nothing of JAX, so the ranks, which import it, do not load it.
+LMs at (1, 1)), of 2 (the LMs at (1, 2), the vlm, audio and moe families
+at (2, 1) too, then DLRM at (2, 1) and (1, 2)) and of 4 (the LMs at (2,
+2), then DLRM at (2, 2)).  This module imports nothing of JAX, so the ranks,
+which import it, do not load it.
 
 * The LM, reduced command-r-35b (parallel block, layernorm) and reduced
   qwen2-1.5b (QKV bias; 2 KV heads, and 1 KV head, which 2 model ranks
@@ -19,6 +19,15 @@ nothing of JAX, so the ranks, which import it, do not load it.
   at (1, 2) and (2, 2) within ``TOL`` (float32 sums in another order),
   qwen2's key bias within lr x steps (its gradient is float noise, which
   adam scales to about ±lr; ``test_torch_lm_train.py``).
+* The same for reduced paligemma-3b (tied CCE head, MQA held whole; its
+  train batches carry ``patch_emb``), musicgen-medium (full table and
+  head, 4 codebooks, MHA) and phi3.5-moe (4 experts over the data axis,
+  2 a rank at D = 2; ``moe_group`` 8 and 8-token prompts, so that a data
+  rank's tokens are whole groups), at (1, 1), (1, 2), (2, 1) and (2, 2):
+  at (2, 1) and (2, 2) the experts' gradients arrive whole through the
+  all-to-alls and the clip's norm sums their slices over the data group.
+  The moe step's "aux", summed over the data group, tracks the (1, 1)
+  step's within ``TOL``.
 * DLRM (reduced Criteo at cap 300, ``k_multiple`` M): 4 steps of
   ``build_dlrm_sharded_trainer`` on the mesh, a transition at step 3, a
   checkpoint at 4.  The data axis changes nothing but the order of float
@@ -43,9 +52,13 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-WORLDS = {1: [("lm", 1, 1)], 2: [("lm", 1, 2), ("dlrm", 2, 1), ("dlrm", 1, 2)],
-          4: [("lm", 2, 2), ("dlrm", 2, 2)]}
+WORLDS = {1: [("lm", 1, 1), ("family", 1, 1)],
+          2: [("lm", 1, 2), ("family", 1, 2), ("family", 2, 1), ("dlrm", 2, 1), ("dlrm", 1, 2)],
+          4: [("lm", 2, 2), ("family", 2, 2), ("dlrm", 2, 2)]}
 LM_CASES = {"command-r-35b": {}, "qwen2-1.5b": {}, "qwen2-1.5b-kv1": {"n_kv_heads": 1}}
+FAMILY_CASES = {"paligemma-3b": {}, "musicgen-medium": {"n_kv_heads": 4},
+                "phi3.5-moe-42b-a6.6b": {"moe_group": 8}}
+MOE_PROMPT = 8  # a data rank's prompt: one whole group
 TOL = dict(rtol=1e-4, atol=1e-6)
 SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
 KEY_BIAS = "['blocks']['attn']['bk']"
@@ -90,7 +103,7 @@ def _record(res, tag, got, want, tol, *, bias_atol=None):
     res[f"{tag}/where"] = np.array(where)
 
 
-def _lm(case, mesh, res):
+def _lm(case, overrides, mesh, res):
     """One LM case on ``mesh``: the sharded train and serve steps against
     the unsharded ones, results under ``{case}@{D}x{M}/``."""
     from repro_torch import configs
@@ -103,12 +116,21 @@ def _lm(case, mesh, res):
 
     D, M = mesh.shape["data"], mesh.shape["model"]
     tag = f"{case}@{D}x{M}"
-    cfg = configs.get_reduced(_arch(case), train_microbatch=MICRO, **LM_CASES[case])
+    cfg = configs.get_reduced(_arch(case), train_microbatch=MICRO, **overrides)
     params, buffers = lm.init(cfg, torch.Generator().manual_seed(7), device="cpu")
     opt = adamw(weight_decay=0.1)
     rng = np.random.default_rng(11)
-    batches = [{"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab, (BATCH // MICRO, MICRO, SEQ)))} for _ in range(2)]
+    nc = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+
+    def batch():
+        b = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (BATCH // MICRO, MICRO, SEQ, *nc)))}
+        if cfg.family == "vlm":
+            b["patch_emb"] = torch.from_numpy(rng.standard_normal(
+                (BATCH // MICRO, MICRO, cfg.n_patches, cfg.d_model), dtype=np.float32))
+        return b
+
+    batches = [batch() for _ in range(2)]
 
     step, _, specs = steps.build_train_step(cfg, mesh, shape=shapes.Shape("t", SEQ, BATCH, "train"))
     state = steps.shard_state(loop.init_state(tree_map(torch.clone, params), opt, buffers),
@@ -118,13 +140,16 @@ def _lm(case, mesh, res):
                                     clip_norm=1.0)
     ref = loop.init_state(tree_map(torch.clone, params), opt, buffers)
     got_m, ref_m = [], []
-    for batch in batches:
-        state, m = step(state, batch)
-        ref, rm = ref_step(ref, batch)
+    for b in batches:
+        state, m = step(state, b)
+        ref, rm = ref_step(ref, b)
         got_m += [m["loss"], m["gnorm"]]
         ref_m += [rm["loss"], rm["gnorm"]]
+        if "aux" in m:
+            res[f"{tag}/aux"] = np.append(res.get(f"{tag}/aux", []), float(m["aux"]))
     _record(res, f"{tag}/metrics", got_m, ref_m, TOL)
-    whole = gather_tree(state.params, specs.params, mesh.model)
+    whole = gather_tree(gather_tree(state.params, specs.params, mesh.data, axis="data"),
+                        specs.params, mesh.model)
     _record(res, f"{tag}/params", whole, ref.params, TOL, bias_atol=2 * LR_STEP1)
     moments = gather_tree(gather_tree(state.opt, specs.opt, mesh.data, axis="data"),
                           specs.opt, mesh.model)
@@ -134,10 +159,14 @@ def _lm(case, mesh, res):
         cfg, mesh, "p", shape=shapes.Shape("p", MAX_SEQ, 2, "prefill"))
     decode, _, _ = steps.build_serve_step(cfg, mesh, "d",
                                           shape=shapes.Shape("d", MAX_SEQ, 2, "decode"))
-    local = shard_tree(params, pspecs, mesh.coords[1], M)
+    local = steps.shard_state(params, pspecs, mesh)
+    if cfg.family == "moe":
+        res[f"{tag}/experts"] = np.array([local["blocks"]["moe"]["wi"].shape[1],
+                                          state.params["blocks"]["moe"]["wi"].shape[1]])
     cache = lm.init_cache(cfg, 2 // D, MAX_SEQ, device="cpu", group=mesh.model)
     ref_cache = lm.init_cache(cfg, 2, MAX_SEQ, device="cpu")
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, PROMPT)))
+    prompt = MOE_PROMPT if cfg.family == "moe" else PROMPT
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, prompt, *nc)))
     got_l, ref_l = [], []
     with torch.no_grad():
         lg, cache = prefill(local, buffers, tokens, cache)
@@ -145,8 +174,8 @@ def _lm(case, mesh, res):
         got_l.append(lg)
         ref_l.append(rl)
         for t in range(TICKS):
-            nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (2,)))
-            pos = torch.full((2,), PROMPT + t, dtype=torch.int64)
+            nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, *nc)))
+            pos = torch.full((2,), prompt + t, dtype=torch.int64)
             lg, cache = decode(local, buffers, nxt, pos, cache)
             rl, ref_cache = lm.decode_step(params, buffers, cfg, nxt, pos, ref_cache)
             got_l.append(lg)
@@ -230,9 +259,9 @@ def _rank_main(rank, world, store, out):
         res[f"groups@{D}x{M}"] = np.array([dist.get_process_group_ranks(mesh.model),
                                            dist.get_process_group_ranks(mesh.data)],
                                           dtype=object)
-        if kind == "lm":
-            for case in LM_CASES:
-                _lm(case, mesh, res)
+        if kind in ("lm", "family"):
+            for case, overrides in (LM_CASES if kind == "lm" else FAMILY_CASES).items():
+                _lm(case, overrides, mesh, res)
         else:
             _dlrm(mesh, out, res)
     np.savez(os.path.join(out, f"{rank}.npz"), **res)
@@ -268,7 +297,8 @@ def runs(tmp_path_factory):
     return out
 
 
-MESHES = [(w, D, M) for w, runs in WORLDS.items() for _, D, M in runs]
+# the families run on meshes the LM's and DLRM's cases already lay out
+MESHES = [(w, D, M) for w, runs in WORLDS.items() for k, D, M in runs if k != "family"]
 
 
 @pytest.mark.parametrize("world,D,M", MESHES)
@@ -283,18 +313,43 @@ def test_rank_layout(runs, world, D, M):
 
 
 LM_MESHES = [(w, D, M) for w, runs in WORLDS.items() for k, D, M in runs if k == "lm"]
+FAMILY_MESHES = [(w, D, M) for w, runs in WORLDS.items() for k, D, M in runs if k == "family"]
+WHAT = ["metrics", "params", "moments", "logits", "cache"]
 
 
-@pytest.mark.parametrize("case", sorted(LM_CASES))
-@pytest.mark.parametrize("world,D,M", LM_MESHES)
-@pytest.mark.parametrize("what", ["metrics", "params", "moments", "logits", "cache"])
-def test_lm_steps_match_the_unsharded_port(runs, world, D, M, case, what):
+def _check_lm(runs, world, D, M, case, what):
     for r, res in enumerate(runs[world]):
         key = f"{case}@{D}x{M}/{what}"
         if (D, M) == (1, 1):
             assert bool(res[f"{key}/exact"]), f"rank {r}: {key} differs at (1, 1)"
         worst = float(res[f"{key}/worst"])
         assert worst <= 1.0, f"rank {r}: {key} {worst} x its tolerance at {res[f'{key}/where']}"
+
+
+@pytest.mark.parametrize("case", sorted(LM_CASES))
+@pytest.mark.parametrize("world,D,M", LM_MESHES)
+@pytest.mark.parametrize("what", WHAT)
+def test_lm_steps_match_the_unsharded_port(runs, world, D, M, case, what):
+    _check_lm(runs, world, D, M, case, what)
+
+
+@pytest.mark.parametrize("case", sorted(FAMILY_CASES))
+@pytest.mark.parametrize("world,D,M", FAMILY_MESHES)
+@pytest.mark.parametrize("what", WHAT)
+def test_family_steps_match_the_unsharded_port(runs, world, D, M, case, what):
+    _check_lm(runs, world, D, M, case, what)
+
+
+@pytest.mark.parametrize("world,D,M", [m for m in FAMILY_MESHES if m[1:] != (1, 1)])
+def test_moe_aux_is_summed_over_the_data_group(runs, world, D, M):
+    """The step's load-balancing loss: every rank reports the (1, 1)
+    step's, the unsharded one, within TOL."""
+    key = "phi3.5-moe-42b-a6.6b@{}x{}/{}"
+    want = runs[1][0][key.format(1, 1, "aux")]
+    assert want.shape == (2,) and np.all(np.isfinite(want))
+    for res in runs[world]:
+        np.testing.assert_allclose(res[key.format(D, M, "aux")], want, **TOL)
+        assert list(res[key.format(D, M, "experts")]) == [4 // D] * 2  # a rank's experts
 
 
 DLRM_MESHES = [(w, D, M) for w, runs in WORLDS.items() for k, D, M in runs if k == "dlrm"]

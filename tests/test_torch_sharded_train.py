@@ -83,7 +83,7 @@ def _shard_bytes_ok(tr) -> bool:
     from repro_torch.launch.steps import _pairs
 
     pairs = _pairs(tr.state, tr.specs)
-    splits = [(x, d) for x, d in pairs if d is not None]
+    splits = [(x, d) for x, d, _ in pairs if d is not None]
     return bool(splits) and all(
         x.numel() * M == torch.Size([s * (M if i == d else 1) for i, s in
                                      enumerate(x.shape)]).numel() for x, d in splits)

@@ -3,10 +3,12 @@
 cuBLAS's reduced-precision reductions of bfloat16 GEMMs allowed (torch's
 default) and not.
 
-    python3 tools/probe_bf16_grads.py [--arch xlstm-1.3b]
+    python3 tools/probe_bf16_grads.py [--arch xlstm-1.3b] [--layers N]
 
 Initialises the full-width model as ``chip_smoke.py``'s training phases do
-(``lm.init`` from ``LM_SEED`` on the card), takes ``chip_smoke.lm_cut`` of
+(``lm.init`` from ``LM_SEED`` on the card, at ``--layers`` blocks: the
+config's depth by default; the cut's weights depend on it, since the init
+draws every block of a kind before the next kind's), takes ``chip_smoke.lm_cut`` of
 it (xlstm: its first mLSTM and first sLSTM block) and the first loss and
 gradients of chip_smoke's cut batch (2 x LM_CUT_SEQ tokens): on the CPU in
 float32 and bfloat16, and on the card in bfloat16 with
@@ -38,13 +40,14 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=cs.XLSTM_ARCH)
+    ap.add_argument("--layers", type=int, default=0, help="the model's depth (0: the config's)")
     args = ap.parse_args(argv)
     cs.check(torch.cuda.is_available(), "no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"card: {cs.card_line()}; torch {torch.__version__}", flush=True)
 
-    cfg = configs.get(args.arch)
+    cfg = configs.get(args.arch, **({"n_layers": args.layers} if args.layers else {}))
     params, buffers = lm.init(cfg, torch.Generator(device="cuda").manual_seed(cs.LM_SEED),
                               device="cuda")
     cut_cfg, cut_p = cs.lm_cut(cfg, params)
@@ -77,7 +80,8 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
         cols[f"card{i + 1}{'+-+'[i]}"] = rel(jax_leaves(grads(torch.bfloat16, cut_p, buffers, "cuda")))
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
-    print(f"{args.arch} cut ({cut_cfg.n_layers} blocks, d {cfg.d_model}), {cs.LM_TRAIN_BATCH} x "
+    print(f"{args.arch} cut ({cut_cfg.n_layers} blocks of a {cfg.n_layers}-block init, d "
+          f"{cfg.d_model}), {cs.LM_TRAIN_BATCH} x "
           f"{cs.LM_CUT_SEQ} tokens: bfloat16 gradients against the CPU's float32, relative to "
           f"each leaf's largest; card1+ and card3+ with reduced-precision reductions allowed, card2- not; "
           f"ratio = card / CPU's own bfloat16")
