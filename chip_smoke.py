@@ -37,7 +37,13 @@
    functions, gathered and summed in rank order) against the unsharded
    layer, flash and the lookup timed for a rank's slice and the whole; and
    ``build_train_step`` on a 2-layer float32 cut (2 x 1024 tokens) held
-   bit for bit against the unsharded step.
+   bit for bit against the unsharded step.  The other families on the
+   same mesh: paligemma-3b, musicgen-medium and phi3.5-moe ((e)-(g)),
+   hymba-1.5b at 8 of 32 layers (prompts on both sides of its 1024-token
+   window) and xlstm-1.3b at 16 of 48 ((h)), each served bit for bit,
+   trained on a float32 cut bit for bit, its model ranks emulated (hymba's
+   uneven whole KV groups at 2 and 4 ranks) and its kernels timed at a
+   rank's shapes.
 4. Runs the paper's training loop at that width through
    ``launch.train.build_dlrm_trainer``: a ``Trainer`` with the sketch
    frequency tracker (cell count in the step, host fold on a background
@@ -216,6 +222,14 @@ MESH_FAMILY_TICKS = 8  # (e): batched decode ticks after MESH_PROMPT_LENS' prefi
 MESH_EP_RANKS = 4  # (f): phi3.5-moe's data ranks emulated, 4 of its 16 experts each
 MESH_EP_ROWS = 4  # (f): rows of the MoE layer's input, each one moe_group of 2048 tokens
 MESH_MOE_TRAIN_LAYERS = 2  # (g): phi3.5-moe's cut, float32: ~42 GB of state and gradients
+# (h): the hybrid and xlstm families: each served at full width cut to these layers
+MESH_RECURRENT = {"hymba-1.5b": 8, "xlstm-1.3b": 16}  # of 32 and of 48 (2 of 6 superblocks)
+MESH_RECURRENT_TICKS = 4
+MESH_RECURRENT_TRAIN = {"hymba-1.5b": (2, 512), "xlstm-1.3b": (8, 256)}  # (layers, seq), f32
+MESH_RECURRENT_RANKS = {"hymba-1.5b": (2, 4), "xlstm-1.3b": (4,)}  # model ranks emulated
+MESH_RECURRENT_SEQ = 512  # the emulated cut's prompt, within hymba's window (flash)
+MESH_RANK_FLASH_S = 1024  # hymba's flash at a rank's heads: its window
+MESH_RANK_ROWS = (2048, 8)  # the lookup at a rank's dsub slice: a prefill's and a tick's rows
 LOOKUP_BATCHES = (1, 7, SERVE_BATCH, TRAIN_BATCH, 4096)
 BWD_BATCHES = (256, TRAIN_BATCH, 4096)
 LM_DSUB = 384  # the LM token table's sub-row width (qwen2-1.5b: d 1536 over c=4)
@@ -3654,8 +3668,8 @@ def lm_serve_phase(card: str, cfg, device="cuda", *, label="lm", check_prompt=LM
                 lp = lm.layer_params(params["blocks"], 0)
                 x = lm.embed(params, buffers, cfg, torch.from_numpy(toks).to(device))
                 hin = L.apply_norm(lp["ln1"], x)
-                xz = hin @ lp["ssm"]["in_proj"].to(hin.dtype)
-                dt, B_t, C_t, _, xc, _ = ssm_lib._selective_terms(lp["ssm"], cfg, xz)
+                xc, _, proj, _ = ssm_lib.ssm_project(lp["ssm"], cfg, hin)
+                dt, B_t, C_t = ssm_lib._split_proj(lp["ssm"], cfg, proj)
                 A = -torch.exp(lp["ssm"]["A_log"].float())
                 terms = (dt, B_t.float(), C_t.float(), xc.float(), A)
                 branch = cfg.n_layers * device_busy_ms(
@@ -4516,14 +4530,17 @@ def _n_params(params) -> int:
 
 
 def mesh_serve(card: str, cfg, mesh, params, buffers, device="cuda", *, part="(a)",
-               ticks=None) -> dict:
-    """(a), and (e) for the other families: ``launch.steps.build_serve_step``
-    on the (1, 1) mesh: the MESH_PROMPT_LENS prompts (the audio family's
-    of n_codebooks streams), each prefilled alone into its row of a 4-row
-    cache, then ``ticks`` (MESH_TICKS) batched greedy ticks, held bit for bit against
-    ``lm.prefill``/``lm.decode_step`` on the card (every logit and every
-    cache leaf); the launches of the sharded run; a 1900-token prefill's
-    and a tick's host and device busy time.  Returns the launches."""
+               ticks=None, timing_iters=(3, 10)) -> dict:
+    """(a), and (e) and (h) for the other families:
+    ``launch.steps.build_serve_step`` on the (1, 1) mesh: the
+    MESH_PROMPT_LENS prompts (the audio family's of n_codebooks streams;
+    hymba's on both sides of its 1024-token window), each prefilled alone
+    into its row of a 4-row cache, then ``ticks`` (MESH_TICKS) batched
+    greedy ticks, held bit for bit against ``lm.prefill``/``lm.decode_step``
+    on the card (every logit and every cache leaf); the launches of the
+    sharded run (flash in every prefill within the window); a 1900-token
+    prefill's and a tick's host and device busy time, over
+    ``timing_iters`` calls each.  Returns the launches."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4543,13 +4560,17 @@ def mesh_serve(card: str, cfg, mesh, params, buffers, device="cuda", *, part="(a
                for n in MESH_PROMPT_LENS]
     lens = torch.tensor(MESH_PROMPT_LENS, device=device)
     B = len(prompts)
+    axes = lm.cache_batch_axis(cfg)
+
+    def rows(cache, i, n=1):  # rows i..i+n of every cache leaf, along its batch axis
+        return {k: v.narrow(axes[k], i, n) for k, v in cache.items()}
 
     def serve(pre, dec, cache, picks=None):
         """Each prompt into its row, then the ticks: (logits of every call,
         the tokens each tick was fed: ``picks``, else the greedy ones)."""
         out, fed = [], []
         for i, toks in enumerate(prompts):
-            lg, _ = pre(toks, {k: v[:, i:i + 1] for k, v in cache.items()})
+            lg, _ = pre(toks, rows(cache, i))
             out.append(lg)
         nxt = torch.cat(out).float().argmax(-1)
         for t in range(ticks):
@@ -4563,8 +4584,11 @@ def mesh_serve(card: str, cfg, mesh, params, buffers, device="cuda", *, part="(a
     with torch.inference_mode():
         cache = lm.init_cache(cfg, B, MESH_MAX_SEQ, device=device, group=mesh.model)
         ref_cache = lm.init_cache(cfg, B, MESH_MAX_SEQ, device=device)
-        check(cspecs["k"].model == 3 and all(cache[k].shape == ref_cache[k].shape for k in cache),
-              f"the (1, 1) cache {tuple(cache['k'].shape)} is not the unsharded one")
+        check(set(cache) == set(ref_cache) and all(cache[k].shape == ref_cache[k].shape
+                                                   for k in cache)
+              and ("k" not in cspecs or cspecs["k"].model == 3),
+              f"the (1, 1) cache {({k: tuple(v.shape) for k, v in cache.items()})} is not the "
+              f"unsharded one")
         torch.cuda.synchronize()
         ops.LAUNCHES.clear()
         t0 = time.perf_counter()
@@ -4577,10 +4601,11 @@ def mesh_serve(card: str, cfg, mesh, params, buffers, device="cuda", *, part="(a
                         lambda n, p, c: lm.decode_step(params, buffers, cfg, n, p, c),
                         ref_cache, picks=fed)
         lookups = B + ticks if cfg.emb_method == "cce" else 0
-        check(launches.get("flash_attention") == cfg.n_layers * B
+        flash = 0 if cfg.family == "xlstm" else cfg.n_layers * sum(
+            1 for n in MESH_PROMPT_LENS if not cfg.sliding_window or n <= cfg.sliding_window)
+        check(launches.get("flash_attention", 0) == flash
               and launches.get("cce_lookup_fwd", 0) == lookups,
-              f"mesh serve launches {launches}: want {cfg.n_layers * B} flash and "
-              f"{lookups} lookups")
+              f"mesh serve launches {launches}: want {flash} flash and {lookups} lookups")
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
               "the (1, 1) serve step's logits differ from lm.prefill/decode_step's")
         check(all(torch.equal(cache[k], ref_cache[k]) for k in ref_cache),
@@ -4591,7 +4616,7 @@ def mesh_serve(card: str, cfg, mesh, params, buffers, device="cuda", *, part="(a
               f"prefilled alone into their rows, {ticks} batched ticks, {host_s!r} s; "
               f"launches {launches}; every logit ({len(got)} calls) and cache leaf equal to "
               f"lm.prefill/decode_step's on the card bit for bit", flush=True)
-        row = {k: v[:, B - 1:B] for k, v in cache.items()}
+        row = rows(cache, B - 1)
 
         def one_prefill():
             prefill(local, buffers, prompts[-1], row)
@@ -4600,9 +4625,12 @@ def mesh_serve(card: str, cfg, mesh, params, buffers, device="cuda", *, part="(a
             decode(local, buffers, fed[-1], lens + ticks, cache)
 
         timing = {}
-        for name, fn, iters in (("prefill", one_prefill, 3), ("tick", one_tick, 10)):
+        for name, fn, iters in (("prefill", one_prefill, timing_iters[0]),
+                                ("tick", one_tick, timing_iters[1])):
+            # an xlstm prefill launches ~27 kernels a token: one call's raw trace
+            long = cfg.family == "xlstm" and name == "prefill"
             timing[name] = (time_ms(fn, iters=iters, reps=3, warmup=2),
-                            device_busy_ms(fn, iters=iters))
+                            device_busy_long_ms(fn) if long else device_busy_ms(fn, iters=iters))
         print(f"[{card}] mesh {part} {cfg.name} {cfg.n_layers} layers: prefill "
               f"{MESH_PROMPT_LENS[-1]}: host {timing['prefill'][0]!r} ms, device busy "
               f"{timing['prefill'][1]!r} ms; decode tick ({B} rows): host {timing['tick'][0]!r} "
@@ -4612,18 +4640,25 @@ def mesh_serve(card: str, cfg, mesh, params, buffers, device="cuda", *, part="(a
 
 def emulate_model_ranks(cfg, params, buffers, M: int, S: int, device="cuda") -> dict:
     """The model axis of M ranks emulated in one process on the first
-    full-width layer of ``params``, the token table and the head, in
-    float32 on an S-token prompt: each rank's slices (``lm.param_specs``)
-    run in turn through the functions the sharded ``lm.prefill`` calls
-    around its collectives (``lm.embed_share``: its slice of the lookup;
-    ``lm.prefill_attention_share``: its query and KV heads through flash;
+    full-width layer of ``params`` (the xlstm family's first superblock),
+    the token table and the head, in float32 on an S-token prompt: each
+    rank's slices (``lm.param_specs``) run in turn through the functions
+    the sharded ``lm.prefill`` calls around its collectives
+    (``lm.embed_share``: its slice of the lookup;
+    ``lm.prefill_attention_share``: its query and KV heads (whole GQA groups
+    where M divides neither head count) through flash; ``ssm.ssm_project``
+    and ``ssm_scan``: its SSM channels, ``lm.hybrid_mix``;
+    ``xlstm.mlstm_up`` and ``mlstm_heads``: its mLSTM heads;
+    ``xlstm.slstm_input``, ``slstm_recur`` and ``slstm_ffn``: its sLSTM
+    pre-activations and FFN slices around the whole recurrence;
     ``lm.parallel_share``, ``layers.mlp_partial`` or ``moe.apply_moe`` on
     its ff slices; ``lm.head_share``'s partial scores or
     ``lm.vocab_share``'s rows of the logits), with the all-gathers and
     all-reduces replaced by concatenations and sums in rank order.  Held
-    against the unsharded 1-layer prefill: the lookup bit for bit, the
-    logits and each rank's k/v within LM_LOGIT_RTOL of the largest
-    magnitude.  Returns {"logits", "k", "v"}: those errors."""
+    against the unsharded prefill of the cut: the lookup bit for bit, the
+    logits and each rank's cache slices within LM_LOGIT_RTOL of the
+    largest magnitude.  Returns {"logits", and each cache leaf}: those
+    errors."""
     import dataclasses
 
     import numpy as np
@@ -4632,17 +4667,23 @@ def emulate_model_ranks(cfg, params, buffers, M: int, S: int, device="cuda") -> 
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     from repro_torch.models import moe as moe_lib
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import xlstm as xlstm_lib
     from repro_torch.shard import shard_tree
     from repro_torch.tree import tree_map
 
-    cut = dataclasses.replace(cfg, n_layers=1, dtype=torch.float32)
+    layers = cfg.slstm_every if cfg.family == "xlstm" else 1
+    cut = dataclasses.replace(cfg, n_layers=layers, dtype=torch.float32)
     cut_p = dict(params, blocks=tree_map(lambda t: t[:1], params["blocks"]))
     ranks = [shard_tree(cut_p, lm.param_specs(cut, M), r, M) for r in range(M)]
-    split = L.kv_heads_split(cut, M)
-    kvh = cut.n_kv_heads // M if split else cut.n_kv_heads
     nc = (cut.n_codebooks,) if cut.n_codebooks else ()
     toks = torch.from_numpy(np.random.default_rng(MESH_SEED + 1).integers(
         0, cut.vocab, (1, S, *nc))).to(device)
+    errs = collections.defaultdict(float)
+
+    def held(key, got, want):
+        errs[key] = max(errs[key], _max_rel(got, want.cpu()))
+
     with torch.inference_mode():
         ref_cache = lm.init_cache(cut, 1, S, device=device)
         want, _ = lm.prefill(cut_p, buffers, cut, toks, ref_cache)
@@ -4653,29 +4694,64 @@ def emulate_model_ranks(cfg, params, buffers, M: int, S: int, device="cuda") -> 
               f"{cfg.name}: the ranks' lookup slices gathered differ from the lookup")
         positions = torch.arange(S, device=device)[None]
         x = lm._add_positions(cut, x, positions)
-        freqs = L.rope_freqs(cut, device=device)
-        lp = lm.layer_params(cut_p["blocks"], 0)
-        lps = [lm.layer_params(rp["blocks"], 0) for rp in ranks]
-        h = L.apply_norm(lp["ln1"], x)
-        attn, kv = [], []
-        for r, q in enumerate(lps):
-            a, k, v = lm.prefill_attention_share(q, cut, h, positions, freqs, r, M)
-            check(a.shape == x.shape and k.shape[2] == kvh,
-                  f"a rank's attention {tuple(a.shape)}, KV heads {k.shape[2]}")
-            attn.append(a)
-            kv.append((k, v))
-        if cut.parallel_block:
-            x = lm.parallel_residual(lp, cut, x, sum(lm.parallel_share(q, cut, a, h)
-                                                     for q, a in zip(lps, attn)))
+        if cut.family == "xlstm":
+            walks = [lm._xlstm_blocks(cut_p["blocks"], cut)]
+            walks += [lm._xlstm_blocks(rp["blocks"], cut) for rp in ranks]
+            H = cut.n_heads // M
+            for (kind, at, _, norm), *rest in zip(*walks):
+                qs = [p for _, _, p, _ in rest]
+                hn = L.apply_norm(norm, x)
+                if kind == "m":
+                    ups = [xlstm_lib.mlstm_up(q, hn) for q in qs]
+                    xm = torch.cat([u[0] for u in ups], dim=-1)
+                    outs = [xlstm_lib.mlstm_heads(q, cut, xm, u[1]) for q, u in zip(qs, ups)]
+                    for r, (_, state) in enumerate(outs):
+                        for key, t in zip(("C", "n", "m"), state):
+                            held(key, t, ref_cache[key][at][:, r * H:(r + 1) * H])
+                    x = x + sum(o[0] for o in outs)
+                else:
+                    zx = torch.cat([xlstm_lib.slstm_input(q, hn) for q in qs], dim=-1)
+                    h, state = xlstm_lib.slstm_recur(qs[0], cut, zx)
+                    for key, t in zip(("s_c", "s_n", "s_h", "s_m"), state):
+                        held(key, t, ref_cache[key][at])
+                    x = x + sum(xlstm_lib.slstm_ffn(q, h) for q in qs)
         else:
-            x = x + sum(attn)
-            h2 = L.apply_norm(lp["ln2"], x)
-            if cut.family == "moe":  # each rank's experts' ff slices, combined in token space
-                x = x + sum(moe_lib.apply_moe(q["moe"], cut, h2, group_size=cut.moe_group)[0]
-                            for q in lps)
+            freqs = L.rope_freqs(cut, device=device)
+            lp = lm.layer_params(cut_p["blocks"], 0)
+            lps = [lm.layer_params(rp["blocks"], 0) for rp in ranks]
+            h = L.apply_norm(lp["ln1"], x)
+            attn = []
+            for r, q in enumerate(lps):
+                a, k, v = lm.prefill_attention_share(q, cut, h, positions, freqs, r, M)
+                lo, hi = L.kv_range(cut, r, M)
+                check(a.shape == x.shape and k.shape[2] == hi - lo,
+                      f"a rank's attention {tuple(a.shape)}, KV heads {k.shape[2]}")
+                attn.append(a)
+                for key, t in (("k", k), ("v", v)):
+                    held(key, t, ref_cache[key][0, :, :, lo:hi])
+            if cut.parallel_block:
+                x = lm.parallel_residual(lp, cut, x, sum(lm.parallel_share(q, cut, a, h)
+                                                         for q, a in zip(lps, attn)))
             else:
-                x = x + L.mlp_bias(lp["mlp"], cut,
-                                   sum(L.mlp_partial(q["mlp"], cut, h2) for q in lps))
+                if cut.family == "hybrid":  # the selective projection summed inside the branch
+                    proj = [ssm_lib.ssm_project(q["ssm"], cut, h) for q in lps]
+                    whole = sum(p[2] for p in proj)
+                    scans = [ssm_lib.ssm_scan(q["ssm"], cut, p[0], p[1], whole)
+                             for q, p in zip(lps, proj)]
+                    di = cut.ssm_inner // M
+                    for r, (p, (_, state)) in enumerate(zip(proj, scans)):
+                        held("ssm", state, ref_cache["ssm"][0, :, r * di:(r + 1) * di])
+                        held("conv", p[3], ref_cache["conv"][0, ..., r * di:(r + 1) * di])
+                    x = lm.hybrid_mix(lp, x, sum(attn), sum(s for s, _ in scans))
+                else:
+                    x = x + sum(attn)
+                h2 = L.apply_norm(lp["ln2"], x)
+                if cut.family == "moe":  # each rank's experts' ff slices, combined in token space
+                    x = x + sum(moe_lib.apply_moe(q["moe"], cut, h2, group_size=cut.moe_group)[0]
+                                for q in lps)
+                else:
+                    x = x + L.mlp_bias(lp["mlp"], cut,
+                                       sum(L.mlp_partial(q["mlp"], cut, h2) for q in lps))
         y = L.apply_norm(cut_p["ln_f"], x)[:, -1]
         if cut.emb_method == "full":
             got = torch.cat([lm.vocab_share(rp, cut, y) for rp in ranks], dim=-1)
@@ -4683,14 +4759,10 @@ def emulate_model_ranks(cfg, params, buffers, M: int, S: int, device="cuda") -> 
         else:
             got = lm.head_logits(buffers, cut, sum(lm.head_share(rp, cut, y, r, M)
                                                    for r, rp in enumerate(ranks)))
-        errs = {"logits": _max_rel(got, want.cpu())}
-        for key, i in (("k", 0), ("v", 1)):
-            errs[key] = max(_max_rel(kv[r][i], ref_cache[key][0, :, :, (
-                slice(r * kvh, (r + 1) * kvh) if split else slice(None))].cpu())
-                            for r in range(M))
+        errs = {"logits": _max_rel(got, want.cpu()), **errs}
         for what, err in errs.items():
             check(err <= LM_LOGIT_RTOL["float32"], f"{cfg.name} {what}: the {M} ranks' sum vs "
-                  f"the unsharded layer {err} of the largest > {LM_LOGIT_RTOL['float32']}")
+                  f"the unsharded cut {err} of the largest > {LM_LOGIT_RTOL['float32']}")
     return errs
 
 
@@ -4748,9 +4820,9 @@ def rank_lookup_numbers(card: str, cfg, params, buffers, M: int, *, whole: bool 
     return out
 
 
-def flash_rank_case(card: str, H: int, KVH: int, D: int, device="cuda") -> dict:
+def flash_rank_case(card: str, H: int, KVH: int, D: int, device="cuda", S=None) -> dict:
     """The flash kernel at a model rank's heads (H, KVH, D), causal, B=1,
-    S=FLASH_TIMED[-1]: held against its plain version as the flash phase
+    S (FLASH_TIMED[-1]): held against its plain version as the flash phase
     holds it (float32 within FLASH_TOL; bfloat16 at every CTA height
     within FLASH_TOL and FLASH_ROW_TOL of each row's scale), then timed
     beside SDPA and its bound (``flash_timed``)."""
@@ -4759,7 +4831,7 @@ def flash_rank_case(card: str, H: int, KVH: int, D: int, device="cuda") -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    S = FLASH_TIMED[-1]
+    S = FLASH_TIMED[-1] if S is None else S
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
@@ -4778,7 +4850,7 @@ def flash_rank_case(card: str, H: int, KVH: int, D: int, device="cuda") -> dict:
     print(f"[{card}] flash_attention at a rank's heads H={H} KVH={KVH} D={D} S={S}: vs plain "
           f"max_abs_err {errs!r}", flush=True)
     return dict(flash_timed(card, S, H, KVH, D, device=device), max_abs_err=errs["bfloat16"],
-                max_abs_err_float32=errs["float32"])
+                max_abs_err_float32=errs["float32"], S=S)
 
 
 def moe_ep_emulated(card: str, cfg, params, device="cuda") -> dict:
@@ -4887,12 +4959,15 @@ def mesh_family(card: str, mesh, arch: str, device="cuda") -> tuple[dict, dict]:
     return launches, numbers
 
 
-def mesh_train(card: str, mesh, device="cuda") -> dict:
-    """(c) ``launch.steps.build_train_step`` on the (1, 1) mesh: MESH_ARCH
-    at full width cut to MESH_TRAIN_LAYERS layers in float32, one
-    micro-batch of MESH_TRAIN_BATCH x MESH_TRAIN_SEQ tokens, MESH_TRAIN_STEPS
-    steps, held bit for bit against the unsharded ``make_train_step`` (the
-    same adamw, schedule and clip): every loss, gnorm, param and moment.
+def mesh_train(card: str, mesh, device="cuda", *, arch=MESH_ARCH, layers=MESH_TRAIN_LAYERS,
+               seq=MESH_TRAIN_SEQ, part="(c)") -> dict:
+    """(c), and (h) for the hybrid and xlstm families:
+    ``launch.steps.build_train_step`` on the (1, 1) mesh: ``arch``
+    (MESH_ARCH) at full width cut to ``layers`` (MESH_TRAIN_LAYERS) layers
+    in float32, one micro-batch of MESH_TRAIN_BATCH x ``seq``
+    (MESH_TRAIN_SEQ) tokens, MESH_TRAIN_STEPS steps, held bit for bit
+    against the unsharded ``make_train_step`` (the same adamw, schedule
+    and clip): every loss, gnorm, param and moment.  Prints the peak.
     Returns the sharded steps' launches."""
     import numpy as np
     import torch
@@ -4904,11 +4979,11 @@ def mesh_train(card: str, mesh, device="cuda") -> dict:
     from repro_torch.optim import adamw, cosine_schedule
     from repro_torch.train import loop
 
-    cfg = configs.get(MESH_ARCH, n_layers=MESH_TRAIN_LAYERS, dtype=torch.float32,
+    cfg = configs.get(arch, n_layers=layers, dtype=torch.float32,
                       train_microbatch=MESH_TRAIN_BATCH)
-    shape = shapes.Shape("mesh_train", MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, "train")
+    shape = shapes.Shape("mesh_train", seq, MESH_TRAIN_BATCH, "train")
     step, (_, batch_struct), specs = steps.build_train_step(cfg, mesh, shape=shape)
-    check(batch_struct["tokens"][0] == (1, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ),
+    check(batch_struct["tokens"][0] == (1, MESH_TRAIN_BATCH, seq),
           f"one micro-batch: {batch_struct}")
     t0 = time.perf_counter()
     params, buffers = lm.init(cfg, torch.Generator(device=device).manual_seed(MESH_SEED),
@@ -4917,11 +4992,11 @@ def mesh_train(card: str, mesh, device="cuda") -> dict:
     ref = loop.init_state(_clone_tree(params), opt, _clone_tree(buffers))
     state = steps.shard_state(loop.init_state(params, opt, buffers), specs, mesh)
     torch.cuda.synchronize()
-    print(f"[{card}] mesh (c) {cfg.name} cut to {cfg.n_layers} layers, float32: "
+    print(f"[{card}] mesh {part} {cfg.name} cut to {cfg.n_layers} layers, float32: "
           f"{_n_params(params)} params, two adamw states in {time.perf_counter() - t0:.3f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
     toks = torch.from_numpy(np.random.default_rng(MESH_SEED + 2).integers(
-        0, cfg.vocab, (1, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ))).to(device)
+        0, cfg.vocab, (1, MESH_TRAIN_BATCH, seq))).to(device)
     ref_step = loop.make_train_step(lambda p, b, mb: lm.next_token_loss(p, b, cfg, mb), opt,
                                     cosine_schedule(3e-4, 100, 10_000), accum=1, clip_norm=1.0)
     base = reset_peak()
@@ -4945,8 +5020,8 @@ def mesh_train(card: str, mesh, device="cuda") -> dict:
     check(got == want, f"build_train_step's (loss, gnorm) {got} != the unsharded step's {want}")
     check(_all_equal(state.params, ref.params) and _all_equal(state.opt, ref.opt),
           "build_train_step's params or moments differ from the unsharded step's")
-    print(f"[{card}] mesh (c) build_train_step on the (1, 1) mesh, {MESH_TRAIN_STEPS} steps of "
-          f"{MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ} tokens: (loss, gnorm) {got!r}, host "
+    print(f"[{card}] mesh {part} {cfg.name} build_train_step on the (1, 1) mesh, "
+          f"{MESH_TRAIN_STEPS} steps of {MESH_TRAIN_BATCH} x {seq} tokens: (loss, gnorm) {got!r}, host "
           f"{host!r} ms, peak {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} over the "
           f"{base / 1e9:.2f} GB of both states at the reset); launches {launches}; every loss, "
           f"gnorm, param and adamw moment equal to the unsharded step's bit for bit", flush=True)
@@ -5042,6 +5117,88 @@ def mesh_moe_train(card: str, mesh, device="cuda") -> dict:
     return launches
 
 
+def rank_bwd_numbers(card: str, cfg, buffers, M: int, B: int = MESH_RANK_ROWS[0],
+                     device="cuda") -> dict:
+    """The lookup backward at one model rank's slice of ``cfg``'s token
+    table (c, T, k, dsub/M), float32, on B rows of uniform tokens:
+    ``bwd_check`` (bit for bit against its plain version, timed beside
+    its bound and ``index_add_``).  Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+
+    emb = lm.make_emb(cfg)
+    ids = torch.from_numpy(np.random.default_rng(MESH_SEED + 7).integers(
+        0, cfg.vocab, B)).to(device)
+    idx = emb._rows(buffers["emb"], ids).reshape(emb.c, -1, 2)
+    dout = torch.randn((B, emb.c, emb.dsub // M), device=device,
+                       generator=torch.Generator(device=device).manual_seed(MESH_SEED + 8))
+    err, nums = bwd_check(card, f"{cfg.name} rank_of_{M} c={emb.c} k={emb.k} "
+                          f"dsub={emb.dsub // M} B={B}", idx, dout, emb.k, plain_busy=False)
+    return dict(nums, max_abs_err=err, B=B, dsub=emb.dsub // M)
+
+
+def mesh_recurrent(card: str, mesh, arch: str, device="cuda") -> tuple[dict, dict]:
+    """(h) for the hybrid and xlstm families at full width: ``mesh_serve``
+    on the (1, 1) mesh cut to MESH_RECURRENT[arch] layers;
+    ``mesh_train`` on a float32 cut (MESH_RECURRENT_TRAIN); the model
+    ranks of MESH_RECURRENT_RANKS emulated (``emulate_model_ranks``: hymba
+    at 2 and 4 ranks, whose 5 KV groups split 3 / 2 and 2 / 1 / 1 / 1); the
+    kernels at a rank's shapes: flash at hymba's rank heads at
+    MESH_RANK_FLASH_S, the lookup at a rank's dsub slice, and the lookup
+    backward at one of xlstm's 4 ranks.  Returns ({path: launches},
+    numbers)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    full = configs.get(arch)
+    cfg = configs.get(arch, n_layers=MESH_RECURRENT[arch])
+    fam = full.family
+    t0 = time.perf_counter()
+    params, buffers = lm.init(cfg, torch.Generator(device=device).manual_seed(MESH_SEED),
+                              device=device)
+    torch.cuda.synchronize()
+    n = _n_params(params)
+    print(f"[{card}] mesh (h) init: {cfg.name} {cfg.n_layers} of {full.n_layers} layers, "
+          f"d={cfg.d_model} {cfg.n_heads}H/{cfg.n_kv_heads}KV: {n} params, "
+          f"{n * 4 / 2**30:.2f} GiB in {time.perf_counter() - t0:.3f} s", flush=True)
+    launches = {f"mesh_serve_{fam}": mesh_serve(
+        card, cfg, mesh, params, buffers, device, part="(h)", ticks=MESH_RECURRENT_TICKS,
+        timing_iters=(1, 5))}
+    numbers = {"emulated": {}, "flash": {}, "lookup": {}}
+    for M in MESH_RECURRENT_RANKS[arch]:
+        errs = emulate_model_ranks(cfg, params, buffers, M, MESH_RECURRENT_SEQ, device)
+        numbers["emulated"][M] = errs
+        groups = "" if fam == "xlstm" else f"KV heads {L.kv_split(full, M)}, "
+        print(f"[{card}] mesh (h) {M} model ranks emulated on {cfg.name}'s first "
+              f"{'superblock' if fam == 'xlstm' else 'layer'}, token table and head (float32, a "
+              f"{MESH_RECURRENT_SEQ}-token prompt): {groups}dsub {lm.make_emb(cfg).dsub // M}; the "
+              f"lookup gathered bit for bit; vs the unsharded cut, relative to the largest "
+              f"magnitude: " + ", ".join(f"{k} {v!r}" for k, v in errs.items()), flush=True)
+        numbers["lookup"][M] = rank_lookup_numbers(
+            card, cfg, params, buffers, M, rows=MESH_RANK_ROWS, device=device)[f"rank_of_{M}"]
+        if fam == "hybrid":
+            G = cfg.n_heads // cfg.n_kv_heads
+            for kvh in sorted(set(L.kv_split(full, M)), reverse=True):
+                if f"{G * kvh}/{kvh}" not in numbers["flash"]:
+                    numbers["flash"][f"{G * kvh}/{kvh}"] = flash_rank_case(
+                        card, G * kvh, kvh, cfg.head_dim, device, S=MESH_RANK_FLASH_S)
+    if fam == "xlstm":
+        numbers["bwd"] = rank_bwd_numbers(card, cfg, buffers, MESH_RECURRENT_RANKS[arch][-1],
+                                          device=device)
+    del params, buffers
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers, seq = MESH_RECURRENT_TRAIN[arch]
+    launches[f"mesh_train_{fam}"] = mesh_train(card, mesh, device, arch=arch, layers=layers,
+                                               seq=seq, part="(h)")
+    return launches, numbers
+
+
 def mesh_phase(card: str, device="cuda"):
     """The (data, model) mesh on the card, a world of one NCCL rank (one
     card), and the model and data axes emulated in one process: (a)
@@ -5050,8 +5207,9 @@ def mesh_phase(card: str, device="cuda"):
     copies; (b) ``mesh_emulated``; (c) ``mesh_train``.  (d), DLRM through
     the 2-D builder at (1, 1), is ``shard_train_phase``: its trainer is
     that builder.  (e) and (f), ``mesh_family`` for each of MESH_FAMILIES;
-    (g) ``mesh_moe_train``.  Returns ({path: launches}, (b)'s numbers,
-    {arch: (f)'s numbers})."""
+    (g) ``mesh_moe_train``; (h) ``mesh_recurrent`` for each of
+    MESH_RECURRENT.  Returns ({path: launches}, (b)'s numbers, {arch:
+    (f)'s numbers}, {arch: (h)'s numbers})."""
     import shutil
     import tempfile
 
@@ -5105,9 +5263,21 @@ def mesh_phase(card: str, device="cuda"):
         t = time.perf_counter()
         launches["mesh_train_moe"] = mesh_moe_train(card, mesh, device)
         seconds["(g)"] = time.perf_counter() - t
+        recurrent = {}
+        for arch in MESH_RECURRENT:
+            gc.collect()
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            base = reset_peak()
+            served, recurrent[arch] = mesh_recurrent(card, mesh, arch, device)
+            launches.update(served)
+            peak = torch.cuda.max_memory_allocated()
+            seconds[f"(h) {arch}"] = time.perf_counter() - t
+            print(f"[{card}] mesh (h) {arch} peak {(peak - base) / 1e9:.2f} GB over the "
+                  f"{base / 1e9:.2f} GB allocated before", flush=True)
         print(f"[{card}] mesh parts, s: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()),
               flush=True)
-        return launches, emulated, families
+        return launches, emulated, families, recurrent
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5234,15 +5404,21 @@ def main(argv=None) -> int:
                 "launches_by_path": by_path(name), "max_abs_err": err, **at, **extra}
 
     shard_at = shard[1]
-    mesh_at, mesh_families = mesh[1], mesh[2]
+    mesh_at, mesh_families, mesh_rec = mesh[1], mesh[2], mesh[3]
     steps = ("train", "train_after_transition", "shard_train", "loop", "methods", "lm_train",
-             "xlstm_train", "audio_train", "mesh_train", "mesh_train_moe")
+             "xlstm_train", "audio_train", "mesh_train", "mesh_train_moe", "mesh_train_hybrid",
+             "mesh_train_xlstm")
     rank_lookups = {a: f["lookup"] for a, f in mesh_families.items() if "lookup" in f}
+    rank_lookups |= {f"{a} at {M} model ranks": by_rows for a, r in mesh_rec.items()
+                     for M, by_rows in r["lookup"].items()}
+    hymba_flash = mesh_rec["hymba-1.5b"]["flash"]
+    rank_bwd = mesh_rec["xlstm-1.3b"]["bwd"]
     S = FLASH_TIMED[-1]
     kernels = [
         entry("cce_lookup_fwd",
               steps + ("lm_serve", "hybrid_serve", "vlm_serve", "xlstm_serve", "moe_serve",
-                       "mesh_serve", "mesh_serve_vlm", "mesh_serve_moe"),
+                       "mesh_serve", "mesh_serve_vlm", "mesh_serve_moe", "mesh_serve_hybrid",
+                       "mesh_serve_xlstm"),
               max(fwd_err, methods_err, lm_fwd_at["max_abs_err"], xl_fwd_at["max_abs_err"],
                   shard_at["max_abs_err"],
                   *(v["max_abs_err"] for v in (*hybrid_lookup.values(), *vlm_lookup.values(),
@@ -5257,9 +5433,10 @@ def main(argv=None) -> int:
               at_mesh_rank_shapes=rank_lookups,
               **{f"at_{m}_shape": methods_at[m]["fwd"] for m in METHOD_KERNEL_SHAPES}),
         entry("cce_lookup_bwd", steps,
-              max(bwd_err, methods_err, lm_bwd_err, xl_bwd_err, shard_at["max_abs_err"]), bwd_at,
+              max(bwd_err, methods_err, lm_bwd_err, xl_bwd_err, shard_at["max_abs_err"],
+                  rank_bwd["max_abs_err"]), bwd_at,
               batch=TRAIN_BATCH, at_lm_train_shape=lm_bwd_at, at_xlstm_train_shape=xl_bwd_at,
-              at_shard_shape=shard_at["bwd"],
+              at_shard_shape=shard_at["bwd"], at_xlstm_rank_of_4_shape=rank_bwd,
               **{f"at_{m}_shape": methods_at[m]["bwd"] for m in METHOD_KERNEL_SHAPES}),
         entry("kmeans_assign",
               ("transition", "shard_train", "loop", "methods", "lm_train", "xlstm_train",
@@ -5268,9 +5445,10 @@ def main(argv=None) -> int:
               at_lm_table_shape=lm_assign_at, at_xlstm_table_shape=xl_assign_at),
         entry("flash_attention",
               ("lm_serve", "hybrid_serve", "vlm_serve", "moe_serve", "audio_serve", "mesh_serve",
-               "mesh_serve_vlm", "mesh_serve_audio", "mesh_serve_moe"),
+               "mesh_serve_vlm", "mesh_serve_audio", "mesh_serve_moe", "mesh_serve_hybrid"),
               max(flash_err["bfloat16"], *(f["flash"]["max_abs_err"]
-                                           for f in mesh_families.values())),
+                                           for f in mesh_families.values()),
+                  *(f["max_abs_err"] for f in hymba_flash.values())),
               flash_at[S],
               max_abs_err_float32=flash_err["float32"],
               shape=dict(B=1, S=S, H=FLASH_HEADS[0][0], KVH=FLASH_HEADS[0][1], D=FLASH_DIMS[-1],
@@ -5296,8 +5474,10 @@ def main(argv=None) -> int:
                   by_length=flash_musicgen_at),
               at_command_r_shape=dict(S=2048, dtype="bfloat16", causal=True,
                                       **mesh_at["flash"]),
-              at_mesh_rank_shapes={a: dict(S=2048, dtype="bfloat16", causal=True, **f["flash"])
-                                   for a, f in mesh_families.items()}),
+              at_mesh_rank_shapes={a: dict(dtype="bfloat16", causal=True, **f["flash"])
+                                   for a, f in mesh_families.items()},
+              at_hymba_rank_shapes={f"H/KVH {k} D=64": dict(dtype="bfloat16", causal=True, **f)
+                                    for k, f in hymba_flash.items()}),
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_run:.1f} s")
     print(f"card: {card}")

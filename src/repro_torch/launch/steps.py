@@ -10,10 +10,11 @@ all of it.  The batch splits over every rank (``mesh.all_batch_axes``): a
 contiguous slice of the global batch a world rank, in rank order.
 ``dlrm_state_specs`` says which dim of each state leaf is split.
 
-The LMs (the dense, vlm, audio and moe families): ``param_specs`` splits
-the heads, the ff axis and the tables' columns (the audio family's full
-head its vocabulary) over the model axis, and the moe family's experts
-over the data axis (``models/lm.py``); the adamw moments split over the
+The LMs (every family): ``param_specs`` splits the heads (in whole GQA
+groups where M divides neither head count), the ff axis, the SSM's
+channels, the mLSTM's heads and the tables' columns (the audio family's
+full head its vocabulary) over the model axis, and the moe family's
+experts over the data axis (``models/lm.py``); the adamw moments split over the
 data axis too (ZeRO-1, ``optim.optimizers.zero1_specs``) where the param
 does not already; the batch splits over the data axis alone and is
 replicated over the model axis (``mesh.batch_axes``).

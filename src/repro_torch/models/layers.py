@@ -21,9 +21,14 @@ the functions take a rank's slices of the weights and count heads from
 their shapes.  q and wo split by heads, the MLP's ``wi``/``wg``/``bi``
 and ``wo`` by the ff axis; the attention output and ``mlp_partial`` are
 this rank's partial sums, which the caller adds over the group.  The KV
-projections split by KV heads when M divides them (``kv_heads_split``);
-otherwise every rank holds them whole, computes every KV head (its cache
-holds them all) and attends with the one its query heads read.  A
+projections split by KV heads when M divides them (``kv_split``); where M
+is a multiple of the KV heads every rank holds them whole, computes every
+KV head (its cache holds them all) and attends with the one its query
+heads read; where M divides neither the query heads nor the KV heads but
+M <= KVH, each rank holds a contiguous range of whole GQA groups (its KV
+heads and the query heads that read them), the first KVH % M ranks one
+group more: hymba's 5 groups are 3 / 2 at M = 2 and 2 / 1 / 1 / 1 at M =
+4, and every rank's flash call keeps the uniform GQA ratio.  A
 replicated weight used inside the region enters it through
 ``shard.copy_to_group``, so that its gradient is summed over the ranks'
 shares.  Without a group every function is the unsharded one.
@@ -147,26 +152,48 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
     return p
 
 
-def kv_heads_split(cfg: ModelConfig, n_model: int) -> bool:
-    """Whether the KV heads split over ``n_model`` ranks (each rank its
-    KVH/M), or every rank holds them all (M a multiple of KVH: each rank's
-    query heads then read one KV head).  Raises when the query heads do
-    not split, or neither divides the other."""
-    if cfg.n_heads % n_model:
-        raise ValueError(f"{cfg.n_heads} query heads do not split over {n_model} ranks")
-    if cfg.n_kv_heads % n_model == 0:
-        return True
-    if n_model % cfg.n_kv_heads == 0:
-        return False
-    raise ValueError(f"{cfg.n_kv_heads} KV heads neither split over nor divide "
-                     f"{n_model} ranks")
+def kv_split(cfg: ModelConfig, n_model: int) -> tuple[int, ...] | None:
+    """The KV heads each of ``n_model`` ranks holds, in rank order, each
+    with the query heads of its GQA groups; None where every rank holds
+    them all.  KVH/M each where M divides the query and KV heads; None
+    where M divides the query heads and is a multiple of KVH (each rank's
+    query heads then read one KV head); else, where M <= KVH, whole groups,
+    the first KVH % M ranks one more (``kv_range``).  Raises otherwise."""
+    H, KVH, M = cfg.n_heads, cfg.n_kv_heads, n_model
+    if H % M == 0 and KVH % M == 0:
+        return (KVH // M,) * M
+    if H % M == 0 and M % KVH == 0:
+        return None
+    if M <= KVH:
+        base, extra = divmod(KVH, M)
+        return tuple(base + (r < extra) for r in range(M))
+    if H % M:
+        raise ValueError(f"{H} query heads do not split over {M} ranks")
+    raise ValueError(f"{KVH} KV heads neither split over nor divide {M} ranks")
+
+
+def kv_range(cfg: ModelConfig, rank: int, M: int) -> tuple[int, int]:
+    """[start, stop) of the KV heads ``rank`` of M holds (``kv_split``);
+    rank r's query heads are those of its KV heads' groups."""
+    counts = kv_split(cfg, M)
+    if counts is None:
+        return 0, cfg.n_kv_heads
+    start = sum(counts[:rank])
+    return start, start + counts[rank]
+
+
+def kv_parts(cfg: ModelConfig, n_model: int) -> tuple[int, ...] | None:
+    """The ``shard.Spec.parts`` of the heads' cut over ``n_model`` ranks:
+    ``kv_split``'s counts where they differ, else None (an even cut)."""
+    counts = kv_split(cfg, n_model)
+    return counts if counts is not None and len(set(counts)) > 1 else None
 
 
 def local_kv(cfg: ModelConfig, k, rank: int, M: int):
     """The KV heads the query heads of ``rank`` of M read, out of the KV
     heads it holds (k (..., KVH_held, D), heads on dim -2): all of them
     when they split, else the one of ``rank // (M / KVH)``."""
-    if kv_heads_split(cfg, M):
+    if kv_split(cfg, M) is not None:
         return k
     j = rank // (M // cfg.n_kv_heads)
     return k[..., j:j + 1, :]
@@ -177,7 +204,7 @@ def _project_qkv(p, cfg: ModelConfig, x, group=None):
     query heads and the KV heads it holds under ``group``."""
     B, S, _ = x.shape
     dt = x.dtype
-    whole = group_size(group) > 1 and not kv_heads_split(cfg, group_size(group))
+    whole = group_size(group) > 1 and kv_split(cfg, group_size(group)) is None
 
     def kv(name):  # a replicated KV weight enters the region
         return copy_to_group(p[name], group) if whole else p[name]

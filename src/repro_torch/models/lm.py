@@ -44,11 +44,10 @@ vocab).  Not ported: ``remat="dots"``, and the JAX package's sharding
 options that no configuration sets (``seq_shard``, ``zero2_grads``,
 ``parallelism="fsdp"``), which raise by name.
 
-Tensor parallel, the dense, vlm, audio and moe families (``group=``, a
-model group of M ranks; ``data=``, the data group, which the moe family's
-experts split over; ``param_specs`` and ``cache_specs`` give the layout,
-``launch/steps.py`` builds the steps): each rank holds its slices of the
-weights, and
+Tensor parallel, every family (``group=``, a model group of M ranks;
+``data=``, the data group, which the moe family's experts split over;
+``param_specs`` and ``cache_specs`` give the layout, ``launch/steps.py``
+builds the steps): each rank holds its slices of the weights, and
 ``forward``, ``next_token_loss``, ``prefill`` and ``decode_step`` run a
 rank's share.  A block enters the region through ``shard.copy_to_group``
 (identity forward, gradient summed over the group) and leaves it through
@@ -68,16 +67,24 @@ vocabulary, so that every rank returns the whole (..., n_codebooks,
 vocab).  The vlm family's ``patch_proj`` splits its output columns,
 gathered before the patches are prepended.  The moe family's FFN is
 ``models/moe.py``'s: experts over the data group, their ff axis over the
-model group, one reduce in token space.  What a rank computes between the
-collectives is a function of its own (``embed_share``,
-``patch_share``, ``prefill_attention_share``, ``parallel_share``,
+model group, one reduce in token space.  The hybrid family's layer
+splits its attention heads (whole KV groups where M does not divide the
+query heads: ``layers.kv_split``) and its SSM channels
+(``models/ssm.py``: one all-reduce of the selective projection inside
+the branch); the two branches' partial sums are reduced together, once,
+before their norms, then the MLP goes as in the dense block.  The xlstm
+family's mLSTM blocks split their heads and its sLSTM blocks run their
+recurrence whole on every rank between one all-gather and one all-reduce
+(``models/xlstm.py``).  What a rank computes between the collectives is
+a function of its own (``embed_share``, ``patch_share``,
+``prefill_attention_share``, ``parallel_share``, ``hybrid_mix``,
 ``head_share``, ``vocab_share``; ``moe.dispatch`` and
-``moe.grouped_experts``), which takes its (rank, M) where its slice of
-the inputs depends on it: with the collectives replaced by a
-concatenation or a sum in rank order, the same calls emulate the M
-ranks in one process.  Without a group every function is the unsharded
-one.  The hybrid and xlstm families have no sharded layout yet and raise
-by name.
+``moe.grouped_experts``; ``ssm.ssm_project`` and ``ssm_scan``;
+``xlstm.mlstm_up``, ``mlstm_heads``, ``slstm_input``, ``slstm_recur`` and
+``slstm_ffn``), which takes its (rank, M) where its slice of the inputs
+depends on it: with the collectives replaced by a concatenation or a sum
+in rank order, the same calls emulate the M ranks in one process.
+Without a group every function is the unsharded one.
 """
 from __future__ import annotations
 
@@ -122,12 +129,12 @@ def _check(cfg: ModelConfig, group=None) -> None:
         _check_tp(cfg)
 
 
-TP_FAMILIES = ("dense", "vlm", "audio", "moe")
+TP_FAMILIES = ("dense", "vlm", "audio", "moe", "hybrid", "xlstm")
 
 
 def _check_tp(cfg: ModelConfig) -> None:
-    """The tensor-parallel layout: the dense, vlm, audio and moe families,
-    with CCE tables, or the audio family's full table and head."""
+    """The tensor-parallel layout: every family, with CCE tables, or the
+    audio family's full table and head."""
     if cfg.family not in TP_FAMILIES:
         raise NotImplementedError(f"the {cfg.family} family's sharded layout is not ported "
                                   f"(the {', '.join(TP_FAMILIES)} families only)")
@@ -298,6 +305,36 @@ def _unstack(blocks, n: int) -> list:
 # --- sharding specs -----------------------------------------------------------
 
 
+def _stacked(spec, n: int = 1):
+    """``spec`` (a tree) with ``n`` leading layer axes."""
+    if isinstance(spec, dict):
+        return {k: _stacked(v, n) for k, v in spec.items()}
+    return dataclasses.replace(spec, **{a: None if d is None else d + n for a, d in
+                                        (("model", spec.model), ("data", spec.data))})
+
+
+def _xlstm_heads(cfg: ModelConfig, n_model: int) -> None:
+    """The xlstm family splits whole heads over the model axis."""
+    if cfg.family == "xlstm" and cfg.n_heads % n_model:
+        raise ValueError(f"{cfg.n_heads} heads do not split over {n_model} ranks")
+
+
+def _xlstm_specs(cfg: ModelConfig):
+    """The xlstm stack's specs: the mLSTM's heads (``up``'s x and z halves
+    each by di/M), the sLSTM's input columns, its FFN's halves and rows;
+    wr, the sLSTM's output norm and the blocks' norms whole."""
+    whole = Spec()
+    col, row, halves = Spec(model=1), Spec(model=0), Spec(model=1, blocks=2)
+    mlstm = {"up": halves, "wq": col, "wk": col, "wv": col, "wi": col, "wf": col,
+             "bf": row, "bi": row, "ln_scale": row, "down": row}
+    slstm = {"wx": col, "wr": whole, "b": row, "ln_scale": whole, "up": halves, "down": row}
+    norm = {"scale": whole}
+    if cfg.slstm_every:
+        return {"mlstm": _stacked(mlstm, 2), "slstm": _stacked(slstm, 1),
+                "norms": {"m": norm, "s": norm}}
+    return {"mlstm": _stacked(mlstm, 1), "norms": norm}
+
+
 def param_specs(cfg: ModelConfig, n_model: int = 1):
     """The ``shard.Spec`` of every leaf of ``init``'s params over a model
     axis of ``n_model`` ranks and the data axis: the JAX package's
@@ -314,48 +351,39 @@ def param_specs(cfg: ModelConfig, n_model: int = 1):
     * the moe family's experts: wi, wg (E, d, f) and wo (E, f, d) split
       the experts (0) over the data axis and the ff axis over the model
       axis; the router whole;
+    * the hybrid family's SSM: in_proj, conv split their channel columns,
+      x_proj, A_log, out_proj their rows, dt_bias and D their channels;
+      attn_norm and ssm_norm whole;
+    * the xlstm family's blocks (``_xlstm_specs``);
     * the norms whole.
 
-    One deviation: where ``n_model`` does not divide the KV heads (qwen2's
-    2 at 4 ranks) the JAX package splits wk and wv through half heads; the
-    port holds them, bk and bv whole on every rank (``layers.kv_heads_split``),
-    so that a rank computes whole KV heads."""
+    The deviations from JAX's, each named in ``tests/test_torch_mesh.py``:
+    where M does not divide the KV heads but is a multiple of them (qwen2's
+    2 at 4 ranks) the JAX package splits wk and wv through half heads and
+    the port holds them, bk and bv whole on every rank; where M divides
+    neither the query nor the KV heads (hymba's 25 and 5 at 2 or 4 ranks)
+    the port cuts the attention's head axes into whole GQA groups
+    (``Spec.parts``, ``layers.kv_split``), where JAX cuts them evenly,
+    through heads; the SSM's in_proj and the xlstm family's two-half ``up``
+    projections split each half (``Spec.blocks``), where JAX splits the
+    concatenation; the mLSTM's wi and wf split their head columns and bi
+    and bf their heads, where JAX splits wi's and wf's rows and holds the
+    biases whole."""
     _check(cfg)
     _check_tp(cfg)
-    kv = 1 if L.kv_heads_split(cfg, n_model) else None
+    _xlstm_heads(cfg, n_model)
     whole = Spec()
 
     def norm():
         return {"scale": whole} | ({"bias": whole} if cfg.norm == "layernorm" else {})
 
-    attn = {"wq": Spec(model=1), "wk": Spec(model=kv), "wv": Spec(model=kv),
-            "wo": Spec(model=0)}
-    if cfg.qkv_bias:
-        attn |= {"bq": Spec(model=0), "bk": Spec(model=0 if kv else None),
-                 "bv": Spec(model=0 if kv else None)}
-    if cfg.qk_norm:
-        attn |= {"q_norm": whole, "k_norm": whole}
-    if cfg.act == "swiglu":
-        mlp = {"wi": Spec(model=1), "wg": Spec(model=1), "wo": Spec(model=0)}
-    else:
-        mlp = {"wi": Spec(model=1), "bi": Spec(model=0), "wo": Spec(model=0), "bo": whole}
-    layer = {"ln1": norm(), "attn": attn}
-    if not cfg.parallel_block:
-        layer["ln2"] = norm()
-    if cfg.family == "moe":
-        layer["moe"] = {"router": whole, "wi": Spec(model=2, data=0),
-                        "wg": Spec(model=2, data=0), "wo": Spec(model=1, data=0)}
-    elif cfg.d_ff:
-        layer["mlp"] = mlp
-
-    def stacked(spec):  # the leading layer axis
-        if isinstance(spec, dict):
-            return {k: stacked(v) for k, v in spec.items()}
-        return Spec(*(None if d is None else d + 1 for d in (spec.model, spec.data)))
-
     full = cfg.emb_method == "full"
-    specs = {"emb": {"table": Spec(model=1)} if full else {"tables": Spec(model=3)},
-             "blocks": stacked(layer), "ln_f": norm()}
+    specs = {"emb": {"table": Spec(model=1)} if full else {"tables": Spec(model=3)}}
+    if cfg.family == "xlstm":
+        specs["blocks"] = _xlstm_specs(cfg)
+    else:
+        specs["blocks"] = _stacked(_layer_specs(cfg, n_model, norm))
+    specs["ln_f"] = norm()
     if not cfg.tie_embeddings:
         specs["head"] = Spec(model=0) if full else {"tables": Spec(model=3)}
     if cfg.family == "vlm":
@@ -363,19 +391,72 @@ def param_specs(cfg: ModelConfig, n_model: int = 1):
     return specs
 
 
+def _layer_specs(cfg: ModelConfig, n_model: int, norm):
+    """One layer's specs for every family but xlstm (``param_specs``)."""
+    whole = Spec()
+    kv = None if L.kv_split(cfg, n_model) is None else 1
+    parts = L.kv_parts(cfg, n_model)
+    attn = {"wq": Spec(model=1, parts=parts), "wk": Spec(model=kv, parts=parts),
+            "wv": Spec(model=kv, parts=parts), "wo": Spec(model=0, parts=parts)}
+    if cfg.qkv_bias:
+        bkv = Spec(model=0 if kv else None, parts=parts)
+        attn |= {"bq": Spec(model=0, parts=parts), "bk": bkv, "bv": bkv}
+    if cfg.qk_norm:
+        attn |= {"q_norm": whole, "k_norm": whole}
+    if cfg.act == "swiglu":
+        mlp = {"wi": Spec(model=1), "wg": Spec(model=1), "wo": Spec(model=0)}
+    else:
+        mlp = {"wi": Spec(model=1), "bi": Spec(model=0), "wo": Spec(model=0), "bo": whole}
+    layer = {"ln1": norm(), "attn": attn}
+    if cfg.family == "hybrid":
+        col, row = Spec(model=1), Spec(model=0)
+        layer["ssm"] = {"in_proj": Spec(model=1, blocks=2), "conv": col, "x_proj": row,
+                        "out_proj": row, "dt_bias": row, "A_log": row, "D": row}
+        layer["attn_norm"] = whole
+        layer["ssm_norm"] = whole
+    if not cfg.parallel_block:
+        layer["ln2"] = norm()
+    if cfg.family == "moe":
+        layer["moe"] = {"router": whole, "wi": Spec(model=2, data=0),
+                        "wg": Spec(model=2, data=0), "wo": Spec(model=1, data=0)}
+    elif cfg.d_ff:
+        layer["mlp"] = mlp
+    return layer
+
+
 def cache_specs(cfg: ModelConfig, n_model: int = 1, *, batch_split: bool = True):
-    """The ``shard.Spec`` of the cache's "k" and "v" (L, B, S, KVH, D), for
-    every family with a sharded layout: the batch over the data axis
-    (``batch_split``), the KV heads (3) over the model axis.  The JAX
-    package splits head_dim (4) instead, since its
-    KV-head counts rarely divide the axis; the port's attention reads
-    whole heads, so it splits the heads where they divide, and where they
-    do not (``layers.kv_heads_split``) every rank holds them all."""
+    """The ``shard.Spec`` of every cache leaf: the batch over the data axis
+    (``batch_split``); over the model axis, the KV heads (3) of "k" and "v"
+    (L, B, S, KVH, D) where they split, in whole GQA groups where M divides
+    neither the query nor the KV heads (``layers.kv_split``); the hybrid
+    family's "ssm" (L, B, di, ds) and "conv" (L, B, K-1, di) their
+    channels; the xlstm family's mLSTM states "C", "n", "m" their heads,
+    its sLSTM states whole.  The deviations from JAX's: JAX splits
+    head_dim (4) of k and v, since its KV-head counts rarely divide the
+    axis, where the port's attention reads whole heads and so splits the
+    heads where they divide, and where they do not every rank holds them
+    all; JAX splits the head_dim of C and n and holds m whole, where the
+    port splits their heads; JAX splits the sLSTM states' d, where the
+    port's ranks each run the whole recurrence (``models/xlstm.py``)."""
     _check(cfg)
     _check_tp(cfg)
-    spec = Spec(model=3 if L.kv_heads_split(cfg, n_model) else None,
-                data=1 if batch_split else None)
-    return {"k": spec, "v": spec}
+    _xlstm_heads(cfg, n_model)
+
+    def spec(batch_dim, model=None, parts=None):
+        return Spec(model=model, data=batch_dim if batch_split else None, parts=parts)
+
+    if cfg.family == "xlstm":
+        lead = 2 if cfg.slstm_every else 1
+        heads = spec(lead, lead + 1)
+        out = {"C": heads, "n": heads, "m": heads}
+        if cfg.slstm_every:
+            out |= {key: spec(1) for key in _XLSTM_STATE["s"]}
+        return out
+    kv = spec(1, None if L.kv_split(cfg, n_model) is None else 3, L.kv_parts(cfg, n_model))
+    out = {"k": kv, "v": kv}
+    if cfg.family == "hybrid":
+        out |= {"ssm": spec(1, 2), "conv": spec(1, 3)}
+    return out
 
 
 # --- embedding lookup / logits -----------------------------------------------
@@ -547,8 +628,9 @@ def _block_train(p, cfg: ModelConfig, x, positions, freqs, *, decode_cache=None,
     ``decode_cache`` (this layer's rows of the cache, written in place) is
     given.  Returns (x, aux): aux the moe family's load-balancing loss
     over a sequence, else None.  Under ``group`` this rank's share of a
-    dense block (``_dense_out``) or of a moe block (its attention heads,
-    its experts' ff slices; its experts over ``data``)."""
+    dense block (``_dense_out``), of a moe block (its attention heads, its
+    experts' ff slices; its experts over ``data``) or of a hybrid block
+    (its heads and SSM channels, ``_hybrid_out``)."""
     h = L.apply_norm(p["ln1"], x)
     ht = copy_to_group(h, group)
     if decode_cache is None:
@@ -558,13 +640,13 @@ def _block_train(p, cfg: ModelConfig, x, positions, freqs, *, decode_cache=None,
                                         decode_cache["v"], freqs, group)
     if cfg.family == "hybrid":
         if decode_cache is None:
-            s = ssm_lib.ssm_train(p["ssm"], cfg, h)
+            s = ssm_lib.ssm_train(p["ssm"], cfg, ht, group=group)
         else:
-            s, hst, cst = ssm_lib.ssm_decode(p["ssm"], cfg, h, decode_cache["ssm"],
-                                             decode_cache["conv"])
+            s, hst, cst = ssm_lib.ssm_decode(p["ssm"], cfg, ht, decode_cache["ssm"],
+                                             decode_cache["conv"], group)
             decode_cache["ssm"].copy_(hst)
             decode_cache["conv"].copy_(cst)
-        return _hybrid_out(p, cfg, x, attn, s), None
+        return _hybrid_out(p, cfg, x, attn, s, group), None
     if cfg.family == "moe":
         x = x + reduce_from_group(attn, group)
         h2 = L.apply_norm(p["ln2"], x)
@@ -599,15 +681,26 @@ def _dense_out(p, cfg: ModelConfig, x, attn, ht, group):
     return x
 
 
-def _hybrid_out(p, cfg: ModelConfig, x, attn, s):
-    """hymba's residual update: the mean of the RMS-normed attention and
-    SSM branch outputs, then the MLP."""
+def _hybrid_out(p, cfg: ModelConfig, x, attn, s, group=None):
+    """hymba's residual update from this rank's partial attention and SSM
+    outputs: both reduced over the group in one all-reduce, mixed
+    (``hybrid_mix``), then the MLP as in ``_dense_out``."""
+    if group_size(group) > 1:
+        attn, s = reduce_from_group(torch.stack([attn, s]), group).unbind(0)
+    x = hybrid_mix(p, x, attn, s)
+    if cfg.d_ff:
+        h2 = copy_to_group(L.apply_norm(p["ln2"], x), group)
+        x = x + L.mlp_bias(p["mlp"], cfg,
+                           reduce_from_group(L.mlp_partial(p["mlp"], cfg, h2), group))
+    return x
+
+
+def hybrid_mix(p, x, attn, s):
+    """x plus the mean of the RMS-normed attention and SSM outputs (each
+    summed over the ranks): hymba's residual update before its MLP."""
     attn = L.rms_norm_dim(attn, p["attn_norm"])
     s = L.rms_norm_dim(s, p["ssm_norm"])
-    x = x + 0.5 * (attn + s)
-    if cfg.d_ff:
-        x = x + L.apply_mlp(p["mlp"], cfg, L.apply_norm(p["ln2"], x))
-    return x
+    return x + 0.5 * (attn + s)
 
 
 def forward(params, buffers, cfg: ModelConfig, batch, *, group=None, data=None):
@@ -635,9 +728,9 @@ def forward(params, buffers, cfg: ModelConfig, batch, *, group=None, data=None):
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     if cfg.family == "xlstm":
         walk = _xlstm_train_forward if torch.is_grad_enabled() else _xlstm_forward
-        x = L.apply_norm(params["ln_f"], walk(params["blocks"], cfg, x))
-        return logits_fn(params, buffers, cfg, x), torch.zeros((), dtype=torch.float32,
-                                                               device=x.device)
+        x = L.apply_norm(params["ln_f"], walk(params["blocks"], cfg, x, group=group))
+        return logits_fn(params, buffers, cfg, x, group), torch.zeros((), dtype=torch.float32,
+                                                                      device=x.device)
     freqs = L.rope_freqs(cfg, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     block = functools.partial(_block_train, group=group, data=data)
@@ -671,14 +764,14 @@ def _xlstm_blocks(blocks, cfg: ModelConfig):
         yield "s", s, sp["slstm"], sp["norms"]["s"]
 
 
-def _xlstm_forward(blocks, cfg: ModelConfig, x, cache=None):
+def _xlstm_forward(blocks, cfg: ModelConfig, x, cache=None, group=None):
     """The xlstm stack over a whole sequence (the chunkwise mLSTM, the
     sequential sLSTM), each block ``x + block(norm(x))``.  With ``cache``
     every block's terminal state is copied into it (prefill), every leaf
-    whole."""
+    whole (under ``group``, this rank's heads of the mLSTM states)."""
     for kind, at, p, norm in _xlstm_blocks(blocks, cfg):
         block = xlstm_lib.mlstm_train if kind == "m" else xlstm_lib.slstm_seq
-        y, state = block(p, cfg, L.apply_norm(norm, x))
+        y, state = block(p, cfg, L.apply_norm(norm, x), group=group)
         if cache is not None:
             for key, t in zip(_XLSTM_STATE[kind], state):
                 cache[key][at].copy_(t)
@@ -690,18 +783,19 @@ def _maybe_checkpoint(remat: bool, fn, *args):
     return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
 
 
-def _mlstm_block(p, norm, cfg: ModelConfig, x):
-    return x + xlstm_lib.mlstm_train(p, cfg, L.apply_norm(norm, x))[0]
+def _mlstm_block(p, norm, cfg: ModelConfig, x, group=None):
+    return x + xlstm_lib.mlstm_train(p, cfg, L.apply_norm(norm, x), group=group)[0]
 
 
-def _superblock(sp, cfg: ModelConfig, x, n_m: int, remat: bool):
+def _superblock(sp, cfg: ModelConfig, x, n_m: int, remat: bool, group=None):
     """Superblock ``sp``'s n_m mLSTM blocks, then its sLSTM block."""
     for p, norm in zip(_unstack(sp["mlstm"], n_m), _unstack(sp["norms"]["m"], n_m)):
-        x = _maybe_checkpoint(remat, _mlstm_block, p, norm, cfg, x)
-    return x + xlstm_lib.slstm_seq(sp["slstm"], cfg, L.apply_norm(sp["norms"]["s"], x))[0]
+        x = _maybe_checkpoint(remat, _mlstm_block, p, norm, cfg, x, group)
+    return x + xlstm_lib.slstm_seq(sp["slstm"], cfg, L.apply_norm(sp["norms"]["s"], x),
+                                   group=group)[0]
 
 
-def _xlstm_train_forward(blocks, cfg: ModelConfig, x):
+def _xlstm_train_forward(blocks, cfg: ModelConfig, x, group=None):
     """The xlstm stack under autograd: the params through one ``unbind``
     a stacked leaf and level (superblocks, then their mLSTM blocks), no
     state kept; under ``remat="full"`` each mLSTM block and each
@@ -711,11 +805,11 @@ def _xlstm_train_forward(blocks, cfg: ModelConfig, x):
     if not cfg.slstm_every:
         for p, norm in zip(_unstack(blocks["mlstm"], cfg.n_layers),
                            _unstack(blocks["norms"], cfg.n_layers)):
-            x = _maybe_checkpoint(remat, _mlstm_block, p, norm, cfg, x)
+            x = _maybe_checkpoint(remat, _mlstm_block, p, norm, cfg, x, group)
         return x
     n_super, n_m = _xlstm_shape(cfg)
     for sp in _unstack(blocks, n_super):
-        x = _maybe_checkpoint(remat, _superblock, sp, cfg, x, n_m, remat)
+        x = _maybe_checkpoint(remat, _superblock, sp, cfg, x, n_m, remat, group)
     return x
 
 
@@ -755,34 +849,38 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda", group=
     sliding window; the hybrid family adds "ssm" (L, batch, di, ds) and
     "conv" (L, batch, K-1, di), both float32.  The xlstm family's cache is
     its recurrent state (``_init_xlstm_cache``), whatever ``max_seq``.
-    Under ``group`` the KV heads this rank holds (``cache_specs``)."""
+    Under ``group`` this rank's part (``cache_specs``): the KV heads it
+    holds, its SSM channels, its mLSTM heads."""
     _check(cfg, group)
+    rank, M = rank_and_size(group)
     if cfg.family == "xlstm":
-        return _init_xlstm_cache(cfg, batch, device)
+        _xlstm_heads(cfg, M)
+        return _init_xlstm_cache(cfg, batch, device, heads=cfg.n_heads // M)
     S = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
     Lc = cfg.n_layers
-    M = group_size(group)
-    kvh = cfg.n_kv_heads // M if L.kv_heads_split(cfg, M) else cfg.n_kv_heads
-    shape = (Lc, batch, S, kvh, cfg.head_dim)
+    start, stop = L.kv_range(cfg, rank, M)
+    shape = (Lc, batch, S, stop - start, cfg.head_dim)
     cache = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
              "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
     if cfg.family == "hybrid":
-        cache["ssm"] = torch.zeros((Lc, batch, cfg.ssm_inner, cfg.ssm_state),
-                                   dtype=torch.float32, device=device)
-        cache["conv"] = torch.zeros((Lc, batch, cfg.ssm_conv - 1, cfg.ssm_inner),
-                                    dtype=torch.float32, device=device)
+        di = cfg.ssm_inner // M
+        cache["ssm"] = torch.zeros((Lc, batch, di, cfg.ssm_state), dtype=torch.float32,
+                                   device=device)
+        cache["conv"] = torch.zeros((Lc, batch, cfg.ssm_conv - 1, di), dtype=torch.float32,
+                                    device=device)
     return cache
 
 
-def _init_xlstm_cache(cfg: ModelConfig, batch: int, device):
+def _init_xlstm_cache(cfg: ModelConfig, batch: int, device, heads: int | None = None):
     """The mLSTM states "C" (..., batch, H, hd, hd), "n" (..., batch, H,
     hd), "m" (..., batch, H) at -inf, float32, the leading dims (n_super,
     n_m) under ``slstm_every``, else (L,); under ``slstm_every`` also the
     sLSTM states "s_c", "s_n", "s_h" and "s_m" (at -inf), each (n_super,
-    batch, d) float32."""
+    batch, d) float32.  ``heads``: the mLSTM heads held (all by default)."""
     lead = _xlstm_shape(cfg) if cfg.slstm_every else (cfg.n_layers,)
     cache = {key: t.expand(*lead, *t.shape).clone() for key, t in
-             zip(_XLSTM_STATE["m"], xlstm_lib.init_mlstm_state(cfg, batch, device=device))}
+             zip(_XLSTM_STATE["m"], xlstm_lib.init_mlstm_state(cfg, batch, device=device,
+                                                               heads=heads))}
     if cfg.slstm_every:
         cache |= {key: t.expand(lead[0], *t.shape).clone() for key, t in
                   zip(_XLSTM_STATE["s"], xlstm_lib.init_slstm_state(cfg, batch, device=device))}
@@ -814,8 +912,8 @@ def decode_step(params, buffers, cfg: ModelConfig, tokens, pos, cache, *, group=
     _check(cfg, group)
     x = _add_positions(cfg, embed(params, buffers, cfg, tokens[:, None], group), pos[:, None])
     if cfg.family == "xlstm":
-        x = L.apply_norm(params["ln_f"], _xlstm_decode(params["blocks"], cfg, x, cache))
-        return logits_fn(params, buffers, cfg, x[:, 0]), cache
+        x = L.apply_norm(params["ln_f"], _xlstm_decode(params["blocks"], cfg, x, cache, group))
+        return logits_fn(params, buffers, cfg, x[:, 0], group), cache
     freqs = L.rope_freqs(cfg, device=x.device)
     pos = pos.to(torch.int64)
     for i in range(cfg.n_layers):
@@ -826,16 +924,16 @@ def decode_step(params, buffers, cfg: ModelConfig, tokens, pos, cache, *, group=
     return logits_fn(params, buffers, cfg, x[:, 0], group), cache
 
 
-def _xlstm_decode(blocks, cfg: ModelConfig, x, cache):
+def _xlstm_decode(blocks, cfg: ModelConfig, x, cache, group=None):
     """One token through the xlstm stack, every block's state in
     ``cache`` moved on by one token in place."""
     for kind, at, p, norm in _xlstm_blocks(blocks, cfg):
         h = L.apply_norm(norm, x)
         state = tuple(cache[key][at] for key in _XLSTM_STATE[kind])
         if kind == "m":  # C, n and m move on in place
-            y, _ = xlstm_lib.mlstm_decode(p, cfg, h, state)
+            y, _ = xlstm_lib.mlstm_decode(p, cfg, h, state, group)
         else:
-            y, state = xlstm_lib.slstm_seq(p, cfg, h, state)
+            y, state = xlstm_lib.slstm_seq(p, cfg, h, state, group=group)
             for key, t in zip(_XLSTM_STATE[kind], state):
                 cache[key][at].copy_(t)
         x = x + y
@@ -870,8 +968,9 @@ def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None, 
     x = embed(params, buffers, cfg, tokens, group)
     last = S - 1 if last_idx is None else int(last_idx)
     if cfg.family == "xlstm":
-        x = _xlstm_forward(params["blocks"], cfg, x, cache=cache)
-        return logits_fn(params, buffers, cfg, L.apply_norm(params["ln_f"], x[:, last])), cache
+        x = _xlstm_forward(params["blocks"], cfg, x, cache=cache, group=group)
+        x = L.apply_norm(params["ln_f"], x[:, last])
+        return logits_fn(params, buffers, cfg, x, group), cache
     positions = torch.arange(S, device=x.device).expand(B, S)
     x = _add_positions(cfg, x, positions)
     freqs = L.rope_freqs(cfg, device=x.device)
@@ -890,10 +989,10 @@ def prefill(params, buffers, cfg: ModelConfig, tokens, cache, *, last_idx=None, 
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
         if cfg.family == "hybrid":
-            s, (st, cv) = ssm_lib.ssm_train(lp["ssm"], cfg, h, return_state=True)
+            s, (st, cv) = ssm_lib.ssm_train(lp["ssm"], cfg, h, return_state=True, group=group)
             cache["ssm"][i] = st
             cache["conv"][i] = cv
-            x = _hybrid_out(lp, cfg, x, attn, s)
+            x = _hybrid_out(lp, cfg, x, attn, s, group)
         elif cfg.family == "moe":
             x = x + reduce_from_group(attn, group)
             # the JAX package's prefill takes the einsum route under "sort_sm"

@@ -23,6 +23,17 @@ JAX package recomputes with a second, sequential scan
 Decode carries the state explicitly: O(1) a token.  Plain torch
 throughout, as the JAX package computes all of it in ``jnp``, outside
 any Pallas kernel.
+
+Tensor parallel (``group=``, a model group of M ranks; ``models/lm.py``):
+a rank holds di/M channels: its slice of ``in_proj``'s x half and of its
+z half, of ``conv``, ``dt_bias``, ``A_log`` and ``D``, and its rows of
+``x_proj`` and ``out_proj``.  ``ssm_project`` gives its channels' conv'd
+x, gate z and its partial sum of the (B, S, 2 ds + 1) selective
+projection, which is reduced over the group and enters the region again
+through ``shard.copy_to_group`` (its gradient from each rank's channels
+summed); ``ssm_scan`` runs the recurrence on the rank's channels and
+returns its partial sum of the output, which the caller reduces.  The
+cache's state and conv input split their channels.
 """
 from __future__ import annotations
 
@@ -33,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import truncated_normal
+from repro_torch.shard import copy_to_group, reduce_from_group
 
 DEFAULT_CHUNK = 256
 
@@ -58,14 +70,26 @@ def init_ssm(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
     return p
 
 
-def _selective_terms(p, cfg: ModelConfig, xz, conv_state=None):
-    """Conv + selective projections (the cheap, di/ds-sized tensors).
-
-    xz (B, S, 2*di) from in_proj.  Returns (dt (B, S, di) float32, B_t,
-    C_t (B, S, ds), gate z, conv'd x, new_conv_state (B, K-1, di) in x's
-    dtype: the last K-1 inputs of the conv, for the next decode step)."""
+def _split_proj(p, cfg: ModelConfig, proj):
+    """The selective terms from the projection: dt (B, S, di) float32,
+    B_t, C_t (B, S, ds)."""
     ds = cfg.ssm_state
-    x, z = torch.chunk(xz, 2, dim=-1)  # (B, S, di) each
+    B_t = proj[..., :ds]
+    C_t = proj[..., ds:2 * ds]
+    # dt: shared per-token scalar + per-channel bias (dt_rank=1 variant)
+    dt = F.softplus(proj[..., 2 * ds:].to(torch.float32) + p["dt_bias"].to(torch.float32))
+    return dt, B_t, C_t
+
+
+def ssm_project(p, cfg: ModelConfig, x_in, conv_state=None):
+    """A rank's share of the branch before its one collective: x_in (B,
+    S, d) through its slice of ``in_proj`` and the conv -> (its channels'
+    conv'd x (B, S, di), gate z, its partial sum of the selective
+    projection (B, S, 2*ds+1), its channels' new conv state (B, K-1, di)
+    in x's dtype: the last K-1 inputs of the conv, for the next decode
+    step).  Summed over the ranks, the projections are the whole one
+    (``ssm_scan`` takes it)."""
+    x, z = torch.chunk(x_in @ p["in_proj"].to(x_in.dtype), 2, dim=-1)  # (B, S, di) each
     K, S = cfg.ssm_conv, x.shape[1]
     if conv_state is None:
         xp = F.pad(x, (0, 0, K - 1, 0))
@@ -78,12 +102,13 @@ def _selective_terms(p, cfg: ModelConfig, xz, conv_state=None):
     for i in range(1, K):
         conv = conv + xp[:, i:i + S] * w[i]
     x = F.silu(conv)
-    proj = x @ p["x_proj"].to(x.dtype)  # (B, S, 2ds+1)
-    B_t = proj[..., :ds]
-    C_t = proj[..., ds:2 * ds]
-    # dt: shared per-token scalar + per-channel bias (dt_rank=1 variant)
-    dt = F.softplus(proj[..., 2 * ds:].to(torch.float32) + p["dt_bias"].to(torch.float32))
-    return dt, B_t, C_t, z, x, new_conv_state
+    return x, z, x @ p["x_proj"].to(x.dtype), new_conv_state
+
+
+def _whole_proj(proj, group):
+    """The ranks' partial projections summed; the gradient each rank's
+    channels send back summed over the group."""
+    return copy_to_group(reduce_from_group(proj, group), group)
 
 
 def _scan(a, b):
@@ -120,27 +145,38 @@ def selective_scan(dt, B_t, C_t, x, A, *, chunk: int = DEFAULT_CHUNK):
     return torch.cat(ys, dim=1), h
 
 
-def ssm_train(p, cfg: ModelConfig, x_in, *, chunk: int = DEFAULT_CHUNK,
-              return_state: bool = False):
-    """Full-sequence chunked selective scan.  x_in (B, S, d) -> (B, S, d);
-    with ``return_state``, (y, (ssm_state (B, di, ds) float32, conv_state
-    (B, K-1, di))), the state after the last token."""
-    xz = x_in @ p["in_proj"].to(x_in.dtype)
-    dt, B_t, C_t, z, x, conv_state = _selective_terms(p, cfg, xz)
+def ssm_scan(p, cfg: ModelConfig, x, z, proj, *, chunk: int = DEFAULT_CHUNK):
+    """The recurrence on a rank's channels: its conv'd x and gate z (B, S,
+    di/M) and the whole selective projection ``proj`` -> (its partial sum
+    of the output (B, S, d) through its rows of ``out_proj``, its channels'
+    state (B, di/M, ds) float32 after the last token)."""
+    dt, B_t, C_t = _split_proj(p, cfg, proj)
     A = -torch.exp(p["A_log"].to(torch.float32))  # (di, ds)
     xf = x.to(torch.float32)
     y, h = selective_scan(dt, B_t.to(torch.float32), C_t.to(torch.float32), xf, A, chunk=chunk)
     y = y + xf * p["D"].to(torch.float32)
-    y = (y * F.silu(z.to(torch.float32))).to(x_in.dtype)
-    out = y @ p["out_proj"].to(x_in.dtype)
+    y = (y * F.silu(z.to(torch.float32))).to(z.dtype)
+    return y @ p["out_proj"].to(z.dtype), h
+
+
+def ssm_train(p, cfg: ModelConfig, x_in, *, chunk: int = DEFAULT_CHUNK,
+              return_state: bool = False, group=None):
+    """Full-sequence chunked selective scan.  x_in (B, S, d) -> (B, S, d);
+    with ``return_state``, (y, (ssm_state (B, di, ds) float32, conv_state
+    (B, K-1, di))), the state after the last token.  Under ``group`` (x_in
+    inside the region) this rank's channels: its partial sum of y, its
+    channels' states."""
+    x, z, proj, conv_state = ssm_project(p, cfg, x_in)
+    out, h = ssm_scan(p, cfg, x, z, _whole_proj(proj, group), chunk=chunk)
     return (out, (h, conv_state)) if return_state else out
 
 
-def ssm_decode(p, cfg: ModelConfig, x_in, ssm_state, conv_state):
+def ssm_decode(p, cfg: ModelConfig, x_in, ssm_state, conv_state, group=None):
     """One-token step.  x_in (B, 1, d); ssm_state (B, di, ds) float32;
-    conv_state (B, K-1, di).  Returns (y (B, 1, d), ssm_state, conv_state)."""
-    xz = x_in @ p["in_proj"].to(x_in.dtype)
-    dt, B_t, C_t, z, x, new_conv = _selective_terms(p, cfg, xz, conv_state)
+    conv_state (B, K-1, di).  Returns (y (B, 1, d), ssm_state, conv_state);
+    under ``group`` this rank's channels, as ``ssm_train``."""
+    x, z, proj, new_conv = ssm_project(p, cfg, x_in, conv_state)
+    dt, B_t, C_t = _split_proj(p, cfg, _whole_proj(proj, group))
     A = -torch.exp(p["A_log"].to(torch.float32))
     a = torch.exp(dt[:, 0, :, None] * A)  # (B, di, ds)
     x0 = x[:, 0].to(torch.float32)

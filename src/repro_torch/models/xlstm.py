@@ -42,6 +42,26 @@ and recurrence math in float32, the output norms in the activations'
 dtype, step for step as in the JAX package.  The stabiliser m starts at
 -inf, as there: exp(-inf) gives 0, and every max keeps a finite term, so
 no -inf - -inf arises.
+
+Tensor parallel (``group=``, a model group of M ranks; ``models/lm.py``).
+The mLSTM splits its heads: a rank holds its di/M slice of ``up``'s x
+half and of its z half (``mlstm_up``), the columns of its heads of
+``wq``, ``wk``, ``wv``, ``wi`` and ``wf`` and their slices of ``bi``,
+``bf`` and ``ln_scale``, and its rows of ``down``.  The x half is
+gathered (every head reads all of it) and enters the region again, so
+that the heads' gradients of it are summed; a rank's heads then run the
+chunkwise form and the recurrent state (C, n, m) alone, and its partial
+output through ``down`` is reduced.  The sLSTM keeps its recurrence
+whole on every rank: JAX's split of the (B, 4d) pre-activations into z,
+i, f and o puts gate g of every channel on head g's recurrent product
+(at 4 heads), so each channel's step reads every head's h, and a split
+state would need an all-gather of h every token.  A rank computes its
+columns of ``wx`` and ``b`` (``slstm_input``), the (B, S, 4d) input is
+gathered once before the loop, every rank runs the same steps with
+``wr`` and the state whole (no collective inside the loop), and the FFN
+after the output norm splits ``up``'s a and gate halves and ``down``'s
+rows, reduced once.  Without a group every function is the unsharded
+one.
 """
 from __future__ import annotations
 
@@ -52,6 +72,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import truncated_normal
+from repro_torch.shard import copy_to_group, gather_last, reduce_from_group
 
 MLSTM_CHUNK = 256
 
@@ -84,21 +105,31 @@ def init_mlstm(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
     return p
 
 
-def _mlstm_qkvgates(p, cfg: ModelConfig, x):
-    """x (B, S, d) -> q, k, v (B, S, H, hd) in x's dtype, log-gates i, f
-    (B, S, H) float32, gate z (B, S, di)."""
-    B, S, d = x.shape
-    H = cfg.n_heads
-    hd = 2 * d // H
-    dt = x.dtype
-    up = x @ p["up"].to(dt)  # (B, S, 2di)
-    xm, z = torch.chunk(up, 2, dim=-1)
-    q = (xm @ p["wq"].to(dt)).view(B, S, H, hd)
-    k = (xm @ p["wk"].to(dt)).view(B, S, H, hd) / math.sqrt(hd)
-    v = (xm @ p["wv"].to(dt)).view(B, S, H, hd)
+def mlstm_up(p, x):
+    """x (B, S, d) -> the up-projection's x half and gate z (B, S, di):
+    under tensor parallelism a rank's di/M of each."""
+    return torch.chunk(x @ p["up"].to(x.dtype), 2, dim=-1)
+
+
+def _whole_xm(xm, group):
+    """The ranks' slices of the x half gathered; backward, the heads'
+    gradients of it summed over the group, and each rank's slice kept."""
+    return copy_to_group(gather_last(xm, group), group)
+
+
+def _mlstm_qkvgates(p, cfg: ModelConfig, xm):
+    """xm (B, S, di), the whole x half -> q, k, v (B, S, H, hd) in xm's
+    dtype and log-gates i, f (B, S, H) float32, of the heads whose columns
+    of wq, wk, wv, wi and wf ``p`` holds."""
+    B, S, di = xm.shape
+    hd = di // cfg.n_heads
+    dt = xm.dtype
+    q = (xm @ p["wq"].to(dt)).view(B, S, -1, hd)
+    k = (xm @ p["wk"].to(dt)).view(B, S, -1, hd) / math.sqrt(hd)
+    v = (xm @ p["wv"].to(dt)).view(B, S, -1, hd)
     ig = (xm @ p["wi"].to(dt)).to(torch.float32) + p["bi"].to(torch.float32)
     fg = (xm @ p["wf"].to(dt)).to(torch.float32) + p["bf"].to(torch.float32)
-    return q, k, v, ig, fg, z
+    return q, k, v, ig, fg
 
 
 def _headnorm(h, scale, eps=1e-6):
@@ -109,29 +140,41 @@ def _headnorm(h, scale, eps=1e-6):
     return h.reshape(B, S, H * hd) * scale.to(h.dtype)
 
 
-def _out(p, x_in, h, z):
+def _out(p, h, z):
     """The block's output from h (B, S, H, hd) float32: the head norm in
-    x's dtype, the z gate, the down projection."""
-    out = _headnorm(h.to(x_in.dtype), p["ln_scale"]) * F.silu(z)
-    return out @ p["down"].to(x_in.dtype)
+    z's dtype (x's), the z gate, the down projection (a rank's partial
+    sum through its rows)."""
+    out = _headnorm(h.to(z.dtype), p["ln_scale"]) * F.silu(z)
+    return out @ p["down"].to(z.dtype)
 
 
-def mlstm_train(p, cfg: ModelConfig, x_in, *, chunk: int = MLSTM_CHUNK):
+def mlstm_train(p, cfg: ModelConfig, x_in, *, chunk: int = MLSTM_CHUNK, group=None):
     """Chunkwise-parallel stabilised mLSTM.  x_in (B, S, d) -> (out (B, S,
     d), (C (B, H, hd, hd), n (B, H, hd), m (B, H)) float32, the state after
     the last token).  With grad enabled, out of place (see the module
-    docstring)."""
-    q, k, v, ig, fg, z = _mlstm_qkvgates(p, cfg, x_in)
+    docstring).  Under ``group`` this rank's heads' states, and the output
+    summed over the ranks."""
+    x_in = copy_to_group(x_in, group)
+    xm, z = mlstm_up(p, x_in)
+    out, state = mlstm_heads(p, cfg, _whole_xm(xm, group), z, chunk=chunk)
+    return reduce_from_group(out, group), state
+
+
+def mlstm_heads(p, cfg: ModelConfig, xm, z, *, chunk: int = MLSTM_CHUNK):
+    """A rank's share of ``mlstm_train`` from the whole x half xm (B, S,
+    di) and its slice of the gate z: (its partial sum of the output, its
+    heads' terminal state)."""
+    q, k, v, ig, fg = _mlstm_qkvgates(p, cfg, xm)
     B, S, H, hd = q.shape
     f32 = torch.float32
-    dev = x_in.device
+    dev = xm.device
     grad = torch.is_grad_enabled()
     # (B, H, S, .) float32, made once for every chunk
     qf, kf, vf = (t.transpose(1, 2).to(f32, memory_format=torch.contiguous_format)
                   for t in (q, k, v))
     ii = ig.transpose(1, 2).contiguous()  # (B, H, S) log input gate
     lf = F.logsigmoid(fg).transpose(1, 2).contiguous()  # (B, H, S) log forget gate
-    C, n, m = init_mlstm_state(cfg, B, device=dev)
+    C, n, m = init_mlstm_state(cfg, B, device=dev, heads=H)
     hs = [] if grad else torch.empty((B, H, S, hd), dtype=f32, device=dev)
     tri = torch.ones((min(chunk, S),) * 2, dtype=torch.bool, device=dev).tril_()
     chunks = zip(*(t.split(chunk, dim=2) for t in (qf, kf, vf, ii, lf)))
@@ -174,14 +217,16 @@ def mlstm_train(p, cfg: ModelConfig, x_in, *, chunk: int = MLSTM_CHUNK):
         m = m_next
     if grad:
         hs = torch.cat(hs, dim=2)
-    return _out(p, x_in, hs.transpose(1, 2), z), (C, n, m)
+    return _out(p, hs.transpose(1, 2), z), (C, n, m)
 
 
-def mlstm_decode(p, cfg: ModelConfig, x_in, state):
+def mlstm_decode(p, cfg: ModelConfig, x_in, state, group=None):
     """One-token recurrent mLSTM step.  x_in (B, 1, d); state = (C (B, H,
     hd, hd) contiguous, n (B, H, hd), m (B, H)) float32, each updated in
-    place.  Returns (out (B, 1, d), state)."""
-    q, k, v, ig, fg, z = _mlstm_qkvgates(p, cfg, x_in)  # S = 1
+    place.  Returns (out (B, 1, d), state); under ``group`` this rank's
+    heads' state, as ``mlstm_train``."""
+    xm, z = mlstm_up(p, x_in)
+    q, k, v, ig, fg = _mlstm_qkvgates(p, cfg, _whole_xm(xm, group))  # S = 1
     C, n, m = state
     B, _, H, hd = q.shape
     q1, k1, v1 = (t[:, 0].to(torch.float32) for t in (q, k, v))  # (B, H, hd)
@@ -195,13 +240,14 @@ def mlstm_decode(p, cfg: ModelConfig, x_in, state):
     num = torch.bmm(q1.reshape(B * H, 1, hd), C.view(B * H, hd, hd)).view(B, H, hd)
     den = torch.maximum((q1 * n).sum(-1).abs(), torch.exp(-m_new))
     m.copy_(m_new)
-    return _out(p, x_in, (num / den[..., None])[:, None], z), (C, n, m)
+    return reduce_from_group(_out(p, (num / den[..., None])[:, None], z), group), (C, n, m)
 
 
-def init_mlstm_state(cfg: ModelConfig, batch: int, device="cuda"):
-    di = 2 * cfg.d_model
-    H = cfg.n_heads
-    hd = di // H
+def init_mlstm_state(cfg: ModelConfig, batch: int, device="cuda", heads: int | None = None):
+    """The zero state (C, n, m) of ``heads`` heads (all of them by
+    default)."""
+    hd = 2 * cfg.d_model // cfg.n_heads
+    H = cfg.n_heads if heads is None else heads
     return (
         torch.zeros((batch, H, hd, hd), dtype=torch.float32, device=device),
         torch.zeros((batch, H, hd), dtype=torch.float32, device=device),
@@ -239,37 +285,56 @@ def init_slstm(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
     return {key: p[key] for key in ("wx", "wr", "b", "ln_scale", "up", "down")}
 
 
-def slstm_seq(p, cfg: ModelConfig, x_in, state=None):
-    """The sLSTM over a whole sequence.  x_in (B, S, d) -> (out (B, S, d),
-    (c, n, h, m) each (B, d) float32, the state after the last token).
-    ``state`` (optional, the same four) is the state before the first
-    token (decode passes its cache's); the default is
-    ``init_slstm_state``'s.  With grad enabled, out of place (see the
-    module docstring)."""
-    B, S, d = x_in.shape
+def slstm_input(p, x):
+    """x (B, S, d) -> the gates' input pre-activations x wx + b (B, S, 4d)
+    in x's dtype: under tensor parallelism a rank's 4d/M columns."""
+    return x @ p["wx"].to(x.dtype) + p["b"].to(x.dtype)
+
+
+def slstm_recur(p, cfg: ModelConfig, zx, state=None):
+    """The recurrence from the whole pre-activations zx (B, S, 4d) and its
+    output norm: (h (B, S, d) normed in zx's dtype, (c, n, h, m) each (B,
+    d) float32 after the last token).  ``state`` as ``slstm_seq``'s."""
+    B, S, d4 = zx.shape
     H = cfg.n_heads
-    hd = d // H
+    hd = d4 // 4 // H
     f32 = torch.float32
-    dev = x_in.device
-    zx = x_in @ p["wx"].to(x_in.dtype) + p["b"].to(x_in.dtype)  # (B, S, 4d)
     # (S, H, B, 4hd): step t's input to the per-head product, float32
     zx_t = zx.view(B, S, H, 4 * hd).permute(1, 2, 0, 3).to(
         f32, memory_format=torch.contiguous_format)
     wr = p["wr"].to(f32)  # (H, hd, 4hd)
     if state is None:
-        state = init_slstm_state(cfg, B, device=dev)
+        state = init_slstm_state(cfg, B, device=zx.device)
     if torch.is_grad_enabled():
         hs, c, n, m = _Recurrence.apply(zx_t, wr, *state)  # hs (S, B, d)
         state = (c, n, hs[-1], m)
     else:
         hs, state = _slstm_steps_in_place(zx_t, wr, state)
-    hseq = hs.transpose(0, 1).to(x_in.dtype)  # (B, S, d)
-    # output norm and gated FFN (xLSTM post-up-projection, factor 4/3)
+    hseq = hs.transpose(0, 1).to(zx.dtype)  # (B, S, d)
+    # output norm (the FFN, ``slstm_ffn``, follows: xLSTM post-up-projection, factor 4/3)
     var = (hseq.to(f32) ** 2).mean(-1, keepdim=True)
-    hseq = (hseq * torch.rsqrt(var + 1e-6).to(hseq.dtype)) * p["ln_scale"].to(hseq.dtype)
-    a, gate = torch.chunk(hseq @ p["up"].to(hseq.dtype), 2, dim=-1)
-    out = (F.gelu(a, approximate="tanh") * gate) @ p["down"].to(hseq.dtype)  # jax.nn.gelu
-    return out, state
+    return (hseq * torch.rsqrt(var + 1e-6).to(hseq.dtype)) * p["ln_scale"].to(hseq.dtype), state
+
+
+def slstm_ffn(p, h):
+    """The gated FFN on the normed h (B, S, d): a rank's partial sum over
+    its slices of ``up``'s a and gate halves and its rows of ``down``."""
+    a, gate = torch.chunk(h @ p["up"].to(h.dtype), 2, dim=-1)
+    return (F.gelu(a, approximate="tanh") * gate) @ p["down"].to(h.dtype)  # jax.nn.gelu
+
+
+def slstm_seq(p, cfg: ModelConfig, x_in, state=None, *, group=None):
+    """The sLSTM over a whole sequence.  x_in (B, S, d) -> (out (B, S, d),
+    (c, n, h, m) each (B, d) float32, the state after the last token).
+    ``state`` (optional, the same four) is the state before the first
+    token (decode passes its cache's); the default is
+    ``init_slstm_state``'s.  With grad enabled, out of place (see the module
+    docstring).  Under ``group`` every rank runs the whole recurrence from
+    the gathered pre-activations (one all-gather before the loop) and the
+    FFN's partial sums are reduced (one all-reduce after it)."""
+    x_in = copy_to_group(x_in, group)
+    h, state = slstm_recur(p, cfg, gather_last(slstm_input(p, x_in), group), state)
+    return reduce_from_group(slstm_ffn(p, copy_to_group(h, group)), group), state
 
 
 def _gates(za, B: int, d: int):

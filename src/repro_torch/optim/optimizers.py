@@ -140,7 +140,7 @@ def zero1_specs(param_specs: Pytree, params_shape: Pytree, dp_size: int = 0) -> 
         for i, n in enumerate(leaf.shape):
             if i != spec.model and n % dp_size == 0 and n > best:
                 best, best_dim = n, i
-        return Spec(model=spec.model, data=best_dim)
+        return dataclasses.replace(spec, data=best_dim)
 
     return tree_map(extend, param_specs, params_shape)
 

@@ -21,6 +21,11 @@ neither.  Everything runs under ``torch.inference_mode()``.  A codebook
 model (the audio family) is refused, as the JAX engine refuses it: its
 requests are frames of n_codebooks tokens, served through ``lm.prefill``
 and ``lm.decode_step`` directly.
+
+On a model group (``group=``, ``launch.mesh.Mesh.model``) each rank runs
+the engine with its slices of the params (``lm.param_specs``) and its
+part of the cache (``lm.init_cache(group=)``); every rank gets the whole
+logits, so every rank picks the same tokens and keeps the same slots.
 """
 from __future__ import annotations
 
@@ -59,6 +64,7 @@ class ServeEngine:
         max_batch: int = 8,
         max_seq: int = 256,
         runlog=None,
+        group=None,
     ):
         if cfg.n_codebooks:
             raise ValueError(f"{cfg.name}: the engine serves one token stream, not "
@@ -68,8 +74,9 @@ class ServeEngine:
         self.buffers = buffers
         self.max_batch = max_batch
         self.max_seq = max_seq
+        self.group = group
         self.device = params["ln_f"]["scale"].device
-        self.cache = lm.init_cache(cfg, max_batch, max_seq, device=self.device)
+        self.cache = lm.init_cache(cfg, max_batch, max_seq, device=self.device, group=group)
         self.pos = np.zeros((max_batch,), np.int64)
         self.last_token = np.zeros((max_batch,), np.int64)
         self.slots: list[Request | None] = [None] * max_batch
@@ -119,7 +126,7 @@ class ServeEngine:
             c.zero_()
         toks = torch.from_numpy(tokens).to(self.device)
         logits, _ = lm.prefill(self.params, self.buffers, self.cfg, toks, view,
-                               last_idx=last_idx)
+                               last_idx=last_idx, group=self.group)
         self.prefills += 1
         return logits
 
@@ -128,7 +135,8 @@ class ServeEngine:
         vocab)."""
         tokens = torch.from_numpy(self.last_token).to(self.device)
         pos = torch.from_numpy(self.pos).to(self.device)
-        logits, _ = lm.decode_step(self.params, self.buffers, self.cfg, tokens, pos, self.cache)
+        logits, _ = lm.decode_step(self.params, self.buffers, self.cfg, tokens, pos, self.cache,
+                                   group=self.group)
         return logits
 
     def _admit(self):

@@ -6,10 +6,17 @@ same structure (``launch.steps.dlrm_state_specs``, ``models.lm.param_specs``,
 splits over each axis of the (data, model) mesh (``launch.mesh.Mesh``),
 the counterpart of a JAX ``PartitionSpec``.  ``Spec()`` is a leaf every
 rank holds whole.  An int (or None) in place of a ``Spec`` is a model dim
-alone.  Every split is even (the supertable's ``k_pad`` is a multiple of M,
-the pointer tables split only a dim M divides, the LM's head and ff axes
-divide by M), so rank r of an axis of size n holds the r-th of n equal
-slices; a leaf split over both axes is cut by its model rank first.
+alone.  A split is even unless the spec says otherwise (the supertable's
+``k_pad`` is a multiple of M, the pointer tables split only a dim M
+divides, the LM's head and ff axes divide by M), so rank r of an axis of
+size n holds the r-th of n equal slices; a leaf split over both axes is
+cut by its model rank first.  Over the model axis a ``Spec`` may also say
+how its dim is cut: ``parts`` (one weight a rank: rank r holds the r-th
+piece, of ``parts[r] / sum(parts)`` of the dim; the LM's whole KV groups
+where M does not divide the heads) and ``blocks`` (the dim is that many
+equal blocks, each cut over the ranks, and a rank holds its piece of
+every block, in block order: a projection whose output is two halves,
+each read by the rank's own channels).
 
 * ``shard_tree(tree, specs, rank, n, axis="model")`` cuts rank r's slices
   along ``axis`` out of a whole tree: a 1-device state, a checkpoint's host
@@ -52,6 +59,8 @@ class Spec:
 
     model: int | None = None
     data: int | None = None
+    parts: tuple[int, ...] | None = None  # the model dim's cut: a weight a rank
+    blocks: int = 1  # the model dim as equal blocks, each cut over the ranks
 
 
 def spec_dim(spec, axis: str = "model") -> int | None:
@@ -62,27 +71,55 @@ def spec_dim(spec, axis: str = "model") -> int | None:
     return spec if axis == "model" else None
 
 
-def shard_leaf(x, dim: int | None, rank: int, n_shards: int):
+def _cut(spec, axis: str) -> tuple[tuple[int, ...] | None, int]:
+    """(parts, blocks) of ``spec``'s cut over ``axis``: the model axis's
+    may be uneven or blocked, the data axis's is even."""
+    if axis == "model" and isinstance(spec, Spec):
+        return spec.parts, spec.blocks
+    return None, 1
+
+
+def _sizes(n: int, n_shards: int, parts=None) -> list[int] | None:
+    """The ranks' sizes of a dim of ``n``: equal, or in proportion to
+    ``parts``; None where they do not divide it."""
+    weights = (1,) * n_shards if parts is None else parts
+    if len(weights) != n_shards or n % sum(weights):
+        return None
+    return [n // sum(weights) * w for w in weights]
+
+
+def shard_leaf(x, dim: int | None, rank: int, n_shards: int, parts=None, blocks: int = 1):
     """Rank ``rank``'s slice of ``x`` along ``dim`` (``x`` itself when
-    ``dim`` is None), as a tensor or array of its own."""
+    ``dim`` is None), as a tensor or array of its own: the r-th of equal
+    slices, or of ``parts``' pieces, of each of ``blocks`` equal blocks."""
     if dim is None or n_shards == 1 or x is None:
         return x
-    n = x.shape[dim]
-    if n % n_shards:
-        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n_shards}")
-    size = n // n_shards
+    n = x.shape[dim] // blocks
+    sizes = _sizes(n, n_shards, parts) if n * blocks == x.shape[dim] else None
+    if sizes is None:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n_shards}"
+                         + (f" as {parts}" if parts else "")
+                         + (f" in {blocks} blocks" if blocks > 1 else ""))
+    start, size = sum(sizes[:rank]), sizes[rank]
     if isinstance(x, torch.Tensor):
-        return x.narrow(dim, rank * size, size).clone(memory_format=torch.contiguous_format)
-    sl = [slice(None)] * np.ndim(x)
-    sl[dim] = slice(rank * size, (rank + 1) * size)
-    return np.ascontiguousarray(np.asarray(x)[tuple(sl)])
+        if blocks == 1:
+            return x.narrow(dim, start, size).clone(memory_format=torch.contiguous_format)
+        return torch.cat([x.narrow(dim, b * n + start, size) for b in range(blocks)],
+                         dim=dim).contiguous()
+    pieces = []
+    for b in range(blocks):
+        sl = [slice(None)] * np.ndim(x)
+        sl[dim] = slice(b * n + start, b * n + start + size)
+        pieces.append(np.asarray(x)[tuple(sl)])
+    return np.ascontiguousarray(np.concatenate(pieces, axis=dim))
 
 
 def shard_tree(tree: Pytree, specs: Pytree, rank: int, n_shards: int,
                axis: str = "model") -> Pytree:
     """Rank ``rank``'s part along ``axis`` of a whole ``tree`` under
     ``specs``."""
-    return tree_map(lambda x, s: shard_leaf(x, spec_dim(s, axis), rank, n_shards), tree, specs)
+    return tree_map(lambda x, s: shard_leaf(x, spec_dim(s, axis), rank, n_shards,
+                                            *_cut(s, axis)), tree, specs)
 
 
 def all_gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -95,20 +132,47 @@ def all_gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
-def gather_cat(x: torch.Tensor, dim: int, group, dst: int = 0) -> torch.Tensor | None:
-    """``all_gather_cat`` onto group rank ``dst`` only; None elsewhere."""
+def _join(pieces: list, dim: int, blocks: int = 1) -> torch.Tensor:
+    """The ranks' slices, in rank order, put back together along ``dim``:
+    concatenated, or each rank's piece of each of ``blocks`` blocks in
+    place."""
+    if blocks == 1:
+        return torch.cat(pieces, dim=dim)
+    chunks = [p.chunk(blocks, dim=dim) for p in pieces]
+    return torch.cat([c[b] for b in range(blocks) for c in chunks], dim=dim)
+
+
+def _gather_pieces(x: torch.Tensor, dim: int, group, dst: int | None, parts=None,
+                   blocks: int = 1) -> list | None:
+    """Every group rank's slice along ``dim`` (``parts``' sizes, padded to
+    the largest for the collective), on every rank, or on ``dst`` alone
+    (None elsewhere)."""
     n, rank = dist.get_world_size(group), dist.get_rank(group)
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)] if rank == dst else None
-    dist.gather(x, parts, dst=dist.get_global_rank(group, dst), group=group)
-    return torch.cat(parts, dim=dim) if rank == dst else None
+    sizes = None
+    if parts is not None:
+        unit = x.shape[dim] // (blocks * parts[rank])
+        sizes = [blocks * unit * w for w in parts]
+        if max(sizes) > x.shape[dim]:
+            pad = list(x.shape)
+            pad[dim] = max(sizes) - x.shape[dim]
+            x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+    bufs = [torch.empty_like(x) for _ in range(n)] if dst is None or rank == dst else None
+    if dst is None:
+        dist.all_gather(bufs, x, group=group)
+    else:
+        dist.gather(x, bufs, dst=dist.get_global_rank(group, dst), group=group)
+    if bufs is None:
+        return None
+    return bufs if sizes is None else [b.narrow(dim, 0, k) for b, k in zip(bufs, sizes)]
 
 
 def gather_tree(tree: Pytree, specs: Pytree, group, dst: int | None = None,
                 axis: str = "model") -> Pytree:
-    """The whole tree along ``axis`` from the slices of ``group``'s ranks:
-    on every rank when ``dst`` is None, else on group rank ``dst`` (the
-    other ranks get None at every split leaf and their own whole leaves)."""
+    """The whole tree along ``axis`` from the slices of ``group``'s ranks
+    (``shard_tree``'s inverse, uneven and blocked cuts included): on every
+    rank when ``dst`` is None, else on group rank ``dst`` (the other ranks
+    get None at every split leaf and their own whole leaves)."""
     if dist.get_world_size(group) == 1:
         return tree
 
@@ -116,7 +180,9 @@ def gather_tree(tree: Pytree, specs: Pytree, group, dst: int | None = None,
         d = spec_dim(s, axis)
         if d is None or not isinstance(x, torch.Tensor):
             return x
-        return all_gather_cat(x, d, group) if dst is None else gather_cat(x, d, group, dst)
+        parts, blocks = _cut(s, axis)
+        pieces = _gather_pieces(x, d, group, dst, parts, blocks)
+        return None if pieces is None else _join(pieces, d, blocks)
 
     return tree_map(leaf, tree, specs)
 

@@ -6,11 +6,19 @@ against the JAX package's, at full size.
   (``ep="data"``: the moe family's experts over the data axis), for
   qwen2-1.5b, qwen3-4b, qwen3-14b, command-r-35b, paligemma-3b,
   musicgen-medium, phi3.5-moe-42b-a6.6b and qwen3-moe-235b-a22b at 2, 4
-  and 8 model ranks (where the port splits the query heads) and
-  command-r at 16.  The named deviation: where M does not divide the KV
-  heads (qwen2's 2 at 4 ranks, paligemma's 1, qwen3-moe's 4 at 8) the JAX
+  and 8 model ranks (where the port splits the query heads), command-r
+  at 16, and hymba-1.5b and xlstm-1.3b at 2 and 4.  The named deviations
+  of a dim: where M does not divide the KV heads but is a multiple of
+  them (qwen2's 2 at 4 ranks, paligemma's 1, qwen3-moe's 4 at 8) the JAX
   package splits wk, wv (and bk, bv) through half heads and the port holds
-  them whole.
+  them whole; the mLSTM's wi and wf split their head columns (JAX: their
+  rows) and bi and bf their heads (JAX: whole).  The named deviations of
+  a cut (``Spec.parts``, ``Spec.blocks``), on the dims JAX splits:
+  hymba's 25 query and 5 KV heads, which 2 and 4 ranks divide neither,
+  cut into whole GQA groups (3 / 2 and 2 / 1 / 1 / 1) where JAX cuts
+  evenly through heads; the SSM's in_proj and the mLSTM's and sLSTM's
+  ``up`` split each of their two halves, where JAX splits the
+  concatenation.
 * ``zero1_specs`` and ``moment_specs`` equal JAX's on the same shapes
   (``jax.eval_shape`` of JAX's ``lm.init``) at 1, 2 and 16 data ranks
   (the other families at 2, 4 and 8, which split the experts), the
@@ -18,7 +26,11 @@ against the JAX package's, at full size.
   than JAX's model-split one.
 * ``lm.cache_specs``: the batch over the data axis, as JAX's; over the
   model axis the KV heads (dim 3) where JAX splits head_dim (dim 4), or
-  nothing where the heads do not split (the second named deviation).
+  nothing where the heads do not split (the second named deviation);
+  hymba's SSM state and conv input their channels, as JAX's; xlstm's
+  mLSTM C, n and m their heads (JAX: C's and n's head_dim, m whole), its
+  sLSTM states whole on every rank (JAX: d split), since each rank runs
+  the whole recurrence.
 * ``abstract_state`` (the meta device) has JAX's shapes and dtypes, and
   the port's ``n_params`` command-r's count of 28,448,530,432, for every
   family with a sharded layout.
@@ -34,9 +46,15 @@ against the JAX package's, at full size.
   qwen2-1.5b, paligemma-3b (its tied CCE head; ``lm.patch_share``'s
   columns against the projection), musicgen-medium (its full table's
   columns, its full head's vocabulary slices through ``lm.vocab_share``)
-  and phi3.5-moe (each rank's experts' ff slices) at 2 and 4 model ranks
-  (float32, rtol 1e-5 of the largest magnitude; the lookup's slices bit
-  for bit).
+  and phi3.5-moe (each rank's experts' ff slices), hymba-1.5b (its 4 / 2
+  heads, and 10 / 5, which 2 and 4 ranks cut into uneven whole GQA
+  groups; the SSM's projection summed between ``ssm.ssm_project`` and
+  ``ssm_scan``, the branches mixed by ``lm.hybrid_mix``) and xlstm-1.3b
+  (the mLSTM's x half gathered between ``xlstm.mlstm_up`` and
+  ``mlstm_heads``, the sLSTM's pre-activations between ``slstm_input``
+  and ``slstm_recur``, its FFN's partial sums by ``slstm_ffn``) at 2 and
+  4 model ranks (float32, rtol 1e-5 of the largest magnitude; the
+  lookup's slices bit for bit).
 * The data axis of the moe family emulated: 2 and 4 data ranks (and 2 x
   2), each routing its own groups (``moe.dispatch``), the all-to-alls
   replaced by transposes in rank order, each rank's experts
@@ -45,9 +63,12 @@ against the JAX package's, at full size.
   rtol 1e-5, for the einsum and the sort routes.  A data axis that does
   not split the experts, or a rank's tokens that are not whole groups,
   raise by name.
-* The families and options without a sharded layout (hybrid, xlstm)
-  raise by name; ``zero1`` on one rank is adamw bit for bit; the
-  tensor-parallel collectives are the identity without a group.
+* The options without a sharded layout raise by name; ``zero1`` on one
+  rank is adamw bit for bit; the tensor-parallel collectives are the
+  identity without a group; ``shard_tree`` and ``gather_tree`` invert
+  each other under uneven and blocked cuts; one sLSTM block under a group
+  of 2 runs one all-gather and one all-reduce forward, whatever the
+  sequence's length: none inside its per-token loop.
 """
 import dataclasses
 
@@ -69,11 +90,28 @@ from repro_torch.optim import optimizers as toptim
 from repro_torch.shard import Spec
 from repro_torch.tree import jax_leaves_with_paths
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one intra-op thread in this module: beside the suite's other
+    workers its threads would wait on each other at every small op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ("qwen2-1.5b", "qwen3-4b", "qwen3-14b", "command-r-35b")
 FAMILIES = ("paligemma-3b", "musicgen-medium", "phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b")
+RECURRENT = ("hymba-1.5b", "xlstm-1.3b")
 CASES = [(a, m) for a in ARCHS + FAMILIES for m in (2, 4, 8)
          if tconfigs.get(a).n_heads % m == 0] + [("command-r-35b", 16)]
+RECURRENT_CASES = [(a, m) for a in RECURRENT for m in (2, 4)]
 KV_LEAVES = ("['wk']", "['wv']", "['bk']", "['bv']")
+GATE_LEAVES = ("['mlstm']['wi']", "['mlstm']['wf']", "['mlstm']['bi']", "['mlstm']['bf']")
+HEAD_LEAVES = ("['attn']['wq']", "['attn']['wk']", "['attn']['wv']", "['attn']['wo']",
+               "['attn']['bq']", "['attn']['bk']", "['attn']['bv']")
+HALVES_LEAVES = ("['ssm']['in_proj']", "['mlstm']['up']", "['slstm']['up']")
 _SHAPES = {}
 
 
@@ -96,12 +134,23 @@ def _port_dims(spec_tree, axis):
     return {path: getattr(s, axis) for path, s in jax_leaves_with_paths(spec_tree)}
 
 
+def _whole_kv(cfg, n_model):
+    """M a multiple of the KV heads that does not divide them: every rank
+    holds them all."""
+    from repro_torch.models import layers as L
+
+    return cfg.family != "xlstm" and L.kv_split(cfg, n_model) is None
+
+
 def _deviates(cfg, n_model, path):
-    return cfg.n_kv_heads % n_model != 0 and path.endswith(KV_LEAVES)
+    """A leaf whose model dim is not JAX's."""
+    return (_whole_kv(cfg, n_model) and path.endswith(KV_LEAVES)) or path.endswith(GATE_LEAVES)
 
 
-@pytest.mark.parametrize("arch,n_model", CASES)
+@pytest.mark.parametrize("arch,n_model", CASES + RECURRENT_CASES)
 def test_param_specs_match_jax(arch, n_model):
+    from repro_torch.models import layers as L
+
     cfg = tconfigs.get(arch)
     jspecs = jlm.param_specs(jconfigs.get(arch))
     tspecs = tlm.param_specs(cfg, n_model)
@@ -109,12 +158,25 @@ def test_param_specs_match_jax(arch, n_model):
     assert set(got) == set(want)
     deviations = [p for p in got if _deviates(cfg, n_model, p)]
     for path in got:
-        if path in deviations:
+        if path.endswith(GATE_LEAVES[:2]):  # the head columns, where JAX splits the rows
+            assert (got[path], want[path]) == (3, 2), path
+        elif path.endswith(GATE_LEAVES[2:]):  # the heads, where JAX holds the biases whole
+            assert (got[path], want[path]) == (2, None), path
+        elif path in deviations:
             assert got[path] is None and want[path] is not None, path
         else:
             assert got[path] == want[path], path
-    assert bool(deviations) == (cfg.n_kv_heads % n_model != 0)
+    assert bool(deviations) == (_whole_kv(cfg, n_model) or cfg.family == "xlstm")
     assert _port_dims(tspecs, "data") == _jax_dims(jspecs, "data")
+    # the cuts: whole GQA groups where M divides neither head count, two halves
+    uneven = cfg.family != "xlstm" and len(set(L.kv_split(cfg, n_model) or (0,))) > 1
+    assert uneven == (arch == "hymba-1.5b")
+    for path, spec in jax_leaves_with_paths(tspecs):
+        parts = L.kv_split(cfg, n_model) if uneven and path.endswith(HEAD_LEAVES) else None
+        assert spec.parts == parts, path
+        assert spec.blocks == (2 if path.endswith(HALVES_LEAVES) else 1), path
+    if uneven:
+        assert L.kv_split(cfg, n_model) == {2: (3, 2), 4: (2, 1, 1, 1)}[n_model]
     experts = [p for p, d in _port_dims(tspecs, "data").items() if d is not None]
     assert len(experts) == (3 if cfg.family == "moe" else 0), experts
 
@@ -128,7 +190,8 @@ def test_param_specs_refuse_split_query_heads(arch, n_model):
 
 
 @pytest.mark.parametrize("arch,n_model,dp", [(a, 4, dp) for dp in (1, 2, 16) for a in ARCHS]
-                         + [(a, 4, dp) for dp in (2, 4, 8) for a in FAMILIES])
+                         + [(a, 4, dp) for dp in (2, 4, 8) for a in FAMILIES]
+                         + [(a, 4, dp) for dp in (2, 8) for a in RECURRENT])
 def test_zero1_and_moment_specs_match_jax(arch, n_model, dp):
     cfg = tconfigs.get(arch)
     shapes = _jax_shapes(arch)
@@ -141,6 +204,8 @@ def test_zero1_and_moment_specs_match_jax(arch, n_model, dp):
         for path in got:
             if not _deviates(cfg, n_model, path):
                 assert got[path] == want[path], (axis, path)
+    for (path, s), (_, z) in zip(jax_leaves_with_paths(tspecs), jax_leaves_with_paths(tz)):
+        assert (z.parts, z.blocks) == (s.parts, s.blocks), path  # the model cut kept
     jm = joptim.moment_specs("adamw", jspecs, shapes, dp_axis="data", dp_size=dp)
     tm = toptim.moment_specs("adamw", tspecs, shapes, dp)
     assert set(tm) == set(jm) == {"m", "v", "t"} and tm["t"] == Spec() and jm["t"] == P()
@@ -165,7 +230,48 @@ def test_cache_specs_name_their_deviation(arch, n_model):
     assert tlm.cache_specs(cfg, n_model, batch_split=False)["k"].data is None
 
 
-@pytest.mark.parametrize("arch", ARCHS + FAMILIES)
+# the port's cache dims over the model axis that depart from JAX's: (port, JAX)
+CACHE_DEVIATIONS = {"k": (3, 4), "v": (3, 4), "C": (3, 4), "n": (3, 4), "m": (3, None),
+                    "s_c": (None, 2), "s_n": (None, 2), "s_h": (None, 2), "s_m": (None, 2)}
+
+
+@pytest.mark.parametrize("arch,n_model", RECURRENT_CASES)
+def test_recurrent_cache_specs_name_their_deviations(arch, n_model, monkeypatch):
+    """hymba: k and v as the other families', in whole GQA groups where M
+    divides neither head count; ssm and conv their channels, as JAX's.
+    xlstm: C, n and m by heads; the sLSTM states whole (each rank runs the
+    whole recurrence).  The batch over the data axis, as JAX's.  A rank's
+    ``init_cache(group=)`` has the shapes ``cache_specs`` cuts out of the
+    whole cache (reduced hymba at 10 / 5 heads: uneven at 2 and 4)."""
+    import torch.distributed as dist
+
+    from repro_torch.models import layers as L
+    from repro_torch.shard import shard_tree
+
+    cfg = tconfigs.get(arch)
+    jspec = jlm.cache_specs(jconfigs.get(arch))
+    tspec = tlm.cache_specs(cfg, n_model)
+    assert set(tspec) == set(jspec)
+    for key, spec in tspec.items():
+        assert spec.data == _jax_dims(jspec[key], "data")[""], key
+        want = _jax_dims(jspec[key], "model")[""]
+        assert (spec.model, want) == CACHE_DEVIATIONS.get(key, (want, want)), key
+        kv = key in ("k", "v")
+        assert spec.parts == (L.kv_split(cfg, n_model) if kv else None), key
+    assert all(s.data is None for s in tlm.cache_specs(cfg, n_model, batch_split=False).values())
+    red = tconfigs.get_reduced(arch, **({"n_heads": 10, "n_kv_heads": 5}
+                                         if cfg.family == "hybrid" else {}))
+    whole = tlm.init_cache(red, 2, 16, device="meta")
+    monkeypatch.setattr(dist, "get_world_size", lambda g: n_model)
+    for r in range(n_model):
+        monkeypatch.setattr(dist, "get_rank", lambda g, r=r: r)
+        got = tlm.init_cache(red, 2, 16, device="meta", group=object())
+        want = shard_tree(whole, tlm.cache_specs(red, n_model), r, n_model)
+        assert ({k: tuple(v.shape) for k, v in got.items()}
+                == {k: tuple(v.shape) for k, v in want.items()}), r
+
+
+@pytest.mark.parametrize("arch", ARCHS + FAMILIES + RECURRENT)
 def test_abstract_state_has_jax_shapes(arch):
     cfg = tconfigs.get(arch)
     state = tsteps.abstract_state(cfg, toptim.adamw(weight_decay=0.1))
@@ -258,13 +364,68 @@ def test_mesh_rank_layout(data, model, monkeypatch):
         tmesh.Mesh(data + 1, model)
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-1.3b"])
-def test_other_families_have_no_sharded_layout(arch):
-    cfg = tconfigs.get(arch)
-    with pytest.raises(NotImplementedError, match=f"{cfg.family} family"):
-        tlm.param_specs(cfg, 2)
-    with pytest.raises(NotImplementedError, match=f"{cfg.family} family"):
-        tlm.cache_specs(cfg, 2)
+@pytest.mark.parametrize("parts,blocks", [(None, 1), (None, 2), ((3, 2), 1), ((2, 1, 1, 1), 1),
+                                          ((1, 2), 2)])
+def test_uneven_and_blocked_cuts_invert(parts, blocks):
+    """``shard_leaf``'s slices, put back together in rank order as
+    ``gather_tree`` does (``shard._join``), are the whole leaf (tensor and
+    numpy); an uneven cut's slices have its weights' sizes."""
+    from repro_torch.shard import _join, shard_leaf
+
+    M = len(parts) if parts else 2
+    x = torch.arange(2 * 60 * 3, dtype=torch.float32).reshape(2, 60, 3)
+    pieces = [shard_leaf(x, 1, r, M, parts, blocks) for r in range(M)]
+    assert torch.equal(_join(pieces, 1, blocks), x)
+    assert [p.shape[1] for p in pieces] == [60 * w // sum(parts or (1,) * M)
+                                           for w in (parts or (1,) * M)]
+    arr = [shard_leaf(x.numpy(), 1, r, M, parts, blocks) for r in range(M)]
+    assert all(np.array_equal(a, p.numpy()) for a, p in zip(arr, pieces))
+    with pytest.raises(ValueError, match="does not split"):
+        shard_leaf(x[:, :7], 1, 0, M, parts, blocks)
+
+
+def test_slstm_runs_no_collective_inside_its_loop(monkeypatch):
+    """One sLSTM block on a rank's slices under a (stubbed) group of 2:
+    forward, one all-gather (the pre-activations, before the loop) and one
+    all-reduce (the FFN's partial sums, after it) at 3 and at 9 tokens;
+    backward, the same count at both lengths too."""
+    import torch.distributed as dist
+
+    from repro_torch.models import xlstm as xlstm_lib
+    from repro_torch.shard import shard_tree
+
+    calls = []
+
+    def all_gather(parts, x, group=None):
+        calls.append("all_gather")
+        for p in parts:
+            p.copy_(x)
+
+    def all_reduce(x, op=None, group=None):
+        calls.append("all_reduce")
+
+    for name, fn in (("get_world_size", lambda g: 2), ("get_rank", lambda g: 0),
+                     ("all_gather", all_gather), ("all_reduce", all_reduce)):
+        monkeypatch.setattr(dist, name, fn)
+    cfg = tconfigs.get_reduced("xlstm-1.3b")
+    params, _ = tlm.init(cfg, torch.Generator().manual_seed(2), device="cpu")
+    sp = tlm.layer_params(shard_tree(params, tlm.param_specs(cfg, 2), 0, 2)["blocks"]["slstm"], 0)
+    counts = []
+    for S in (3, 9):
+        x = torch.randn(2, S, cfg.d_model, requires_grad=True)
+        calls.clear()
+        with torch.no_grad():
+            xlstm_lib.slstm_seq(sp, cfg, x, group=object())
+        forward = calls[:]
+        calls.clear()
+        y, _ = xlstm_lib.slstm_seq(sp, cfg, x, group=object())
+        trained = calls[:]
+        calls.clear()
+        y.sum().backward()
+        counts.append((forward, trained, calls[:]))
+    assert counts[0] == counts[1], counts
+    assert counts[0][0] == counts[0][1] == ["all_gather", "all_reduce"], counts[0]
+    assert counts[0][2] == ["all_reduce", "all_reduce"], counts[0]  # h's and x's gradients
 
 
 @pytest.mark.parametrize("option,value", [("seq_shard", True), ("zero2_grads", True),
@@ -304,7 +465,8 @@ def test_tensor_parallel_collectives_without_a_group():
 
 
 SHARE_ARCHS = ("command-r-35b", "qwen2-1.5b", "paligemma-3b", "musicgen-medium",
-               "phi3.5-moe-42b-a6.6b")
+               "phi3.5-moe-42b-a6.6b", "hymba-1.5b", "hymba-1.5b-kv5", "xlstm-1.3b")
+SHARE_OVERRIDES = {"hymba-1.5b-kv5": {"n_heads": 10, "n_kv_heads": 5}}
 
 
 def _emulated_embed(ranks, buffers, cfg, toks):
@@ -315,14 +477,49 @@ def _emulated_embed(ranks, buffers, cfg, toks):
     return (x * cfg.d_model ** 0.5 if cfg.emb_scale else x).to(cfg.dtype)
 
 
+def _emulated_xlstm(cfg, params, ranks, x, cache, close):
+    """The xlstm stack of M ranks in rank order: each mLSTM block's x half
+    gathered between ``mlstm_up`` and ``mlstm_heads``, its partial outputs
+    summed, each rank's heads' state held against its slice of the cache;
+    each sLSTM block's pre-activations gathered, the whole recurrence run
+    once, its FFN's partial sums added."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import xlstm as xlstm_lib
+
+    M = len(ranks)
+    H = cfg.n_heads // M
+    walks = [tlm._xlstm_blocks(params["blocks"], cfg)]
+    walks += [tlm._xlstm_blocks(rp["blocks"], cfg) for rp in ranks]
+    for (kind, at, _, norm), *rest in zip(*walks):
+        qs = [p for _, _, p, _ in rest]
+        hn = L.apply_norm(norm, x)
+        if kind == "m":
+            ups = [xlstm_lib.mlstm_up(q, hn) for q in qs]
+            xm = torch.cat([u[0] for u in ups], dim=-1)
+            outs = [xlstm_lib.mlstm_heads(q, cfg, xm, u[1]) for q, u in zip(qs, ups)]
+            for r, (_, state) in enumerate(outs):
+                for key, t in zip(("C", "n", "m"), state):
+                    close(t, cache[key][at][:, r * H:(r + 1) * H])
+            x = x + sum(o[0] for o in outs)
+        else:
+            zx = torch.cat([xlstm_lib.slstm_input(q, hn) for q in qs], dim=-1)
+            h, state = xlstm_lib.slstm_recur(qs[0], cfg, zx)
+            for key, t in zip(("s_c", "s_n", "s_h", "s_m"), state):
+                close(t, cache[key][at])
+            x = x + sum(xlstm_lib.slstm_ffn(q, h) for q in qs)
+    return x
+
+
 @pytest.mark.parametrize("arch,n_model", [(a, m) for a in SHARE_ARCHS for m in (2, 4)])
 def test_rank_shares_emulated_equal_the_unsharded_prefill(arch, n_model):
     from repro_torch.models import layers as L
     from repro_torch.models import moe as moe_lib
+    from repro_torch.models import ssm as ssm_lib
     from repro_torch.shard import shard_tree
 
-    cfg = tconfigs.get_reduced(arch, dtype=torch.float32)
-    M, S = n_model, 12
+    cfg = tconfigs.get_reduced(arch.split("-kv")[0], dtype=torch.float32,
+                               **SHARE_OVERRIDES.get(arch, {}))
+    M, S = n_model, min(12, cfg.sliding_window or 12)  # hymba within its window: flash
     params, buffers = tlm.init(cfg, torch.Generator().manual_seed(3), device="cpu")
     ranks = [shard_tree(params, tlm.param_specs(cfg, M), r, M) for r in range(M)]
     rng = np.random.default_rng(4)
@@ -340,23 +537,35 @@ def test_rank_shares_emulated_equal_the_unsharded_prefill(arch, n_model):
         positions = torch.arange(S)[None].expand(2, S)
         x = tlm._add_positions(cfg, x, positions)
         freqs = L.rope_freqs(cfg, device="cpu")
-        split = L.kv_heads_split(cfg, M)
-        kvh = cfg.n_kv_heads // M if split else cfg.n_kv_heads
-        for i in range(cfg.n_layers):
+        layers = 0 if cfg.family == "xlstm" else cfg.n_layers
+        if cfg.family == "xlstm":
+            x = _emulated_xlstm(cfg, params, ranks, x, cache, close)
+        for i in range(layers):
             lp = tlm.layer_params(params["blocks"], i)
             lps = [tlm.layer_params(rp["blocks"], i) for rp in ranks]
             h = L.apply_norm(lp["ln1"], x)
             attn = [tlm.prefill_attention_share(q, cfg, h, positions, freqs, r, M)
                     for r, q in enumerate(lps)]
             for r, (_, k, v) in enumerate(attn):
-                held = slice(r * kvh, (r + 1) * kvh) if split else slice(None)
+                held = slice(*L.kv_range(cfg, r, M))
                 for got, full in ((k, cache["k"]), (v, cache["v"])):
                     close(got, full[i, :, :, held])
             if cfg.parallel_block:
                 y = sum(tlm.parallel_share(q, cfg, a, h) for q, (a, _, _) in zip(lps, attn))
                 x = tlm.parallel_residual(lp, cfg, x, y)
                 continue
-            x = x + sum(a for a, _, _ in attn)
+            if cfg.family == "hybrid":  # the projection summed inside the SSM branch
+                proj = [ssm_lib.ssm_project(q["ssm"], cfg, h) for q in lps]
+                whole = sum(p[2] for p in proj)
+                scans = [ssm_lib.ssm_scan(q["ssm"], cfg, p[0], p[1], whole)
+                         for q, p in zip(lps, proj)]
+                di = cfg.ssm_inner // M
+                for r, ((_, _, _, conv), (_, state)) in enumerate(zip(proj, scans)):
+                    close(state, cache["ssm"][i, :, r * di:(r + 1) * di])
+                    close(conv, cache["conv"][i, ..., r * di:(r + 1) * di])
+                x = tlm.hybrid_mix(lp, x, sum(a for a, _, _ in attn), sum(s for s, _ in scans))
+            else:
+                x = x + sum(a for a, _, _ in attn)
             h2 = L.apply_norm(lp["ln2"], x)
             if cfg.family == "moe":  # each rank's experts' ff slices, combined in token space
                 x = x + sum(moe_lib.apply_moe(q["moe"], cfg, h2, group_size=cfg.moe_group)[0]

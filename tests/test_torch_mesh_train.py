@@ -21,13 +21,18 @@ which import it, do not load it.
   adam scales to about ±lr; ``test_torch_lm_train.py``).
 * The same for reduced paligemma-3b (tied CCE head, MQA held whole; its
   train batches carry ``patch_emb``), musicgen-medium (full table and
-  head, 4 codebooks, MHA) and phi3.5-moe (4 experts over the data axis,
+  head, 4 codebooks, MHA), phi3.5-moe (4 experts over the data axis,
   2 a rank at D = 2; ``moe_group`` 8 and 8-token prompts, so that a data
-  rank's tokens are whole groups), at (1, 1), (1, 2), (2, 1) and (2, 2):
+  rank's tokens are whole groups), hymba-1.5b with 10 query and 5 KV
+  heads (2 model ranks hold 3 and 2 whole GQA groups; its SSM's channels
+  split; the 9-token prompt runs past its window of 8) and xlstm-1.3b
+  (one superblock: an mLSTM block's heads split, an sLSTM block's
+  recurrence whole on each rank), at (1, 1), (1, 2), (2, 1) and (2, 2):
   at (2, 1) and (2, 2) the experts' gradients arrive whole through the
   all-to-alls and the clip's norm sums their slices over the data group.
   The moe step's "aux", summed over the data group, tracks the (1, 1)
-  step's within ``TOL``.
+  step's within ``TOL``.  hymba's and xlstm's ``ServeEngine`` on the model
+  group gives every rank the unsharded engine's tokens.
 * DLRM (reduced Criteo at cap 300, ``k_multiple`` M): 4 steps of
   ``build_dlrm_sharded_trainer`` on the mesh, a transition at step 3, a
   checkpoint at 4.  The data axis changes nothing but the order of float
@@ -57,7 +62,9 @@ WORLDS = {1: [("lm", 1, 1), ("family", 1, 1)],
           4: [("lm", 2, 2), ("family", 2, 2), ("dlrm", 2, 2)]}
 LM_CASES = {"command-r-35b": {}, "qwen2-1.5b": {}, "qwen2-1.5b-kv1": {"n_kv_heads": 1}}
 FAMILY_CASES = {"paligemma-3b": {}, "musicgen-medium": {"n_kv_heads": 4},
-                "phi3.5-moe-42b-a6.6b": {"moe_group": 8}}
+                "phi3.5-moe-42b-a6.6b": {"moe_group": 8},
+                "hymba-1.5b-kv5": {"n_heads": 10, "n_kv_heads": 5}, "xlstm-1.3b": {}}
+ENGINE_CASES = ("hymba-1.5b-kv5", "xlstm-1.3b")  # served through ServeEngine(group=) too
 MOE_PROMPT = 8  # a data rank's prompt: one whole group
 TOL = dict(rtol=1e-4, atol=1e-6)
 SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -185,6 +192,20 @@ def _lm(case, overrides, mesh, res):
     want = shard_tree(shard_tree(ref_cache, cspecs, mesh.coords[1], M), cspecs,
                       mesh.coords[0], D, "data")
     _record(res, f"{tag}/cache", cache, want, SERVE_TOL)
+    if case in ENGINE_CASES:
+        res[f"{tag}/engine"] = np.array(_engine_tokens(cfg, local, buffers, mesh.model)
+                                        == _engine_tokens(cfg, params, buffers, None))
+
+
+def _engine_tokens(cfg, params, buffers, group):
+    """The tokens ``ServeEngine`` generates for 3 prompts over 2 slots."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, buffers, max_batch=2, max_seq=MAX_SEQ, group=group)
+    rng = np.random.default_rng(13)
+    for uid, n in enumerate((5, PROMPT, 3)):
+        eng.submit(Request(uid, rng.integers(0, cfg.vocab, n), max_tokens=3))
+    return sorted((r.uid, r.generated) for r in eng.run())
 
 
 def _dlrm_cfg(k_multiple):
@@ -350,6 +371,13 @@ def test_moe_aux_is_summed_over_the_data_group(runs, world, D, M):
     for res in runs[world]:
         np.testing.assert_allclose(res[key.format(D, M, "aux")], want, **TOL)
         assert list(res[key.format(D, M, "experts")]) == [4 // D] * 2  # a rank's experts
+
+
+@pytest.mark.parametrize("case", ENGINE_CASES)
+@pytest.mark.parametrize("world,D,M", FAMILY_MESHES)
+def test_engine_serves_on_the_model_group(runs, world, D, M, case):
+    for r, res in enumerate(runs[world]):
+        assert bool(res[f"{case}@{D}x{M}/engine"]), f"rank {r}: {case} at ({D}, {M})"
 
 
 DLRM_MESHES = [(w, D, M) for w, runs in WORLDS.items() for k, D, M in runs if k == "dlrm"]

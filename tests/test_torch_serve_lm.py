@@ -39,6 +39,17 @@ from repro_torch.obs.runlog import RunLog, read_runlog
 from repro_torch.serve.engine import Request as TRequest
 from repro_torch.serve.engine import ServeEngine as TEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one intra-op thread in this module: beside the suite's other
+    workers its threads would wait on each other at every small op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 

@@ -39,6 +39,17 @@ from repro_torch.models import xlstm as txlstm
 from repro_torch.train import loop as tloop
 from repro_torch.tree import jax_leaves_with_paths, tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one intra-op thread in this module: beside the suite's other
+    workers its threads would wait on each other at every small op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
